@@ -25,7 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from nice_slam_torch.ops.interp import sample_grid_feature
+from nice_slam_torch.ops.interp import sample_grid_feature, sample_grid_features
 
 Params = Dict[str, Any]
 
@@ -157,11 +157,12 @@ def apply_mlp(params: Params, spec: MLPSpec, p: torch.Tensor,
               grids: Dict[str, torch.Tensor], bound: torch.Tensor) -> torch.Tensor:
     """One grid-conditioned decoder on (N, 3) world points -> (N,) occupancy
     or (N, 4) rgb+occ."""
-    feat = sample_grid_feature(grids["grid_" + spec.name], p, bound)
+    names = ["grid_" + spec.name] + (["grid_middle"] if spec.concat_feature else [])
+    feats = sample_grid_features([grids[k] for k in names], p, bound)
+    feat = feats[0]
     if spec.concat_feature:
         # the fine decoder sees the middle feature without a gradient path
-        feat_mid = sample_grid_feature(grids["grid_middle"], p, bound).detach()
-        feat = torch.cat([feat, feat_mid], dim=-1)
+        feat = torch.cat([feat, feats[1].detach()], dim=-1)
     embedded = embed_points(params, spec, p)
     h = embedded
     for i, layer in enumerate(params["pts_linears"]):
@@ -205,13 +206,15 @@ def apply_nice_stage_batched(params: Dict[str, Params], spec: NICESpec,
     hidden = spec.hidden_size
     fw = 2 * spec.c_dim  # widest feature (the fine concat)
 
-    mid_feat = sample_grid_feature(grids["grid_middle"], p, bound)
-    fine_feat = torch.cat([sample_grid_feature(grids["grid_fine"], p, bound),
-                           mid_feat.detach()], dim=-1)
+    # one lookup Function for the stage's grids: one K2 and/or one K3 in
+    # its backward; the middle feature fed to the fine decoder is detached,
+    # so its cotangent reaches the points only through the middle decoder
+    looked = sample_grid_features([grids["grid_" + n] for n in names], p, bound)
+    mid_feat = looked[0]
+    fine_feat = torch.cat([looked[1], mid_feat.detach()], dim=-1)
     feats = [F.pad(mid_feat, (0, fw - spec.c_dim)), fine_feat]
     if stage == "color":
-        color_feat = sample_grid_feature(grids["grid_color"], p, bound)
-        feats.append(F.pad(color_feat, (0, fw - spec.c_dim)))
+        feats.append(F.pad(looked[2], (0, fw - spec.c_dim)))
     feat = torch.stack(feats)  # (D, N, fw)
 
     B = torch.stack([pp["embedder_B"] for pp in plist])  # (D, 3, 93)

@@ -6,16 +6,20 @@ normalized to [-1, 1] in (x, y, z) order.  Numerics follow
 ``grid_sample(mode='bilinear', padding_mode='border', align_corners=True)``:
 u = (p+1)/2*(S-1) clamped to [0, S-1], floor corner i0, i1 = min(i0+1, S-1).
 
-The lookup is a ``torch.autograd.Function`` over three launches, each a
-hand-written CUDA kernel (``nice_slam_torch/csrc/trilinear.cu``) with a
-plain PyTorch version beside it:
+The lookup is one ``torch.autograd.Function`` over all the grids a
+decoder stage reads at the same points (``trilinear_interp_multi``; the
+one-grid ``trilinear_interp`` is its special case), built on three
+hand-written CUDA kernels (``nice_slam_torch/csrc/trilinear.cu``), each
+with a plain PyTorch version beside it:
 
-  K1 ``trilinear_fwd``        the 8-corner gather + lerp;
-  K2 ``trilinear_bwd_dgrid``  the grid gradient (scatter-add of w_k * g);
+  K1 ``trilinear_fwd``        the 8-corner gather + lerp, one launch per grid;
+  K2 ``trilinear_bwd_dgrid``  the grid gradients (scatter-add of w_k * g),
+                              one launch for every grid that needs one;
   K3 ``trilinear_bwd_dp``     the point gradient (g . c_k through dw_k/du,
-                              with the border-clamp derivative mask).
+                              with the border-clamp derivative mask), summed
+                              over the grids in one launch.
 
-The backward runs K2 only when the grid needs a gradient and K3 only when
+The backward runs K2 only when a grid needs a gradient and K3 only when
 the points do, so tracking (frozen grids, pose gradient) never runs K2.
 A wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises.
@@ -23,7 +27,8 @@ tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -33,6 +38,8 @@ from nice_slam_torch.ops.geometry import normalize_3d_coordinate
 # launches per kernel, counted where each wrapper launches its kernel
 launch_counts: Dict[str, int] = {"trilinear_fwd": 0, "trilinear_bwd_dgrid": 0,
                                  "trilinear_bwd_dp": 0}
+
+MAX_GRIDS = 3  # grids per K2/K3 launch (kMaxGrids in trilinear.cu)
 
 
 def reset_launch_counts() -> None:
@@ -133,6 +140,22 @@ def trilinear_bwd_dp_plain(grid: torch.Tensor, p: torch.Tensor,
     return torch.stack(df, dim=-1) * dudp
 
 
+def trilinear_bwd_dgrid_multi_plain(p: torch.Tensor, gs: Sequence[torch.Tensor],
+                                    shapes: Sequence[Tuple[int, int, int, int]]
+                                    ) -> List[torch.Tensor]:
+    """K2's plain version over several grids: one gradient per grid."""
+    return [trilinear_bwd_dgrid_plain(p, g, s) for g, s in zip(gs, shapes)]
+
+
+def trilinear_bwd_dp_multi_plain(grids: Sequence[torch.Tensor], p: torch.Tensor,
+                                 gs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K3's plain version over several grids: the sum of their dp."""
+    dp = trilinear_bwd_dp_plain(grids[0], p, gs[0])
+    for grid, g in zip(grids[1:], gs[1:]):
+        dp = dp + trilinear_bwd_dp_plain(grid, p, g)
+    return dp
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -162,6 +185,24 @@ def _check_launch(grid_shape, p: torch.Tensor) -> Tuple[int, int, int, int, int]
     return p.shape[0], nx, ny, nz, C
 
 
+def _check_grads(p: torch.Tensor, gs: Sequence[torch.Tensor],
+                 shapes: Sequence[Tuple[int, int, int, int]]) -> Tuple[int, int]:
+    """Checks shared by K2 and K3: 1..MAX_GRIDS grids of one channel count,
+    one (N, C) cotangent each.  Returns (N, C)."""
+    if not 1 <= len(gs) <= MAX_GRIDS or len(shapes) != len(gs):
+        raise ValueError(f"one launch takes 1..{MAX_GRIDS} grids with one "
+                         f"cotangent each, got {len(shapes)} and {len(gs)}")
+    _check("points", p, 2)
+    C = shapes[0][3]
+    for g, shape in zip(gs, shapes):
+        _check("grad_output", g, 2)
+        n, _, _, _, c = _check_launch(shape, p)
+        if c != C or g.shape != (n, C):
+            raise ValueError(f"grad_output must be {(n, C)} for grid {tuple(shape)}, "
+                             f"got {tuple(g.shape)}")
+    return p.shape[0], C
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -183,71 +224,114 @@ def trilinear_fwd(grid: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def trilinear_bwd_dgrid(p: torch.Tensor, g: torch.Tensor,
-                        shape: Tuple[int, int, int, int]) -> torch.Tensor:
-    """K2: the grid gradient, accumulated in float32 by atomics."""
-    if not g.is_cuda:
-        return trilinear_bwd_dgrid_plain(p, g, shape)
-    _check("points", p, 2)
-    _check("grad_output", g, 2)
-    n, nx, ny, nz, C = _check_launch(shape, p)
-    if g.shape != (n, C):
-        raise ValueError(f"grad_output must be {(n, C)}, got {tuple(g.shape)}")
-    dgrid = torch.zeros(shape, dtype=torch.float32, device=g.device)
+def trilinear_bwd_dgrid_multi(p: torch.Tensor, gs: Sequence[torch.Tensor],
+                              shapes: Sequence[Tuple[int, int, int, int]]
+                              ) -> List[torch.Tensor]:
+    """K2: the gradients of up to MAX_GRIDS grids looked up at the same
+    points, in one launch; each a zeroed float32 grid accumulated by atomics
+    (views of one buffer, zeroed by one memset)."""
+    if not gs[0].is_cuda:
+        return trilinear_bwd_dgrid_multi_plain(p, gs, shapes)
+    n, C = _check_grads(p, gs, shapes)
+    sizes = [s[0] * s[1] * s[2] * C for s in shapes]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=p.device)
+    outs = [o.view(s) for o, s in zip(torch.split(flat, sizes), shapes)]
     if n:
+        desc = []
+        for g, o, s in zip(gs, outs, shapes):
+            desc += [g.data_ptr(), o.data_ptr(), s[0], s[1], s[2]]
         rc = kernels.library("trilinear").trilinear_bwd_dgrid(
-            p.data_ptr(), g.data_ptr(), dgrid.data_ptr(), n, nx, ny, nz, C,
+            (ctypes.c_longlong * len(desc))(*desc), len(gs), p.data_ptr(), n, C,
             _stream())
         kernels.check(rc, "trilinear_bwd_dgrid")
         launch_counts["trilinear_bwd_dgrid"] += 1
-    return dgrid
+    return outs
 
 
-def trilinear_bwd_dp(grid: torch.Tensor, p: torch.Tensor,
-                     g: torch.Tensor) -> torch.Tensor:
-    """K3: the point gradient (N, 3)."""
-    if not grid.is_cuda:
-        return trilinear_bwd_dp_plain(grid, p, g)
-    _check("grid", grid, 4)
-    _check("points", p, 2)
-    _check("grad_output", g, 2)
-    n, nx, ny, nz, C = _check_launch(grid.shape, p)
-    if g.shape != (n, C):
-        raise ValueError(f"grad_output must be {(n, C)}, got {tuple(g.shape)}")
-    dp = torch.empty((n, 3), dtype=torch.float32, device=grid.device)
+def trilinear_bwd_dp_multi(grids: Sequence[torch.Tensor], p: torch.Tensor,
+                           gs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K3: the point gradient (N, 3), summed over up to MAX_GRIDS grids
+    looked up at the same points, in one launch."""
+    if not grids[0].is_cuda:
+        return trilinear_bwd_dp_multi_plain(grids, p, gs)
+    for grid in grids:
+        _check("grid", grid, 4)
+    n, C = _check_grads(p, gs, [tuple(grid.shape) for grid in grids])
+    dp = torch.empty((n, 3), dtype=torch.float32, device=p.device)
     if n:
+        desc = []
+        for grid, g in zip(grids, gs):
+            desc += [grid.data_ptr(), g.data_ptr(), *grid.shape[:3]]
         rc = kernels.library("trilinear").trilinear_bwd_dp(
-            grid.data_ptr(), p.data_ptr(), g.data_ptr(), dp.data_ptr(), n, nx,
-            ny, nz, C, _stream())
+            (ctypes.c_longlong * len(desc))(*desc), len(grids), p.data_ptr(),
+            dp.data_ptr(), n, C, _stream())
         kernels.check(rc, "trilinear_bwd_dp")
         launch_counts["trilinear_bwd_dp"] += 1
     return dp
 
 
+def trilinear_bwd_dgrid(p: torch.Tensor, g: torch.Tensor,
+                        shape: Tuple[int, int, int, int]) -> torch.Tensor:
+    """K2 for one grid."""
+    return trilinear_bwd_dgrid_multi(p, [g], [shape])[0]
+
+
+def trilinear_bwd_dp(grid: torch.Tensor, p: torch.Tensor,
+                     g: torch.Tensor) -> torch.Tensor:
+    """K3 for one grid: the point gradient (N, 3)."""
+    return trilinear_bwd_dp_multi([grid], p, [g])
+
+
 class _Trilinear(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, grid, p):
-        grid = grid.contiguous()
-        p = p.contiguous()
-        ctx.save_for_backward(grid, p)
-        return trilinear_fwd(grid, p)
+    """Lookups of several grids at the same points: forward K1 per grid;
+    backward one K2 over the grids that need a gradient and one K3 summing
+    dp over the grids whose feature has a cotangent."""
 
     @staticmethod
-    def backward(ctx, g):
-        grid, p = ctx.saved_tensors
-        g = g.contiguous()
-        dgrid = dp = None
-        if ctx.needs_input_grad[0]:
-            dgrid = trilinear_bwd_dgrid(p, g, tuple(grid.shape))
-        if ctx.needs_input_grad[1]:
-            dp = trilinear_bwd_dp(grid, p, g)
-        return dgrid, dp
+    def forward(ctx, p, *grids):
+        ctx.set_materialize_grads(False)
+        p = p.contiguous()
+        grids = tuple(grid.contiguous() for grid in grids)
+        ctx.save_for_backward(p, *grids)
+        return tuple(trilinear_fwd(grid, p) for grid in grids)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        p, *grids = ctx.saved_tensors
+        live = [i for i, g in enumerate(gs) if g is not None]
+        gs = [None if g is None else g.contiguous() for g in gs]
+        dgrids = [None] * len(grids)
+        want = [i for i in live if ctx.needs_input_grad[1 + i]]
+        if want:
+            outs = trilinear_bwd_dgrid_multi(
+                p, [gs[i] for i in want], [tuple(grids[i].shape) for i in want])
+            for i, o in zip(want, outs):
+                dgrids[i] = o
+        dp = None
+        if ctx.needs_input_grad[0] and live:
+            dp = trilinear_bwd_dp_multi([grids[i] for i in live], p,
+                                        [gs[i] for i in live])
+        return (dp, *dgrids)
+
+
+def trilinear_interp_multi(grids: Sequence[torch.Tensor],
+                           p_nor: torch.Tensor) -> List[torch.Tensor]:
+    """Trilinearly interpolate each channels-last grid at the same (N, 3)
+    points in [-1, 1] -> one (N, C) feature per grid, differentiable in the
+    grids and the points."""
+    return list(_Trilinear.apply(p_nor, *grids))
 
 
 def trilinear_interp(grid: torch.Tensor, p_nor: torch.Tensor) -> torch.Tensor:
-    """Trilinearly interpolate a channels-last grid at (N, 3) points in
-    [-1, 1] -> (N, C), differentiable in both arguments."""
-    return _Trilinear.apply(grid, p_nor)
+    """The one-grid lookup: (N, 3) points in [-1, 1] -> (N, C)."""
+    return _Trilinear.apply(p_nor, grid)[0]
+
+
+def sample_grid_features(grids: Sequence[torch.Tensor], p_world: torch.Tensor,
+                         bound: torch.Tensor) -> List[torch.Tensor]:
+    """World-space (N, 3) points -> the features of each dense grid spanning
+    the (3, 2) box ``bound``."""
+    return trilinear_interp_multi(grids, normalize_3d_coordinate(p_world, bound))
 
 
 def sample_grid_feature(grid: torch.Tensor, p_world: torch.Tensor,

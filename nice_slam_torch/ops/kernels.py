@@ -24,13 +24,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.POINTER(ctypes.c_longlong)  # a per-grid descriptor table
 # C signatures of every exported entry: name -> argtypes (all return int,
 # the launch's cudaGetLastError())
 SIGNATURES = {
     "trilinear": {
         "trilinear_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "trilinear_bwd_dgrid": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "trilinear_bwd_dp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "trilinear_bwd_dgrid": [_D, _I, _P, _I, _I, _P],
+        "trilinear_bwd_dp": [_D, _I, _P, _P, _I, _I, _P],
     },
 }
 

@@ -10,8 +10,13 @@ one main-mapper call (60 iterations) and one coarse-mapper call.  For each
 it prints one JSON line: wall time of an unprofiled run (host clock,
 ending in a synchronize), the device's busy time in a profiled run (union
 of its kernel, copy and memset intervals), the idle share (1 - busy /
-wall), the number of device operations, and the operations taking the
-most device time.  Needs a CUDA device.
+wall), the number of device operations, the operations taking the
+most device time, and (``kernels``) the device ms and launch count of
+each trilinear kernel, K1-K3, whether or not it ranks in ``top``.  Needs
+a CUDA device.
+
+Run as a file with another checkout first on ``PYTHONPATH`` to measure
+that checkout's port with this instrumentation.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import argparse
 import json
 import os
 import time
+
+TRILINEAR_KERNELS = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp")
 
 
 def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
@@ -43,11 +50,17 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    kernels = {}
+    for k in TRILINEAR_KERNELS:
+        hits = [(t, c) for n, (t, c) in by_name.items() if k + "_kernel" in n]
+        kernels[k] = {"ms": sum(t for t, _ in hits) / 1e3,
+                      "count": sum(c for _, c in hits)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
             "device_ops": len(evts),
             "top": [{"name": n[:80], "ms": t / 1e3, "count": c}
-                    for n, (t, c) in ranked]}
+                    for n, (t, c) in ranked],
+            "kernels": kernels}
 
 
 def main() -> None:

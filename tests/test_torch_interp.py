@@ -1,12 +1,16 @@
 """The port's trilinear lookup (K1 forward, K2 grid gradient, K3 point
 gradient) against the JAX package's custom VJP, on the CPU where the port
-runs each kernel's plain version.
+runs each kernel's plain version.  The multi-grid lookup
+(``trilinear_interp_multi``, one autograd Function per decoder stage) is
+held to the separate one-grid lookups and, grid by grid, to JAX.
 
 The JAX side runs with the exact-f32 grid-gradient buffer
 (``_DGRAD_BF16=False``), so both of its dgrid strategies are held to
 atol 1e-5: the one-hot matmul for grids of at most ``_MATMUL_V_MAX``
 cells and the cell-block scatter above that.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,8 @@ import torch
 
 from nice_slam_tpu.ops import interp as jinterp
 from nice_slam_torch.ops import interp as tinterp
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 ATOL = 1e-5
 
@@ -81,12 +87,12 @@ def test_backward_runs_only_the_needed_gradient(monkeypatch):
 
     pg = p.clone().requires_grad_(True)
     with monkeypatch.context() as m:
-        m.setattr(tinterp, "trilinear_bwd_dgrid", boom)
+        m.setattr(tinterp, "trilinear_bwd_dgrid_multi", boom)
         tinterp.trilinear_interp(grid, pg).sum().backward()
     assert pg.grad is not None
     gg = grid.clone().requires_grad_(True)
     with monkeypatch.context() as m:
-        m.setattr(tinterp, "trilinear_bwd_dp", boom)
+        m.setattr(tinterp, "trilinear_bwd_dp_multi", boom)
         tinterp.trilinear_interp(gg, p).sum().backward()
     assert gg.grad is not None
 
@@ -121,3 +127,134 @@ def test_bilinear_sample_2d_matches_jax():
     got = tinterp.bilinear_sample_2d(torch.tensor(img), torch.tensor(u),
                                      torch.tensor(v))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+MULTI_SHAPES = [(17, 16, 18, 8), (6, 9, 7, 8), (5, 4, 6, 8)]
+
+
+@pytest.mark.parametrize("n_grids", [1, 2, 3])
+def test_multi_lookup_equals_separate_lookups(n_grids):
+    """Features, each grid's gradient and the dp summed over the grids."""
+    rng = np.random.default_rng(6)
+    shapes = MULTI_SHAPES[:n_grids]
+    grids = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    p = _points(rng, 200, shapes[0])
+    cots = [rng.standard_normal((p.shape[0], s[3])).astype(np.float32)
+            for s in shapes]
+
+    gm = [torch.tensor(g, requires_grad=True) for g in grids]
+    pm = torch.tensor(p, requires_grad=True)
+    feats = tinterp.trilinear_interp_multi(gm, pm)
+    sum((f * torch.tensor(c)).sum() for f, c in zip(feats, cots)).backward()
+
+    gs = [torch.tensor(g, requires_grad=True) for g in grids]
+    ps = torch.tensor(p, requires_grad=True)
+    sep = [tinterp.trilinear_interp(g, ps) for g in gs]
+    sum((f * torch.tensor(c)).sum() for f, c in zip(sep, cots)).backward()
+
+    for a, b in zip(feats, sep):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    for a, b in zip(gm, gs):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=0)
+    torch.testing.assert_close(pm.grad, ps.grad, atol=1e-5, rtol=1e-6)
+
+
+def test_multi_lookup_matches_jax_per_grid(monkeypatch):
+    """Grids above and below 4096 cells in one lookup, points past every
+    face and on exact ties: each feature and grid gradient against JAX's
+    trilinear_interp at exact f32, and dp against the gradient of the sum."""
+    monkeypatch.setattr(jinterp, "_DGRAD_BF16", False)
+    shapes = MULTI_SHAPES[:2]
+    assert [s[0] * s[1] * s[2] > jinterp._MATMUL_V_MAX for s in shapes] == [True, False]
+    rng = np.random.default_rng(7)
+    grids = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    p = np.concatenate([_points(rng, 150, s) for s in shapes])
+    cots = [rng.standard_normal((p.shape[0], s[3])).astype(np.float32)
+            for s in shapes]
+
+    def loss(gl, pp):
+        return sum(jnp.sum(jinterp.trilinear_interp_explicit_vjp(g, pp) * c)
+                   for g, c in zip(gl, cots))
+
+    jg = [jnp.asarray(g) for g in grids]
+    dgj, dpj = jax.grad(loss, argnums=(0, 1))(jg, jnp.asarray(p))
+
+    gt = [torch.tensor(g, requires_grad=True) for g in grids]
+    pt = torch.tensor(p, requires_grad=True)
+    feats = tinterp.trilinear_interp_multi(gt, pt)
+    sum((f * torch.tensor(c)).sum() for f, c in zip(feats, cots)).backward()
+
+    for f, g, d, gj, dj in zip(feats, grids, gt, jg, dgj):
+        ref = jinterp.trilinear_interp(gj, jnp.asarray(p))
+        np.testing.assert_allclose(f.detach().numpy(), np.asarray(ref), atol=ATOL)
+        np.testing.assert_allclose(d.grad.numpy(), np.asarray(dj), atol=ATOL)
+    np.testing.assert_allclose(pt.grad.numpy(), np.asarray(dpj), atol=ATOL)
+
+
+def test_multi_lookup_skips_grids_without_a_cotangent():
+    """A detached feature (the middle feature fed to the fine decoder)
+    gives its grid no gradient and adds nothing to dp."""
+    rng = np.random.default_rng(8)
+    a = torch.tensor(rng.standard_normal((5, 6, 7, 4)), dtype=torch.float32,
+                     requires_grad=True)
+    b = torch.tensor(rng.standard_normal((4, 4, 4, 4)), dtype=torch.float32,
+                     requires_grad=True)
+    p = torch.tensor(rng.uniform(-1, 1, (30, 3)), dtype=torch.float32,
+                     requires_grad=True)
+    fa, fb = tinterp.trilinear_interp_multi([a, b], p)
+    (fa.sum() + 0.0 * fb.detach().sum()).backward()
+    assert b.grad is None
+    pa = p.detach().clone().requires_grad_(True)
+    tinterp.trilinear_interp(a.detach(), pa).sum().backward()
+    torch.testing.assert_close(p.grad, pa.grad, atol=0, rtol=0)
+
+
+def test_tracking_never_runs_k2_and_runs_k3_once_per_iteration(monkeypatch):
+    """One tracking iteration (pose gradient, frozen grids) on the port's
+    own box scene: no grid-gradient call, one point-gradient call over the
+    stage's three grids."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.models.pretrain import load_pretrain
+    from nice_slam_torch.models.scene import build_scene
+    from nice_slam_torch.ops.geometry import tensor_from_pose
+    from nice_slam_torch.ops.render import RenderConfig
+    from nice_slam_torch.slam import tracker
+    from nice_slam_torch.utils.datasets import Synthetic
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    cfg["cam"].update({"H": 24, "W": 32, "fx": 24.0, "fy": 24.0, "cx": 15.5,
+                       "cy": 11.5})
+    cfg["tracking"].update({"pixels": 32, "iters": 1, "ignore_edge_W": 2,
+                            "ignore_edge_H": 2})
+    cfg["rendering"].update({"N_samples": 8, "N_surface": 4})
+    cfg["data"]["n_frames"] = 3
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(
+            ROOT, cfg["pretrained_decoders"][k])
+    spec, state = build_scene(cfg, device="cpu")
+    state = load_pretrain(cfg, spec, state, verbose=False)
+    tcfg = tracker.TrackerConfig.from_cfg(cfg, cfg["cam"], True)
+    _, color, depth, c2w = Synthetic(cfg)[1]
+    pix = [torch.tensor(a[0]) for a in
+           tracker.presample_pixels(0, 1, tcfg, color, depth)]
+
+    calls = []
+    dp_multi = tinterp.trilinear_bwd_dp_multi
+
+    def counted(grids, p, gs):
+        calls.append(len(grids))
+        return dp_multi(grids, p, gs)
+
+    def boom(*a, **k):
+        raise AssertionError("grid gradient computed during tracking")
+
+    monkeypatch.setattr(tinterp, "trilinear_bwd_dp_multi", counted)
+    monkeypatch.setattr(tinterp, "trilinear_bwd_dgrid_multi", boom)
+    cam = tensor_from_pose(torch.tensor(c2w)).requires_grad_(True)
+    loss = tracker.tracking_loss_sampled(spec, state, cam, *pix, tcfg,
+                                         RenderConfig.from_cfg(cfg))
+    (g,) = torch.autograd.grad(loss, cam)
+    assert calls == [3]
+    assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+
