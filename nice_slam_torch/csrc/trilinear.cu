@@ -14,15 +14,26 @@
 // grid_sample(bilinear, border, align_corners=True): u = (p+1)/2*(S-1),
 // clamped to [0, S-1]; i1 = min(i0+1, S-1).
 //
-// K1 (unchanged): one thread per (point, float4 of channels), so the L
-// lanes of a point read one corner row as L contiguous 16-byte loads -- a
-// 128-byte coalesced transaction at C = 32.  Bound by bytes: it gathers 8
-// corner rows per point, mostly from L2 (the 22.8 MB fine grid fits the
-// 50 MB L2).
+// K1, K2 and K3 each take every grid of a decoder stage (up to kMaxGrids,
+// looked up at the same points) in ONE launch: one stage's lookup is one
+// K1, and its backward one K2 and/or one K3.
 //
-// K2 and K3 take every grid of a decoder stage (up to kMaxGrids, looked up
-// at the same points) in ONE launch; the backward of one stage's lookups
-// is one K2 and/or one K3.
+// K1, the lookup.  Bound by bytes: it gathers 8 corner rows per point and
+// grid, mostly from L1 and L2 (the 22.8 MB fine grid fits the 50 MB L2),
+// and writes an (n, C) feature per grid.  One thread per (grid, point,
+// float4 of channels), blockIdx.y picking the grid: the L lanes of a point
+// read one corner row as L contiguous 16-byte loads (a 128-byte
+// transaction at C = 32), and a block's 256 / L consecutive ray samples
+// share most of their corner rows in L1.  The first design launched once
+// per grid, and at tracking's 9.6k points each launch was one ragged
+// wave; one launch lets the grids' blocks fill one another's tails.  A
+// design that walked runs of consecutive points per warp as K2 does,
+// keeping every grid's current cell's 8 corner rows in registers, ran
+// slower on the main path's three-grid lookups (PERF.md): its 161
+// registers leave 12 warps per SM, each step of a run waits on its
+// gathers, and the reuse it adds L1 already gives.  This one takes ~40
+// registers, 6 blocks per SM.  The lerp order is the JAX forward's: z,
+// then y, then x.
 //
 // K3, the point gradient.  Bound by bytes like K1 (8 corner rows per
 // point and grid), but at tracking's 9.6k points one launch per grid is
@@ -144,14 +155,41 @@ __device__ __forceinline__ bool nonzero4(float4 v) {
 // K1
 // ---------------------------------------------------------------------------
 
+struct FwdGrids {
+  const float4* grid[kMaxGrids];  // (V, L) feature grid
+  float4* out[kMaxGrids];         // (n, L) its features
+  int dims[kMaxGrids][3];
+};
+
+template <int L>
 __global__ void __launch_bounds__(kThreads)
-trilinear_fwd_kernel(const float4* __restrict__ grid, const float* __restrict__ p,
-                     float4* __restrict__ out, int n, int nx, int ny, int nz,
-                     int L) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+trilinear_fwd_kernel(FwdGrids s, const float* __restrict__ p, int n) {
+  const long t = (long)blockIdx.x * kThreads + threadIdx.x;
   const int pt = (int)(t / L);
   const int q = (int)(t % L);
   if (pt >= n) return;
+  // this block's grid, picked with constant indices: a loop over m (even
+  // unrolled) copied the parameters to an 88-byte local-memory frame and
+  // ran at half the speed on an H100, and an else-if chain compiled to
+  // code 5-10 % slower than these two ifs
+  static_assert(kMaxGrids == 3, "one branch per grid");
+  const float4* grid = s.grid[0];
+  float4* out = s.out[0];
+  int nx = s.dims[0][0], ny = s.dims[0][1], nz = s.dims[0][2];
+  if (blockIdx.y == 1) {
+    grid = s.grid[1];
+    out = s.out[1];
+    nx = s.dims[1][0];
+    ny = s.dims[1][1];
+    nz = s.dims[1][2];
+  }
+  if (blockIdx.y == 2) {
+    grid = s.grid[2];
+    out = s.out[2];
+    nx = s.dims[2][0];
+    ny = s.dims[2][1];
+    nz = s.dims[2][2];
+  }
   const Cell c = locate(p, pt, nx, ny, nz);
   float4 v[8];
 #pragma unroll
@@ -388,6 +426,14 @@ int device_attribute(cudaDeviceAttr attr) {
 }
 
 template <int L>
+int launch_fwd(const FwdGrids& s, int count, const float* p, int n,
+               cudaStream_t stream) {
+  const dim3 blocks((unsigned)(((long)n * L + kThreads - 1) / kThreads), count);
+  trilinear_fwd_kernel<L><<<blocks, kThreads, 0, stream>>>(s, p, n);
+  return (int)cudaGetLastError();
+}
+
+template <int L>
 int launch_dgrid(const DgridGrids& s, const float* p, int n, int blocks,
                  int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
@@ -411,13 +457,29 @@ int launch_dp(const DpGrids& s, const float* p, float* dp, int n,
 
 extern "C" {
 
-int trilinear_fwd(const float* grid, const float* p, float* out, int n, int nx,
-                  int ny, int nz, int c, void* stream) {
-  const int L = c / 4;
-  const unsigned blocks = (unsigned)(((long)n * L + kThreads - 1) / kThreads);
-  trilinear_fwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)grid, p, (float4*)out, n, nx, ny, nz, L);
-  return (int)cudaGetLastError();
+// desc: per grid 5 values -- grid ptr, output ptr, nx, ny, nz.
+int trilinear_fwd(const long long* desc, int count, const float* p, int n, int c,
+                  void* stream) {
+  if (count < 1 || count > kMaxGrids || n < 1) return (int)cudaErrorInvalidValue;
+  FwdGrids s = {};
+  for (int m = 0; m < count; ++m) {
+    const long long* e = desc + 5 * m;
+    s.grid[m] = (const float4*)e[0];
+    s.out[m] = (float4*)e[1];
+    s.dims[m][0] = (int)e[2];
+    s.dims[m][1] = (int)e[3];
+    s.dims[m][2] = (int)e[4];
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (c / 4) {
+    case 1: return launch_fwd<1>(s, count, p, n, st);
+    case 2: return launch_fwd<2>(s, count, p, n, st);
+    case 4: return launch_fwd<4>(s, count, p, n, st);
+    case 8: return launch_fwd<8>(s, count, p, n, st);
+    case 16: return launch_fwd<16>(s, count, p, n, st);
+    case 32: return launch_fwd<32>(s, count, p, n, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // desc: per grid 5 values -- cotangent ptr, zeroed gradient ptr, nx, ny,

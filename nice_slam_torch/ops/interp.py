@@ -10,14 +10,15 @@ The lookup is one ``torch.autograd.Function`` over all the grids a
 decoder stage reads at the same points (``trilinear_interp_multi``; the
 one-grid ``trilinear_interp`` is its special case), built on three
 hand-written CUDA kernels (``nice_slam_torch/csrc/trilinear.cu``), each
-with a plain PyTorch version beside it:
+with a plain PyTorch version beside it, and each one launch for all the
+grids of the stage:
 
-  K1 ``trilinear_fwd``        the 8-corner gather + lerp, one launch per grid;
-  K2 ``trilinear_bwd_dgrid``  the grid gradients (scatter-add of w_k * g),
-                              one launch for every grid that needs one;
+  K1 ``trilinear_fwd_multi``  the 8-corner gather + lerp of every grid;
+  K2 ``trilinear_bwd_dgrid``  the grid gradients (scatter-add of w_k * g)
+                              of every grid that needs one;
   K3 ``trilinear_bwd_dp``     the point gradient (g . c_k through dw_k/du,
                               with the border-clamp derivative mask), summed
-                              over the grids in one launch.
+                              over the grids.
 
 The backward runs K2 only when a grid needs a gradient and K3 only when
 the points do, so tracking (frozen grids, pose gradient) never runs K2.
@@ -39,7 +40,7 @@ from nice_slam_torch.ops.geometry import normalize_3d_coordinate
 launch_counts: Dict[str, int] = {"trilinear_fwd": 0, "trilinear_bwd_dgrid": 0,
                                  "trilinear_bwd_dp": 0}
 
-MAX_GRIDS = 3  # grids per K2/K3 launch (kMaxGrids in trilinear.cu)
+MAX_GRIDS = 3  # grids per K1/K2/K3 launch (kMaxGrids in trilinear.cu)
 
 
 def reset_launch_counts() -> None:
@@ -140,6 +141,12 @@ def trilinear_bwd_dp_plain(grid: torch.Tensor, p: torch.Tensor,
     return torch.stack(df, dim=-1) * dudp
 
 
+def trilinear_fwd_multi_plain(grids: Sequence[torch.Tensor],
+                              p: torch.Tensor) -> List[torch.Tensor]:
+    """K1's plain version over several grids: one lookup per grid."""
+    return [trilinear_fwd_plain(grid, p) for grid in grids]
+
+
 def trilinear_bwd_dgrid_multi_plain(p: torch.Tensor, gs: Sequence[torch.Tensor],
                                     shapes: Sequence[Tuple[int, int, int, int]]
                                     ) -> List[torch.Tensor]:
@@ -207,21 +214,39 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def trilinear_fwd(grid: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """K1: (Nx, Ny, Nz, C) grid, (N, 3) points -> (N, C) features."""
-    if not grid.is_cuda:
-        return trilinear_fwd_plain(grid, p)
-    _check("grid", grid, 4)
+def trilinear_fwd_multi(grids: Sequence[torch.Tensor],
+                        p: torch.Tensor) -> List[torch.Tensor]:
+    """K1: up to MAX_GRIDS channels-last (Nx, Ny, Nz, C) grids of one C
+    looked up at the same (N, 3) points, in one launch -> one (N, C)
+    feature per grid."""
+    if not grids[0].is_cuda:
+        return trilinear_fwd_multi_plain(grids, p)
+    if not 1 <= len(grids) <= MAX_GRIDS:
+        raise ValueError(f"one launch takes 1..{MAX_GRIDS} grids, got {len(grids)}")
     _check("points", p, 2)
-    n, nx, ny, nz, C = _check_launch(grid.shape, p)
-    out = torch.empty((n, C), dtype=grid.dtype, device=grid.device)
+    C = grids[0].shape[-1]
+    for grid in grids:
+        _check("grid", grid, 4)
+        if _check_launch(grid.shape, p)[4] != C:
+            raise ValueError("the grids of one launch must share their channel "
+                             f"count, got {[tuple(g.shape) for g in grids]}")
+    n = p.shape[0]
+    outs = [torch.empty((n, C), dtype=torch.float32, device=p.device) for _ in grids]
     if n:
+        desc = []
+        for grid, out in zip(grids, outs):
+            desc += [grid.data_ptr(), out.data_ptr(), *grid.shape[:3]]
         rc = kernels.library("trilinear").trilinear_fwd(
-            grid.data_ptr(), p.data_ptr(), out.data_ptr(), n, nx, ny, nz, C,
+            (ctypes.c_longlong * len(desc))(*desc), len(grids), p.data_ptr(), n, C,
             _stream())
         kernels.check(rc, "trilinear_fwd")
         launch_counts["trilinear_fwd"] += 1
-    return out
+    return outs
+
+
+def trilinear_fwd(grid: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """K1 for one grid: (Nx, Ny, Nz, C) grid, (N, 3) points -> (N, C)."""
+    return trilinear_fwd_multi([grid], p)[0]
 
 
 def trilinear_bwd_dgrid_multi(p: torch.Tensor, gs: Sequence[torch.Tensor],
@@ -283,9 +308,9 @@ def trilinear_bwd_dp(grid: torch.Tensor, p: torch.Tensor,
 
 
 class _Trilinear(torch.autograd.Function):
-    """Lookups of several grids at the same points: forward K1 per grid;
-    backward one K2 over the grids that need a gradient and one K3 summing
-    dp over the grids whose feature has a cotangent."""
+    """Lookups of several grids at the same points: forward one K1 over the
+    grids; backward one K2 over the grids that need a gradient and one K3
+    summing dp over the grids whose feature has a cotangent."""
 
     @staticmethod
     def forward(ctx, p, *grids):
@@ -293,7 +318,7 @@ class _Trilinear(torch.autograd.Function):
         p = p.contiguous()
         grids = tuple(grid.contiguous() for grid in grids)
         ctx.save_for_backward(p, *grids)
-        return tuple(trilinear_fwd(grid, p) for grid in grids)
+        return tuple(trilinear_fwd_multi(grids, p))
 
     @staticmethod
     def backward(ctx, *gs):

@@ -29,7 +29,7 @@ _D = ctypes.POINTER(ctypes.c_longlong)  # a per-grid descriptor table
 # the launch's cudaGetLastError())
 SIGNATURES = {
     "trilinear": {
-        "trilinear_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "trilinear_fwd": [_D, _I, _P, _I, _I, _P],
         "trilinear_bwd_dgrid": [_D, _I, _P, _I, _I, _P],
         "trilinear_bwd_dp": [_D, _I, _P, _P, _I, _I, _P],
     },

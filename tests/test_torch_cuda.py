@@ -120,6 +120,81 @@ def test_multi_grid_k2_k3_match_plain_on_ray_samples(dev, shapes, shared):
     assert float((dp - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
+def _k1_held(grids, p):
+    """One multi-K1 launch against its plain version at K1's 1e-5."""
+    interp.reset_launch_counts()
+    feats = interp.trilinear_fwd_multi(grids, p)
+    torch.cuda.synchronize()
+    assert interp.launch_counts["trilinear_fwd"] == (1 if p.shape[0] else 0)
+    ref = interp.trilinear_fwd_multi_plain(grids, p)
+    assert len(feats) == len(ref) == len(grids)
+    for f, r in zip(feats, ref):
+        assert f.shape == r.shape == (p.shape[0], grids[0].shape[3])
+        torch.testing.assert_close(f, r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shapes", [
+    [(74, 56, 43, 32)],
+    [(37, 28, 21, 32), (74, 56, 43, 32)],
+    [(37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32)],  # color stage
+    [(11, 8, 7, 32), (20, 18, 16, 32), (11, 8, 7, 32)],      # 3rd shaped like the 1st
+    [(6, 9, 7, 8), (40, 40, 40, 8)],                         # C = 8: 16 points a warp
+    [(9, 8, 7, 128)],                                        # C = 128: 1 point a warp
+], ids=["fine", "middle_fine", "color_stage", "aba", "c8", "c128"])
+@pytest.mark.parametrize("n_rays", [200, 1000], ids=["track", "map"])
+def test_multi_k1_matches_plain_on_ray_samples(dev, shapes, n_rays):
+    """Ray-ordered samples (consecutive points share cells) at the
+    tracking and mapping sizes."""
+    gen = torch.Generator().manual_seed(4)
+    grids = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    _k1_held(grids, _ray_samples(n_rays, seed=5).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 65, 257, 9601, 48001])
+def test_k1_runs_crossing_warp_boundaries(dev, n):
+    """Every point in one cell of the coarse grid (a run of one cell that
+    every warp and block boundary cuts), or in a few cells in stretches of
+    20 points; n not a multiple of a warp's or a block's points."""
+    gen = torch.Generator().manual_seed(n)
+    grids = [torch.randn((11, 8, 7, 32), generator=gen).to(dev),
+             torch.randn((74, 56, 43, 32), generator=gen).to(dev)]
+    one_cell = 0.05 + 0.01 * torch.rand((n, 3), generator=gen)
+    _k1_held(grids, one_cell.to(dev))
+    stretches = torch.repeat_interleave(torch.rand((n // 20 + 1, 3), generator=gen) * 2 - 1,
+                                        20, dim=0)[:n]
+    _k1_held(grids, stretches.contiguous().to(dev))
+
+
+def test_k1_points_alternating_between_cells(dev):
+    """A, B, A, B, ...: every point changes cell, including into the
+    border-clamped corner cells and exact ties on grid nodes."""
+    gen = torch.Generator().manual_seed(6)
+    grids = [torch.randn(s, generator=gen).to(dev)
+             for s in ((37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32))]
+    cells = torch.tensor([[0.1, -0.2, 0.3], [1.0, 1.0, 1.0], [-0.7, 0.4, 0.05],
+                          [-1.0, -1.0, -1.0], [2.0, -3.0, 1.5], [0.0, 0.0, 0.0]])
+    for a in range(len(cells)):
+        for b in range(a + 1, len(cells)):
+            p = cells[[a, b]].repeat(777, 1)
+            _k1_held(grids, p.contiguous().to(dev))
+
+
+def test_k1_no_points(dev):
+    grids = [torch.randn((5, 6, 7, 32), device=dev), torch.randn((8, 8, 8, 32), device=dev)]
+    _k1_held(grids, torch.zeros((0, 3), device=dev))
+
+
+def test_k1_wrapper_rejects_too_many_grids_or_mixed_channels(dev):
+    p = torch.rand((10, 3), device=dev)
+    grid = torch.randn((5, 5, 5, 32), device=dev)
+    with pytest.raises(ValueError):
+        interp.trilinear_fwd_multi([grid] * (interp.MAX_GRIDS + 1), p)
+    with pytest.raises(ValueError):
+        interp.trilinear_fwd_multi([grid, torch.randn((5, 5, 5, 16), device=dev)], p)
+    with pytest.raises(ValueError):
+        interp.trilinear_fwd_multi([grid, grid.cpu()], p)
+
+
 def test_multi_function_on_cuda_matches_cpu(dev):
     shapes = [(11, 8, 7, 16), (13, 9, 30, 16), (7, 7, 7, 16)]
     gen = torch.Generator().manual_seed(2)
@@ -170,7 +245,8 @@ def test_tracking_iteration_launches_k3_once(dev):
                                          RenderConfig.from_cfg(cfg))
     torch.autograd.grad(loss, cam)
     torch.cuda.synchronize()
-    assert interp.launch_counts == {"trilinear_fwd": 3, "trilinear_bwd_dgrid": 0,
+    # one lookup of the stage's three grids: one K1, and one K3 back
+    assert interp.launch_counts == {"trilinear_fwd": 1, "trilinear_bwd_dgrid": 0,
                                     "trilinear_bwd_dp": 1}
 
 

@@ -102,6 +102,8 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     grid = torch.randn(4, 4, 4, 4, requires_grad=True)
     p = torch.rand(10, 3, requires_grad=True)
     tinterp.trilinear_interp(grid, p).sum().backward()
+    feats = tinterp.trilinear_fwd_multi([grid.detach(), torch.randn(9, 9, 9, 4)], p.detach())
+    assert [tuple(f.shape) for f in feats] == [(10, 4), (10, 4)]
     assert all(v == 0 for v in tinterp.launch_counts.values())
 
 
@@ -209,20 +211,16 @@ def test_multi_lookup_skips_grids_without_a_cotangent():
     torch.testing.assert_close(p.grad, pa.grad, atol=0, rtol=0)
 
 
-def test_tracking_never_runs_k2_and_runs_k3_once_per_iteration(monkeypatch):
-    """One tracking iteration (pose gradient, frozen grids) on the port's
-    own box scene: no grid-gradient call, one point-gradient call over the
-    stage's three grids."""
+def _box_scene():
+    """The port's box scene on the CPU, pretrained decoders, coarse grid
+    on, a 24x32 camera and 8+4 samples per ray."""
     from nice_slam_torch.config import load_config
     from nice_slam_torch.models.pretrain import load_pretrain
     from nice_slam_torch.models.scene import build_scene
-    from nice_slam_torch.ops.geometry import tensor_from_pose
-    from nice_slam_torch.ops.render import RenderConfig
-    from nice_slam_torch.slam import tracker
-    from nice_slam_torch.utils.datasets import Synthetic
 
     cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
                       os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    cfg["coarse"] = True
     cfg["cam"].update({"H": 24, "W": 32, "fx": 24.0, "fy": 24.0, "cx": 15.5,
                        "cy": 11.5})
     cfg["tracking"].update({"pixels": 32, "iters": 1, "ignore_edge_W": 2,
@@ -233,12 +231,31 @@ def test_tracking_never_runs_k2_and_runs_k3_once_per_iteration(monkeypatch):
         cfg["pretrained_decoders"][k] = os.path.join(
             ROOT, cfg["pretrained_decoders"][k])
     spec, state = build_scene(cfg, device="cpu")
-    state = load_pretrain(cfg, spec, state, verbose=False)
+    return cfg, spec, load_pretrain(cfg, spec, state, verbose=False)
+
+
+def _tracking_loss(cfg, spec, state):
+    """One tracking iteration's loss on frame 1 and the pose it is taken at."""
+    from nice_slam_torch.ops.geometry import tensor_from_pose
+    from nice_slam_torch.ops.render import RenderConfig
+    from nice_slam_torch.slam import tracker
+    from nice_slam_torch.utils.datasets import Synthetic
+
     tcfg = tracker.TrackerConfig.from_cfg(cfg, cfg["cam"], True)
     _, color, depth, c2w = Synthetic(cfg)[1]
     pix = [torch.tensor(a[0]) for a in
            tracker.presample_pixels(0, 1, tcfg, color, depth)]
+    cam = tensor_from_pose(torch.tensor(c2w)).requires_grad_(True)
+    loss = tracker.tracking_loss_sampled(spec, state, cam, *pix, tcfg,
+                                         RenderConfig.from_cfg(cfg))
+    return loss, cam
 
+
+def test_tracking_never_runs_k2_and_runs_k3_once_per_iteration(monkeypatch):
+    """One tracking iteration (pose gradient, frozen grids) on the port's
+    own box scene: no grid-gradient call, one point-gradient call over the
+    stage's three grids."""
+    cfg, spec, state = _box_scene()
     calls = []
     dp_multi = tinterp.trilinear_bwd_dp_multi
 
@@ -251,10 +268,80 @@ def test_tracking_never_runs_k2_and_runs_k3_once_per_iteration(monkeypatch):
 
     monkeypatch.setattr(tinterp, "trilinear_bwd_dp_multi", counted)
     monkeypatch.setattr(tinterp, "trilinear_bwd_dgrid_multi", boom)
-    cam = tensor_from_pose(torch.tensor(c2w)).requires_grad_(True)
-    loss = tracker.tracking_loss_sampled(spec, state, cam, *pix, tcfg,
-                                         RenderConfig.from_cfg(cfg))
+    loss, cam = _tracking_loss(cfg, spec, state)
     (g,) = torch.autograd.grad(loss, cam)
     assert calls == [3]
     assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+
+
+# grids each stage looks up at once: the coarse mapper's, and the main
+# mapper's middle -> fine -> color stages (tracking renders the color stage)
+STAGE_GRIDS = {"coarse": ["grid_coarse"], "middle": ["grid_middle"],
+               "fine": ["grid_middle", "grid_fine"],
+               "color": ["grid_middle", "grid_fine", "grid_color"]}
+
+
+@pytest.mark.parametrize("what", ["tracking", "coarse", "middle", "fine", "color"])
+def test_one_k1_call_per_iteration(monkeypatch, what):
+    """A tracking iteration, and a mapping iteration of each stage (loss
+    and grid gradients over a few rays), look up the stage's grids with
+    one K1 call."""
+    from nice_slam_torch.ops.render import RenderConfig, render_batch_ray
+
+    cfg, spec, state = _box_scene()
+    calls = []
+    fwd_multi = tinterp.trilinear_fwd_multi
+
+    def counted(grids, p):
+        calls.append([tuple(g.shape) for g in grids])
+        return fwd_multi(grids, p)
+
+    monkeypatch.setattr(tinterp, "trilinear_fwd_multi", counted)
+    if what == "tracking":
+        loss, cam = _tracking_loss(cfg, spec, state)
+        torch.autograd.grad(loss, cam)
+        stage = "color"
+    else:
+        stage = what
+        grids = {k: v.clone().requires_grad_(k in STAGE_GRIDS[stage])
+                 for k, v in state.grids.items()}
+        state = state._replace(grids=grids)
+        rng = np.random.default_rng(9)
+        rays_o = torch.tensor(rng.uniform(-0.5, 0.5, (16, 3)), dtype=torch.float32)
+        rays_d = torch.nn.functional.normalize(
+            torch.tensor(rng.standard_normal((16, 3)), dtype=torch.float32), dim=-1)
+        gt_d = torch.tensor(rng.uniform(0.5, 1.5, 16), dtype=torch.float32)
+        depth, _, color = render_batch_ray(spec, state, rays_o, rays_d, stage,
+                                           gt_depth=gt_d,
+                                           rcfg=RenderConfig.from_cfg(cfg))
+        leaves = [grids[k] for k in STAGE_GRIDS[stage]]
+        dgrids = torch.autograd.grad(depth.sum() + color.sum(), leaves)
+        assert all(torch.isfinite(d).all() and float(d.abs().sum()) > 0 for d in dgrids)
+    assert calls == [[tuple(state.grids[k].shape) for k in STAGE_GRIDS[stage]]]
+
+
+MIDDLE_FINE_COLOR = [(9, 7, 6, 32), (17, 13, 11, 32), (17, 13, 11, 32)]
+
+
+@pytest.mark.parametrize("points", ["inside", "border_clamped"])
+def test_multi_fwd_equals_per_grid_lookups_and_matches_jax(points):
+    """A color stage's three grids (the middle grid half the fine and color
+    grids' resolution) at points inside the box, or past every face and on
+    exact ties: one multi lookup equals the per-grid lookups exactly and
+    JAX's forward per grid at 1e-5."""
+    rng = np.random.default_rng(10)
+    grids = [rng.standard_normal(s).astype(np.float32) for s in MIDDLE_FINE_COLOR]
+    if points == "inside":
+        p = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+    else:
+        p = np.concatenate([_points(rng, 200, s) for s in MIDDLE_FINE_COLOR[:2]])
+        assert (np.abs(p) > 1).any(axis=1).sum() > 100
+    gt = [torch.tensor(g) for g in grids]
+    pt = torch.tensor(p)
+    multi = tinterp.trilinear_fwd_multi(gt, pt)
+    for f, g, gj in zip(multi, gt, grids):
+        torch.testing.assert_close(f, tinterp.trilinear_fwd(g, pt), atol=0, rtol=0)
+        torch.testing.assert_close(f, tinterp.trilinear_interp(g, pt), atol=0, rtol=0)
+        ref = jinterp._trilinear_impl(jnp.asarray(gj), jnp.asarray(p))
+        np.testing.assert_allclose(f.numpy(), np.asarray(ref), atol=ATOL)
 
