@@ -27,13 +27,14 @@
 // share most of their corner rows in L1.  The first design launched once
 // per grid, and at tracking's 9.6k points each launch was one ragged
 // wave; one launch lets the grids' blocks fill one another's tails.  A
-// design that walked runs of consecutive points per warp as K2 does,
-// keeping every grid's current cell's 8 corner rows in registers, ran
-// slower on the main path's three-grid lookups (PERF.md): its 161
-// registers leave 12 warps per SM, each step of a run waits on its
-// gathers, and the reuse it adds L1 already gives.  This one takes ~40
-// registers, 6 blocks per SM.  The lerp order is the JAX forward's: z,
-// then y, then x.
+// design that walks runs of consecutive points per warp as K2 does,
+// keeping every grid's current cell's 8 corner rows in registers
+// (tools/k1_sweep.cu), ran slower on the main path's three-grid lookups
+// (tools/k1_sweep.py, PERF.md): 183 registers at three grids leave 8
+// warps per SM, each step of a run waits on its gathers, and the reuse
+// it adds L1 already gives.  This one takes 38 registers, 6 blocks per
+// SM; L is a template argument, as in K2 and K3.  The lerp order is the
+// JAX forward's: z, then y, then x.
 //
 // K3, the point gradient.  Bound by bytes like K1 (8 corner rows per
 // point and grid), but at tracking's 9.6k points one launch per grid is
