@@ -195,7 +195,8 @@ def main(argv=None) -> int:
         for _ in range(args.rounds):
             for name, (match, how) in VARIANTS.items():
                 times[name].append(chip_smoke.device_time_ms(
-                    lambda: lookup(lib, how, grids, p, sms), match))
+                    lambda: lookup(lib, how, grids, p, sms), match,
+                    per_call=len(grids) if how[0] == "per_grid" else 1))
         line = {"case": label, "n": p.shape[0], "grids": [list(g.shape) for g in grids],
                 "bound_ms": bound_ms(grids, p, chip_smoke.HBM_BYTES_PER_S),
                 "walk_auto_per_team": auto_per_team(p.shape[0], sms),
