@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
 
-  build    compile every CUDA source of the port with nvcc (sm_90a), one
-           process per source, all started together;
+  build    compile every source of the port, one process per source, all
+           started together: the CUDA kernels with nvcc (sm_90a), the host
+           mesh kernels with g++;
   capture  a 2-frame run of the slice's own workload (Replica-scale room,
            first mapping 60 iterations) that records the backward kernels'
            arguments on the main path: one tracking iteration's lookups
@@ -24,16 +25,31 @@ Phases, each printing one JSON line:
            own device time per call, each call after the L2 was evicted),
            beside its plain version and torch.nn.functional.grid_sample
            (library yardstick only; the port never calls it); fail if a
-           kernel's device_ms is below its bound_ms; check the whole
-           decoder stack on the card against the CPU on a small input;
+           kernel's device_ms is below its bound_ms; K1 also on the two new
+           paths' lookups, recorded from the port's own calls with the
+           captured state: a mesh chunk (the first 500k points of the
+           256^3 lattice over the room, 'fine' stage: middle and fine
+           grids) and a render chunk (100k rays x 48 samples of a full
+           frame, 'color' stage: three grids); check the whole decoder
+           stack on the card against the CPU on a small input;
   slice    the strict loop (track every frame, map + coarse-map every 5th)
            at full width on the Replica-scale synthetic room, 12 frames of
            680x1200, with every kernel's launches counted over the run
-           (K1 once per iteration, K3 once per tracking iteration, K2 once
-           per mapping iteration);
+           (K1 once per iteration and once per mesher chunk, K3 once per
+           tracking iteration, K2 once per mapping iteration); it writes
+           the final checkpoint, final_mesh.ply and final_mesh_eval_rec.ply
+           at resolution 256, and each mesh must have faces;
+  resume   a fresh system on the slice's config resumes from its final
+           checkpoint: every grid, decoder tensor and pose equal to the
+           slice's final state bit for bit, the start index n_frames;
+  vis      one 680x1200 residual panel of the slice's final state
+           (render_img: nine 100k-ray chunks, one K1 launch each);
   quality  the 30-frame tracked box run (0.25 rad orbit, mapping iters 60,
            first 400, coarse off) for five pixel seeds: the median ATE
-           against the 9.5 cm gate, every draw against 20 cm.
+           against the 9.5 cm gate, every draw against 20 cm; each draw's
+           final mesh (resolution 128), the family median of each mesh's
+           median | max(|x|,|y|,|z|) - 2 | over its vertices (the walls are
+           at +-2 m) against 0.15 m.
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -44,6 +60,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +76,7 @@ ATE_GATE_CM = 9.5          # the quality family's median
 ATE_DIVERGED_CM = 20.0     # any one draw: only a diverged run goes past it
 JAX_MEDIAN_GATE_CM = 6.5   # the JAX family's median gate, reported only
 QUALITY_SEEDS = (42, 0, 1, 2, 3)  # the config's default pixel seed, then 0-3
+BOX_MESH_GATE_M = 0.15     # family median of the box meshes' wall distance
 
 
 def emit(obj) -> None:
@@ -145,7 +163,7 @@ def phase_build():
     from nice_slam_torch.ops import kernels
 
     t0 = time.perf_counter()
-    names = sorted(f[:-3] for f in os.listdir(kernels.CSRC) if f.endswith(".cu"))
+    names = kernels.sources()
     libs = kernels.build(names)
     for name in names:
         kernels.library(name)
@@ -166,6 +184,7 @@ def phase_capture(dev):
     t0 = time.perf_counter()
     cfg = replica_synthetic_cfg(os.path.join(HERE, "output", "chip_smoke", "capture"),
                                 n_frames=2, iters_first=CAPTURE_ITERS_FIRST)
+    meshing = cfg.pop("meshing")  # the slice phase meshes; new_path_lookups reads it
     slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
     coarse_shape = tuple(slam.state.grids["grid_coarse"].shape)
     seen = {}
@@ -198,10 +217,53 @@ def phase_capture(dev):
     seen["map_color"]["grids"] = [g["grid_middle"], g["grid_fine"], g["grid_color"]]
     seen["map_coarse"]["grids"] = [g["grid_coarse"]]
     cases = {k: seen[k] for k in ("track", "map_color", "map_coarse")}
+    lookups = new_path_lookups(slam, dict(cfg, meshing=meshing))
     emit({"phase": "capture", "ok": True, "seconds": time.perf_counter() - t0,
           "cases": {k: {"n": v["p"].shape[0], "grids": [list(x.shape) for x in v["grids"]]}
-                    for k, v in cases.items()}})
-    return cases
+                    for k, v in {**cases, **lookups}.items()}})
+    return cases, lookups
+
+
+def new_path_lookups(slam, cfg):
+    """K1's inputs on the mesher's and the renderer's paths, recorded from
+    the port's own calls on the captured state: the first lattice chunk
+    of a resolution-256 mesh ('fine' stage) and the first ray chunk of a
+    full-frame render ('color' stage)."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.ops.render import get_rays, render_batch_ray
+    from nice_slam_torch.utils.mesher import Mesher, chunked_eval
+
+    seen = {}
+    fwd = interp.trilinear_fwd_multi
+
+    def rec(grids, p):
+        seen.setdefault("lookup", {"p": p.detach().clone(),
+                                   "grids": [g.detach() for g in grids]})
+        return fwd(grids, p)
+
+    mesher = Mesher(cfg, slam.cam, slam.spec, slam.rcfg)
+    lattice, _ = mesher.get_grid_uniform(cfg["meshing"]["resolution"])
+    _, color, depth, _ = slam.frame_reader[0]
+    c2w = slam.estimate_c2w_list[0]
+    rays_o, rays_d = get_rays(slam.H, slam.W, slam.cam["fx"], slam.cam["fy"],
+                              slam.cam["cx"], slam.cam["cy"], c2w)
+    n = slam.rcfg.ray_batch_size
+    gt = torch.as_tensor(depth, device=c2w.device).reshape(-1)[:n]
+    out = {}
+    interp.trilinear_fwd_multi = rec
+    try:
+        chunked_eval(slam.spec, slam.state, lattice[:mesher.points_batch_size],
+                     "fine", mesher.points_batch_size)
+        out["mesh_fine"] = seen.pop("lookup")
+        with torch.no_grad():
+            render_batch_ray(slam.spec, slam.state, rays_o[:n], rays_d[:n], "color",
+                             gt_depth=gt, rcfg=slam.rcfg)
+        out["render_color"] = seen.pop("lookup")
+    finally:
+        interp.trilinear_fwd_multi = fwd
+    return out
 
 
 def dgrid_f64(p, g, shape):
@@ -224,6 +286,73 @@ def dgrid_f64(p, g, shape):
     return out[0].reshape(shape), out[1].reshape(shape)
 
 
+def k1_row(label, grids, p, bytes_, timed, held, lib_fwd):
+    """K1 over the grids of one case, one launch: error against its plain
+    version at 1e-5, and its times.  ``bytes_``: the points, the touched
+    grid rows and the features, each once."""
+    from nice_slam_torch.ops import interp
+
+    n = p.shape[0]
+    before = interp.launch_counts["trilinear_fwd"]
+    feats = interp.trilinear_fwd_multi(grids, p)
+    if interp.launch_counts["trilinear_fwd"] != before + 1:
+        raise AssertionError(f"K1 {label}: the lookup of {len(grids)} grids took "
+                             f"{interp.launch_counts['trilinear_fwd'] - before} launches")
+    ref = interp.trilinear_fwd_multi_plain(grids, p)
+    err = max(float((f - r).abs().max()) for f, r in zip(feats, ref))
+    del feats, ref
+    return dict(held("trilinear_fwd", err, 1e-5),
+                bytes=bytes_, flops=n * grids[0].shape[3] * 21 * len(grids),
+                **timed(lambda: interp.trilinear_fwd_multi(grids, p),
+                        lambda: interp.trilinear_fwd_multi_plain(grids, p),
+                        lib_fwd, "grid_sampler_3d", "trilinear_fwd"))
+
+
+def case_tools(label, grids, p):
+    """Per-case helpers shared by the kernels' rows: the bytes a lookup
+    must move, grid_sample's layout of it, and the timing and tolerance
+    wrappers."""
+    import torch
+    import torch.nn.functional as F
+
+    from nice_slam_torch.ops import interp
+
+    n = p.shape[0]
+    pts_b = n * 3 * 4
+    gather_b = feat_b = 0
+    lib = []
+    for grid in grids:
+        C = grid.shape[3]
+        i0, i1, _, _ = interp._corners(grid.shape, p)
+        touched = torch.unique(torch.cat(interp._corner_rows(grid.shape, i0, i1))).numel()
+        del i0, i1
+        gather_b += touched * C * 4
+        feat_b += n * C * 4
+        lib.append(grid.permute(3, 2, 1, 0)[None].contiguous())
+    lib_pts = p[None, :, None, None, :]
+    base = dict(case=label, n=n, grids=len(grids))
+
+    def lib_fwd():
+        for x in lib:
+            F.grid_sample(x, lib_pts, mode="bilinear", padding_mode="border",
+                          align_corners=True)
+
+    def timed(fn, plain, lib_fn, lib_match, kernel):
+        # one kernel launch per call; grid_sample launches one per grid
+        return dict(ms=cuda_time_ms(fn), device_ms=device_time_ms(fn, kernel),
+                    plain_ms=cuda_time_ms(plain, 5),
+                    library_ms=cuda_time_ms(lib_fn),
+                    library_device_ms=device_time_ms(lib_fn, lib_match,
+                                                     per_call=len(grids)))
+
+    def held(kernel, err, tol):
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {label}: max abs err {err} > {tol}")
+        return dict(base, kernel=kernel, max_abs_err=err, tol=tol)
+
+    return pts_b, gather_b, feat_b, lib, lib_pts, lib_fwd, timed, held
+
+
 def kernel_rows(label, grids, p, gs):
     """K1, K2 and K3 over the grids of one case (one lookup Function of a
     decoder stage): error against the plain versions (raises above its
@@ -240,67 +369,25 @@ def kernel_rows(label, grids, p, gs):
     version's index_add_ also sums with atomics) is off by tens of ulps of
     the cell's sum of |w_k g| on its own."""
     import torch
-    import torch.nn.functional as F
 
     from nice_slam_torch.ops import interp
 
     eps = torch.finfo(torch.float32).eps
     shapes = [tuple(g.shape) for g in grids]
     n = p.shape[0]
-    pts_b = n * 3 * 4
-    gather_b = feat_b = 0
-    lib = []
-    for grid, g in zip(grids, gs):
-        C = grid.shape[3]
-        i0, i1, _, _ = interp._corners(grid.shape, p)
-        touched = torch.unique(torch.cat(interp._corner_rows(grid.shape, i0, i1))).numel()
-        gather_b += touched * C * 4
-        feat_b += n * C * 4
-        # grid_sample's layout of the same lookup: [1, C, Z, Y, X], (x, y, z)
-        lib.append((grid.permute(3, 2, 1, 0)[None].contiguous(),
-                    g.t().reshape(1, C, n, 1, 1).contiguous()))
-    lib_pts = p[None, :, None, None, :]
     C = shapes[0][3]
-    base = dict(case=label, n=n, grids=len(grids))
-
-    def lib_fwd():
-        for x, _ in lib:
-            F.grid_sample(x, lib_pts, mode="bilinear", padding_mode="border",
-                          align_corners=True)
+    pts_b, gather_b, feat_b, lib, lib_pts, lib_fwd, timed, held = case_tools(
+        label, grids, p)
+    # grid_sample's layout of the cotangents: [1, C, N, 1, 1]
+    lib_g = [g.t().reshape(1, C, n, 1, 1).contiguous() for g in gs]
 
     def lib_bwd(mask):
         def run():
-            for x, g in lib:
+            for x, g in zip(lib, lib_g):
                 torch.ops.aten.grid_sampler_3d_backward(g, x, lib_pts, 0, 1, True, mask)
         return run
 
-    def timed(fn, plain, lib_fn, lib_match, kernel):
-        # one kernel launch per call; grid_sample launches one per grid
-        return dict(ms=cuda_time_ms(fn), device_ms=device_time_ms(fn, kernel),
-                    plain_ms=cuda_time_ms(plain, 5),
-                    library_ms=cuda_time_ms(lib_fn),
-                    library_device_ms=device_time_ms(lib_fn, lib_match,
-                                                     per_call=len(grids)))
-
-    def held(kernel, err, tol):
-        if not err <= tol:
-            raise AssertionError(f"{kernel} {label}: max abs err {err} > {tol}")
-        return dict(base, kernel=kernel, max_abs_err=err, tol=tol)
-
-    rows = []
-    # K1 (one launch over the case's grids)
-    before = interp.launch_counts["trilinear_fwd"]
-    feats = interp.trilinear_fwd_multi(grids, p)
-    if interp.launch_counts["trilinear_fwd"] != before + 1:
-        raise AssertionError(f"K1 {label}: the lookup of {len(grids)} grids took "
-                             f"{interp.launch_counts['trilinear_fwd'] - before} launches")
-    err = max(float((f - r).abs().max())
-              for f, r in zip(feats, interp.trilinear_fwd_multi_plain(grids, p)))
-    rows.append(dict(held("trilinear_fwd", err, 1e-5),
-                     bytes=gather_b + pts_b + feat_b, flops=n * C * 21 * len(grids),
-                     **timed(lambda: interp.trilinear_fwd_multi(grids, p),
-                             lambda: interp.trilinear_fwd_multi_plain(grids, p),
-                             lib_fwd, "grid_sampler_3d", "trilinear_fwd")))
+    rows = [k1_row(label, grids, p, gather_b + pts_b + feat_b, timed, held, lib_fwd)]
     # K2
     dgs = interp.trilinear_bwd_dgrid_multi(p, gs, shapes)
     held_k2 = []  # (err, tol) per grid; the row keeps the grid nearest its limit
@@ -331,7 +418,7 @@ def kernel_rows(label, grids, p, gs):
     return rows
 
 
-def phase_kernels(dev, cases):
+def phase_kernels(dev, cases, lookups):
     import torch
 
     gen = torch.Generator().manual_seed(0)
@@ -346,6 +433,11 @@ def phase_kernels(dev, cases):
         rows += kernel_rows(label, [grid], p, [g])
     for label, c in cases.items():
         rows += kernel_rows(label, c["grids"], c["p"], c["gs"])
+    for label, c in lookups.items():  # K1 only: these paths take no gradient
+        pts_b, gather_b, feat_b, _, _, lib_fwd, timed, held = case_tools(
+            label, c["grids"], c["p"])
+        rows.append(k1_row(label, c["grids"], c["p"], gather_b + pts_b + feat_b,
+                           timed, held, lib_fwd))
     for r in rows:
         t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
         t_ops = 1e3 * r["flops"] / F32_FLOPS_PER_S
@@ -406,7 +498,21 @@ def count_iterations(mapper, sink, key) -> None:
     mapper.optimize_map = counted
 
 
+def mesh_stats(path):
+    """(vertices, faces) of a PLY, which must exist and have faces."""
+    from nice_slam_torch.utils.meshlib import read_ply
+
+    if not os.path.exists(path):
+        raise AssertionError(f"no mesh at {path}")
+    verts, faces, _ = read_ply(path)
+    if len(faces) == 0:
+        raise AssertionError(f"mesh {path} has no faces")
+    return verts, faces
+
+
 def phase_slice(dev):
+    import math
+
     import torch
 
     from nice_slam_torch.ops import interp
@@ -415,6 +521,7 @@ def phase_slice(dev):
     from nice_slam_torch.tools.workloads import replica_synthetic_cfg
 
     out = os.path.join(HERE, "output", "chip_smoke", "slice")
+    shutil.rmtree(out, ignore_errors=True)  # the resume phase reads its last checkpoint
     cfg = replica_synthetic_cfg(out, n_frames=12, iters_first=SLICE_ITERS_FIRST)
     slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
     for i in range(slam.n_img):  # frame synthesis is not part of the timing
@@ -435,12 +542,30 @@ def phase_slice(dev):
     t = slam.timings
     track_iters = t["tracked_frames"] * slam.tcfg.iters
     map_iters = iters["mapping"] + iters["coarse_mapping"]
+    # the meshes: final_mesh.ply (copied to its frame's name) and the
+    # eval_rec variant; each is one K1 per lattice chunk and one per
+    # vertex-colour chunk of points_batch_size points
+    mesh_dir = os.path.join(out, "mesh")
+    chunk = slam.rcfg.points_batch_size
+    lattice = slam.mesher.resolution ** 3
+    meshes, mesh_chunks = [], 0
+    for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
+        verts, faces = mesh_stats(os.path.join(mesh_dir, name))
+        rec = next(m for m in slam.meshes if m["path"].endswith(name))
+        mesh_chunks += math.ceil(lattice / chunk) + math.ceil(len(verts) / chunk)
+        meshes.append({"mesh": name, "vertices": len(verts), "faces": len(faces),
+                       "seconds": rec["seconds"],
+                       "steps_s": {k: v for k, v in rec.items() if k.endswith("_s")}})
+    ckpt = os.path.join(out, "ckpts", f"{slam.n_img - 1:05d}.tar")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"no final checkpoint at {ckpt}")
     # one lookup Function per decoder stage: one K1 per iteration, one K3
     # per tracking iteration (BA off: mapping never needs the points'
-    # gradient), one K2 per mapping iteration
-    if counts["trilinear_fwd"] != track_iters + map_iters:
+    # gradient), one K2 per mapping iteration; meshing adds K1 only
+    if counts["trilinear_fwd"] != track_iters + map_iters + mesh_chunks:
         raise AssertionError(f"K1 launched {counts['trilinear_fwd']} times for "
-                             f"{track_iters} tracking + {map_iters} mapping iterations")
+                             f"{track_iters} tracking + {map_iters} mapping iterations "
+                             f"+ {mesh_chunks} mesher chunks")
     if counts["trilinear_bwd_dp"] != track_iters:
         raise AssertionError(f"K3 launched {counts['trilinear_bwd_dp']} times "
                              f"for {track_iters} tracking iterations")
@@ -461,15 +586,90 @@ def phase_slice(dev):
               t["tracking_ms_per_frame"] / slam.tcfg.iters,
           "mapping_iters": iters, "tracking_iters": track_iters,
           "fps": t.get("fps"), "total_s": t.get("total_s"),
+          "meshing_s": t["meshing_s"],
+          "fps_without_meshing": t["frames"] / (t["total_s"] - t["meshing_s"]),
+          "meshes": meshes, "mesher_k1_launches": mesh_chunks,
+          "resolution": slam.mesher.resolution, "checkpoint": ckpt,
           "mapping_events": t["mapping_events"],
           "coarse_mapping_events": t["coarse_mapping_events"],
           "tracked_frames": t["tracked_frames"],
           "ate_cm": 100 * ate_rmse(est, slam.gt_c2w_list),
           "launches": counts,
           "launches_per_tracking_iter": counts["trilinear_bwd_dp"] / track_iters,
-          "k1_launches_per_iter": counts["trilinear_fwd"] / (track_iters + map_iters),
+          "k1_launches_per_iter": (counts["trilinear_fwd"] - mesh_chunks)
+          / (track_iters + map_iters),
           "k2_launches_per_mapping_iter": counts["trilinear_bwd_dgrid"] / map_iters})
-    return counts
+    return counts, slam, cfg
+
+
+def phase_resume(dev, done, cfg):
+    """A fresh system on the slice's config resumes from the slice's final
+    checkpoint: the restored state and poses equal the slice's bit for
+    bit, and the run would start past the last frame."""
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+
+    t0 = time.perf_counter()
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+    start = slam.resume()
+    if start != done.n_img:
+        raise AssertionError(f"resume starts at {start}, not {done.n_img}")
+    diff = []
+    for name, g in done.state.grids.items():
+        if not torch.equal(slam.state.grids[name], g):
+            diff.append(name)
+    flat_a, flat_b = leaves(done.state.decoders), leaves(slam.state.decoders)
+    if len(flat_a) != len(flat_b) or not all(torch.equal(a, b) for a, b in zip(flat_a, flat_b)):
+        diff.append("decoders")
+    if not torch.equal(slam.estimate_c2w_list, done.estimate_c2w_list):
+        diff.append("estimate_c2w_list")
+    if slam.keyframes.frame_ids != done.keyframes.frame_ids:
+        diff.append("keyframes")
+    if diff:
+        raise AssertionError(f"resumed state differs from the slice's: {diff}")
+    emit({"phase": "resume", "ok": True, "start": start,
+          "grids": sorted(done.state.grids), "decoder_tensors": len(flat_a),
+          "keyframes": slam.keyframes.frame_ids,
+          "seconds": time.perf_counter() - t0})
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def phase_vis(dev, done):
+    """One full-frame residual panel of the slice's final state at its last
+    frame: render_img in ray_batch_size chunks, one K1 launch each."""
+    import math
+
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.utils.visualizer import Visualizer
+
+    out = os.path.join(HERE, "output", "chip_smoke", "vis")
+    vis = Visualizer(1, 1, out, done.spec, done.rcfg, done.cam)
+    idx = done.n_img - 1
+    _, color, depth, _ = done.frame_reader[idx]
+    torch.cuda.synchronize()
+    interp.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = vis.vis(idx, 0, depth, color, done.estimate_c2w_list[idx], done.state)
+    seconds = time.perf_counter() - t0
+    counts = dict(interp.launch_counts)
+    chunks = math.ceil(done.H * done.W / done.rcfg.ray_batch_size)
+    if path is None or not os.path.exists(path):
+        raise AssertionError(f"no panel written (got {path})")
+    if counts["trilinear_fwd"] != chunks or counts["trilinear_bwd_dgrid"] or \
+            counts["trilinear_bwd_dp"]:
+        raise AssertionError(f"the panel launched {counts}, not {chunks} K1 only")
+    emit({"phase": "vis", "ok": True, "path": path, "H": done.H, "W": done.W,
+          "ray_chunks": chunks, "seconds": seconds, "launches": counts})
 
 
 def phase_quality(dev):
@@ -490,24 +690,41 @@ def phase_quality(dev):
     t0 = time.perf_counter()
     draws = []
     for seed in QUALITY_SEEDS:
-        cfg = box_quality_cfg(os.path.join(HERE, "output", "chip_smoke", f"quality_s{seed}"))
+        out = os.path.join(HERE, "output", "chip_smoke", f"quality_s{seed}")
+        cfg = box_quality_cfg(out)
         cfg["seed"] = seed
         slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
         slam.run()
+        verts, _ = mesh_stats(os.path.join(out, "mesh", "final_mesh.ply"))
         draws.append({"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
-                      100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list)})
+                      100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+                      "mesh_wall_m": box_wall_distance(verts), "vertices": len(verts),
+                      "meshing_s": slam.timings["meshing_s"]})
     ates = [d["ate_rmse_cm"] for d in draws]
     median = float(np.median(ates))
-    ok = median <= ATE_GATE_CM and max(ates) <= ATE_DIVERGED_CM
+    walls = [d["mesh_wall_m"] for d in draws]
+    wall_median = float(np.median(walls))
+    ok = (median <= ATE_GATE_CM and max(ates) <= ATE_DIVERGED_CM
+          and wall_median <= BOX_MESH_GATE_M)
     emit({"phase": "quality", "ok": ok, "frames": 30, "draws": draws,
           "median_ate_cm": median, "gate_cm": ATE_GATE_CM,
           "draw_gate_cm": ATE_DIVERGED_CM,
           "within_jax_median_gate": median <= JAX_MEDIAN_GATE_CM,
+          "median_mesh_wall_m": wall_median, "mesh_gate_m": BOX_MESH_GATE_M,
           "seconds": time.perf_counter() - t0})
     if not ok:
         raise AssertionError(f"tracked ATE over seeds {QUALITY_SEEDS}: {ates} cm; median "
                              f"{median:.3f} (gate {ATE_GATE_CM}), worst draw gate "
-                             f"{ATE_DIVERGED_CM}")
+                             f"{ATE_DIVERGED_CM}; box mesh wall distance {walls} m, "
+                             f"median {wall_median:.4f} (gate {BOX_MESH_GATE_M})")
+
+
+def box_wall_distance(verts) -> float:
+    """The median over a box mesh's vertices of | max(|x|,|y|,|z|) - 2 |:
+    how far the surface lies from the box room's walls at +-2 m."""
+    import numpy as np
+
+    return float(np.median(np.abs(np.abs(verts).max(axis=1) - 2.0)))
 
 
 # kernel -> (TPU-side code it replaces, the case its line reports: each
@@ -517,6 +734,7 @@ KERNEL_META = {
     "trilinear_bwd_dgrid": ("nice_slam_tpu/ops/interp.py:186", "map_color"),
     "trilinear_bwd_dp": ("nice_slam_tpu/ops/interp.py:321", "track"),
 }
+NEW_PATH_CASES = ("mesh_fine", "render_color")  # K1 on the mesher's and renderer's paths
 
 
 def main() -> int:
@@ -528,11 +746,15 @@ def main() -> int:
     sys.path.insert(0, HERE)
     dev = torch.device("cuda")
     card = smi()
+    t0 = time.perf_counter()
     try:
         phase_build()
-        cases = phase_capture(dev)
-        rows = phase_kernels(dev, cases)
-        counts = phase_slice(dev)
+        cases, lookups = phase_capture(dev)
+        rows = phase_kernels(dev, cases, lookups)
+        counts, done, cfg = phase_slice(dev)
+        phase_resume(dev, done, cfg)
+        phase_vis(dev, done)
+        del done
         phase_quality(dev)
     except Exception:  # any phase failure fails the run, with its traceback
         traceback.print_exc()
@@ -540,6 +762,9 @@ def main() -> int:
     kernels = []
     for name, (replaces, case) in KERNEL_META.items():
         r = next(r for r in rows if r["kernel"] == name and r["case"] == case)
+        other = {x["case"]: {k: x[k] for k in ("n", "grids", "ms", "device_ms", "plain_ms",
+                                               "bound_ms", "library_ms", "max_abs_err")}
+                 for x in rows if x["kernel"] == name and x["case"] in NEW_PATH_CASES}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "nice_slam_torch/csrc/trilinear.cu", "replaces": replaces,
@@ -547,7 +772,8 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], **({"new_paths": other} if other else {})})
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels (``nice_slam_torch/csrc/*.cu``).
+"""Build and load the port's native libraries (``nice_slam_torch/csrc/``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, on first use, into ``build/nice_slam_torch/``
-at the checkout root (a directory ``.gitignore`` lists), named by the
-hash of the source so an edited kernel is rebuilt.  Libraries are loaded
-with ``ctypes``.  Nothing here runs at import time.
+A CUDA source (``*.cu``) is compiled by ``nvcc`` for ``sm_90a``; a host
+source (``*.cpp``, the mesh kernels) by ``g++``.  Each becomes a shared
+library with a plain C interface, built on first use into
+``build/nice_slam_torch/`` at the checkout root (a directory
+``.gitignore`` lists), named by the hash of the source so an edited
+source is rebuilt.  Libraries are loaded with ``ctypes``.  A failed build
+raises.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nice_slam_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_longlong)  # a per-grid descriptor table
-# C signatures of every exported entry: name -> argtypes (all return int,
-# the launch's cudaGetLastError())
+# C signatures of the CUDA libraries' entries: name -> argtypes (all return
+# int, the launch's cudaGetLastError()); a host library's caller binds its
+# own (utils/meshlib.py)
 SIGNATURES = {
     "trilinear": {
         "trilinear_fwd": [_D, _I, _P, _I, _I, _P],
@@ -52,33 +56,59 @@ def _nvcc() -> str:
     return path
 
 
-def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+def sources() -> List[str]:
+    """Names of every source in ``csrc/`` (CUDA and host)."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cpp")))
+
+
+def _source(name: str) -> str:
+    for ext in (".cu", ".cpp"):
+        path = os.path.join(CSRC, name + ext)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no source {name}.cu or {name}.cpp in {CSRC}")
+
+
+def _so_path(src: str, name: str) -> str:
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
+def _compile_cmd(src: str, out: str) -> List[str]:
+    if src.endswith(".cu"):
+        return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host mesh kernels need a C++ "
+                           "compiler on PATH")
+    return [gxx, *GXX_FLAGS, src, "-o", out]
+
+
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named sources, one ``nvcc`` each, all started together.
-    Returns name -> library path; raises with the compiler output on failure."""
+    """Compile the named sources, one compiler process each, all started
+    together.  Returns name -> library path; raises with the compiler
+    output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs: List = []
     out: Dict[str, str] = {}
     for name in names:
-        so = _so_path(name)
+        src = _source(name)
+        so = _so_path(src, name)
         out[name] = so
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        procs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        procs.append((name, src, so, tmp, subprocess.Popen(
+            _compile_cmd(src, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for name, so, tmp, proc in procs:
+    for name, src, so, tmp, proc in procs:
         log, _ = proc.communicate()
         build_logs[name] = log
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            failed.append(f"build failed for {os.path.basename(src)}:\n{log}")
             continue
         os.replace(tmp, so)
     if failed:
@@ -91,7 +121,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(build([name])[name])
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, argtypes in SIGNATURES.get(name, {}).items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib

@@ -5,7 +5,8 @@ largest sensor depth when depth is given; ``N_samples`` stratified samples
 in [0.01 d, far] plus ``N_surface`` samples in [0.95 d, 1.05 d] (rays with
 zero depth sweep [0.001, max depth] instead); the merged samples are
 sorted, decoded and integrated.  ``N_importance`` re-sampling is not
-ported yet (it is 0 for the NICE model).
+ported yet (it is 0 for the NICE model).  ``render_img`` renders a whole
+frame in chunks of ``ray_batch_size`` rays without a gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from nice_slam_torch.models.scene import SceneSpec, SceneState, eval_points
 from nice_slam_torch.ops.geometry import (
     linspace,
     ray_aabb_far,
+    rays_from_uv,
     raw2outputs_nerf_color,
 )
 
@@ -33,6 +35,8 @@ class RenderConfig:
     lindisp: bool = False
     perturb: float = 0.0
     occupancy: bool = True
+    points_batch_size: int = 500_000
+    ray_batch_size: int = 100_000
 
     @staticmethod
     def from_cfg(cfg) -> "RenderConfig":
@@ -103,3 +107,37 @@ def render_batch_ray(spec: SceneSpec, state: SceneState, rays_o: torch.Tensor,
     depth, uncertainty, color, _ = raw2outputs_nerf_color(
         raw, z_vals, rays_d, occupancy=rcfg.occupancy)
     return depth, uncertainty, color
+
+
+def get_rays(H: int, W: int, fx, fy, cx, cy, c2w: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays of every pixel, row-major: (H * W, 3) origins and directions."""
+    j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=c2w.device),
+                          torch.arange(W, dtype=torch.float32, device=c2w.device),
+                          indexing="ij")
+    return rays_from_uv(i.reshape(-1), j.reshape(-1), c2w, fx, fy, cx, cy)
+
+
+@torch.no_grad()
+def render_img(spec: SceneSpec, state: SceneState, c2w: torch.Tensor, H: int,
+               W: int, fx, fy, cx, cy, stage: str,
+               gt_depth: Optional[torch.Tensor] = None,
+               rcfg: RenderConfig = RenderConfig(),
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Render a full (H, W) frame at pose ``c2w`` (3|4, 4) in chunks of
+    ``rcfg.ray_batch_size`` rays; ``gt_depth`` (H, W) guides the surface
+    samples.  Returns (depth (H, W), uncertainty (H, W), color (H, W, 3))."""
+    rays_o, rays_d = get_rays(H, W, fx, fy, cx, cy, c2w)
+    gt_flat = None if gt_depth is None else gt_depth.reshape(-1)
+    n = rays_o.shape[0]
+    chunk = min(rcfg.ray_batch_size, n)
+    depths, uncs, colors = [], [], []
+    for i in range(0, n, chunk):
+        d, u, c = render_batch_ray(
+            spec, state, rays_o[i:i + chunk], rays_d[i:i + chunk], stage,
+            gt_depth=None if gt_flat is None else gt_flat[i:i + chunk], rcfg=rcfg)
+        depths.append(d)
+        uncs.append(u)
+        colors.append(c)
+    return (torch.cat(depths).reshape(H, W), torch.cat(uncs).reshape(H, W),
+            torch.cat(colors).reshape(H, W, 3))

@@ -1,12 +1,15 @@
 """Command-line entry point of the PyTorch port.
 
     python -m nice_slam_torch.run configs/<scene>.yaml [--nice]
-        [--input_folder DIR] [--output DIR] [--device cuda|cpu]
+        [--input_folder DIR] [--output DIR] [--resume] [--device cuda|cpu]
 
 Loads the config over ``configs/nice_slam.yaml``, runs the strict
-schedule and writes ``poses.npz`` (estimated and true poses) and
-``timings.json`` to the output directory.  The CUDA kernels are built with
-``nvcc`` on first use.
+schedule and writes the JAX package's output tree to the output
+directory (``ckpts/``, ``mesh/``, ``tracking_vis/``, ``mapping_vis/``)
+plus ``poses.npz`` (estimated and true poses) and ``timings.json``.
+``--resume`` continues from the output directory's last checkpoint.  The
+CUDA kernels are built with ``nvcc``, the mesh kernels with ``g++``, on
+first use.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ def main() -> None:
                         help="override cfg data.input_folder")
     parser.add_argument("--output", type=str, default=None,
                         help="override cfg data.output")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the output folder's last checkpoint")
     parser.add_argument("--nice", dest="nice", action="store_true", default=True,
                         help="hierarchical-grid model (the only one ported)")
     parser.add_argument("--device", type=str, default="cuda")
@@ -37,6 +42,8 @@ def main() -> None:
     base = os.path.join(ROOT, "configs", "nice_slam.yaml")
     cfg = load_config(args.config, base)
     slam = NiceSLAM(cfg, args, device=args.device)
+    if args.resume:
+        slam.resume()
     slam.run()
     est = slam.estimate_c2w_list.cpu().numpy()
     print(f"INFO: ATE RMSE {100 * ate_rmse(est, slam.gt_c2w_list):.3f} cm; "

@@ -337,11 +337,14 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                       lr_factor: float, mcfg: MapperConfig, rcfg: RenderConfig,
                       stage_plan: Tuple[Tuple[str, int], ...], BA: bool,
                       pixs_per_image: int, gen: Optional[torch.Generator] = None,
-                      pix_idx: Optional[torch.Tensor] = None):
+                      pix_idx: Optional[torch.Tensor] = None, vis_hook=None,
+                      vis_every: int = 0):
     """One optimize_map call: a fresh group Adam, then the stages in order.
     ``pix_idx`` (num_iters, F, n) fixes every iteration's pixels; otherwise
-    they are drawn from ``gen``.  Returns (new state, new cam tensors,
-    losses (num_iters,)), all on the device."""
+    they are drawn from ``gen``.  ``vis_hook(it, state)``, when given, is
+    called with the pre-iteration scene state at every ``vis_every``-th
+    iteration.  Returns (new state, new cam tensors, losses (num_iters,)),
+    all on the device."""
     masks: Dict[str, torch.Tensor] = {}
     if mcfg.frustum_feature_selection:
         shapes = dict(spec.grid_shapes)
@@ -361,6 +364,9 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
         leaves = [x for k in names for x in tree_leaves(groups[k])]
         lrs = _stage_lrs(mcfg, stage, lr_factor, groups)
         for _ in range(n_iters):
+            if vis_hook is not None and vis_every > 0 and it % vis_every == 0:
+                vis_hook(it, _merge_scene(state, {
+                    k: tree_map(lambda t: t.detach(), v) for k, v in groups.items()}))
             loss = mapping_loss(
                 spec, groups, state, colors, depths, fixed_c2w, opt_cam_mask,
                 frame_valid, stage, mcfg, rcfg, pixs_per_image,
@@ -421,9 +427,11 @@ class Mapper:
     def optimize_map(self, state: SceneState, num_joint_iters: int,
                      lr_factor: float, cur_color: torch.Tensor,
                      cur_depth: torch.Tensor, keyframes,
-                     cur_c2w: torch.Tensor, BA: bool):
+                     cur_c2w: torch.Tensor, BA: bool, vis_hook=None,
+                     vis_every: int = 0):
         """One mapping call on the current frame (device tensors; cur_c2w is
-        4x4).  Returns (new state, updated current pose or None, losses)."""
+        4x4), with ``vis_hook`` as in ``optimize_map_core``.  Returns (new
+        state, updated current pose or None, losses)."""
         mcfg = dataclasses.replace(
             self.mcfg, mapping_window_size=self.mapping_window_size,
             middle_iter_ratio=self.middle_iter_ratio,
@@ -467,7 +475,7 @@ class Mapper:
         new_state, new_cams, losses = optimize_map_core(
             self.spec, state, colors, depths, fixed_c2w, cam_tensors, opt_mask,
             frame_valid, lr_factor, mcfg, self.rcfg, plan, BA, mcfg.pixels // F,
-            gen=self.gen)
+            gen=self.gen, vis_hook=vis_hook, vis_every=vis_every)
         cur_out = None
         if BA:
             # write the refined window poses back (host bookkeeping: syncs)

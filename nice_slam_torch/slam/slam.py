@@ -13,10 +13,12 @@ spatial grid sharding are not ported yet.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import shutil
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -38,6 +40,9 @@ from nice_slam_torch.slam.tracker import (
     track_frame_sampled,
 )
 from nice_slam_torch.utils.datasets import Prefetcher, get_dataset
+from nice_slam_torch.utils.logger import Logger, load_checkpoint
+from nice_slam_torch.utils.mesher import Mesher
+from nice_slam_torch.utils.visualizer import Visualizer
 
 
 def update_cam(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -75,7 +80,7 @@ class NiceSLAM:
         self.coarse = bool(cfg["coarse"])
         self.scale = cfg["scale"]
         self.output = getattr(args, "output", None) or cfg["data"]["output"]
-        os.makedirs(self.output, exist_ok=True)
+        os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
 
         self.cam = update_cam(cfg)
         self.H, self.W = self.cam["H"], self.cam["W"]
@@ -101,6 +106,25 @@ class NiceSLAM:
                 self.spec, MapperConfig.from_cfg(cfg, self.cam, True, True),
                 self.rcfg, self.device, seed=7)
         self.seed = int(cfg.get("seed", 42))
+        self.logger = Logger(self.output, self.spec, self.verbose)
+        in_demo = "Demo" in self.output
+        self.tracking_visualizer = Visualizer(
+            cfg["tracking"]["vis_freq"], cfg["tracking"]["vis_inside_freq"],
+            os.path.join(self.output, "vis" if in_demo else "tracking_vis"),
+            self.spec, self.rcfg, self.cam, self.verbose)
+        self.mapping_visualizer = None
+        if not in_demo:  # the reference draws no mapping panels in Demo
+            self.mapping_visualizer = Visualizer(
+                cfg["mapping"]["vis_freq"], cfg["mapping"]["vis_inside_freq"],
+                os.path.join(self.output, "mapping_vis"), self.spec, self.rcfg,
+                self.cam, self.verbose)
+        self.mesher = None
+        if cfg.get("meshing") is not None:
+            self.mesher = Mesher(cfg, self.cam, self.spec, self.rcfg)
+        # one record per mesh written: path, seconds, vertices, faces, the
+        # mesher's device chunks and per-step host seconds
+        self.meshes: List[Dict[str, Any]] = []
+        self._start_idx = 0
         self.timings = {"tracking_s": 0.0, "mapping_s": 0.0,
                         "coarse_mapping_s": 0.0, "meshing_s": 0.0, "frames": 0,
                         "tracked_frames": 0, "mapping_events": 0,
@@ -115,13 +139,17 @@ class NiceSLAM:
                                device=self.device)
 
     # ------------------------------------------------------------------
-    def track_one(self, idx: int, pix, gt_c2w) -> None:
+    def track_one(self, idx: int, pix, gt_c2w, color=None, depth=None) -> None:
         """Track frame ``idx`` from its pre-drawn pixels ``pix`` = (i, j,
-        depth, color) arrays shaped (iters, pixels[, 3])."""
+        depth, color) arrays shaped (iters, pixels[, 3]).  The full frame
+        (``color``, ``depth``) is read only for a residual panel."""
         t0 = time.perf_counter()
         self.gt_c2w_list[idx] = gt_c2w
+        vis = self.tracking_visualizer
         if self.tcfg.gt_camera:
             self.estimate_c2w_list[idx] = self._to_dev(gt_c2w)
+            if idx % vis.freq == 0:
+                vis.vis(idx, 0, depth, color, self.estimate_c2w_list[idx], self.state)
         else:
             est = self.estimate_c2w_list
             pre = est[idx - 1]
@@ -130,10 +158,15 @@ class NiceSLAM:
                 init = const_speed_init(pre, est[idx - 2])
             init_tensor = tensor_from_pose(init)
             pi, pj, pd, pc = (self._to_dev(a) for a in pix)
-            cand, losses, _, _ = track_frame_sampled(
+            cand, losses, cams, _ = track_frame_sampled(
                 self.spec, self.state, init_tensor, pi, pj, pd, pc, self.tcfg,
                 self.rcfg)
             est[idx] = c2w44(pose_from_tensor(cand))
+            if idx % vis.freq == 0:
+                # iteration it renders at its pre-step pose
+                for it in range(0, self.tcfg.iters, vis.inside_freq):
+                    vis.vis(idx, it, depth, color,
+                            init_tensor if it == 0 else cams[it - 1], self.state)
             if self.verbose:
                 l = losses.cpu().numpy()
                 print(f"Tracking Frame {idx}  re-rendering loss: "
@@ -167,11 +200,21 @@ class NiceSLAM:
                 mapper.frustum_feature_selection = False
         num_joint_iters //= outer_joint_iters
         cur_c2w = self.estimate_c2w_list[idx].clone()
+        vis_hook, vis_every = None, 0
+        vis = self.mapping_visualizer
+        if (not coarse and vis is not None and idx % vis.freq == 0
+                and not (idx == 0 and cfg_m["no_vis_on_first_frame"])):
+            vis_every = vis.inside_freq
+
+            def vis_hook(it, state):
+                vis.vis(idx, it, depth, color, self.estimate_c2w_list[idx], state)
+
         for outer in range(outer_joint_iters):
             BA = len(self.keyframes) > 4 and cfg_m["BA"] and not coarse
             new_state, cur_out, losses = mapper.optimize_map(
                 self.state, num_joint_iters, lr_factor, color, depth,
-                self.keyframes, cur_c2w, BA)
+                self.keyframes, cur_c2w, BA, vis_hook=vis_hook,
+                vis_every=vis_every)
             if coarse:
                 grids = dict(self.state.grids)
                 grids["grid_coarse"] = new_state.grids["grid_coarse"]
@@ -195,6 +238,63 @@ class NiceSLAM:
         self.timings[key + "_s"] += time.perf_counter() - t0
         self.timings[key + "_events"] += 1
 
+    def log_and_mesh(self, idx: int) -> None:
+        """The checkpoint and meshes due after the main mapping event of
+        frame ``idx``."""
+        cfg_m = self.cfg["mapping"]
+        last = idx == self.n_img - 1
+        if last or (idx % cfg_m["ckpt_freq"] == 0
+                    and not (idx == 0 and cfg_m["no_log_on_first_frame"])):
+            self.logger.log(idx, self.state, self.estimate_c2w_list,
+                            self.gt_c2w_list, self.keyframes.frame_ids)
+        if self.mesher is None:
+            return
+        mesh_dir = os.path.join(self.output, "mesh")
+        if idx % cfg_m["mesh_freq"] == 0 and not (
+                idx == 0 and cfg_m["no_mesh_on_first_frame"]):
+            self._mesh(os.path.join(mesh_dir, f"{idx:05d}_mesh.ply"), idx)
+        if last:
+            final = os.path.join(mesh_dir, "final_mesh.ply")
+            self._mesh(final, idx)
+            shutil.copyfile(final, os.path.join(mesh_dir, f"{idx:05d}_mesh.ply"))
+            if self.cfg["meshing"]["eval_rec"]:
+                self._mesh(os.path.join(mesh_dir, "final_mesh_eval_rec.ply"), idx,
+                           eval_rec=True)
+
+    def _mesh(self, path: str, idx: int, eval_rec: bool = False) -> None:
+        t0 = time.perf_counter()
+        m = self.cfg["meshing"]
+        self.mesher.get_mesh(
+            path, self.state, self.keyframes, self.estimate_c2w_list, idx,
+            show_forecast=m["mesh_coarse_level"] and not eval_rec,
+            clean_mesh=m["clean_mesh"], get_mask_use_all_frames=eval_rec)
+        self._sync()
+        seconds = time.perf_counter() - t0
+        self.timings["meshing_s"] += seconds
+        self.meshes.append(dict(self.mesher.last, path=path, seconds=seconds))
+
+    def resume(self) -> int:
+        """Restore the output folder's last checkpoint (grids, decoders,
+        poses, and the keyframes re-read from the dataset); ``run()`` then
+        starts at the frame after it.  Returns that frame (0 without a
+        checkpoint)."""
+        ckpts = sorted(glob.glob(os.path.join(self.output, "ckpts", "*.tar")))
+        if not ckpts:
+            return 0
+        self.state, est, gt, kf_list, idx = load_checkpoint(
+            ckpts[-1], self.spec, self.state, self.device)
+        n = min(len(est), self.n_img)
+        self.estimate_c2w_list[:n] = self._to_dev(est[:n])
+        self.gt_c2w_list[:n] = gt[:n]
+        # keyframe images are not checkpointed: read them again
+        for kf_idx in kf_list:
+            _, color, depth, gt_c2w = self.frame_reader[kf_idx]
+            self.keyframes.add(kf_idx, color, depth,
+                               self.estimate_c2w_list[kf_idx], gt_c2w)
+        self._start_idx = idx + 1
+        print(f"INFO: resumed from {ckpts[-1]} at frame {idx}")
+        return self._start_idx
+
     # ------------------------------------------------------------------
     def _packer(self, item):
         """Runs on the reader thread: draw the tracking pixels of a frame."""
@@ -209,17 +309,19 @@ class NiceSLAM:
 
     def run(self) -> None:
         t0 = time.perf_counter()
-        prefetch = Prefetcher(self.frame_reader, depth=4, packer=self._packer)
+        prefetch = Prefetcher(self.frame_reader, depth=4, start=self._start_idx,
+                              packer=self._packer)
         try:
             for idx, color, depth, gt_c2w, pix in prefetch:
                 if idx == 0:
                     self.estimate_c2w_list[0] = self._to_dev(gt_c2w)
                     self.gt_c2w_list[0] = gt_c2w
                 else:
-                    self.track_one(idx, pix, gt_c2w)
+                    self.track_one(idx, pix, gt_c2w, color, depth)
                 if idx == 0 or self._should_map(idx):
                     color_d, depth_d = self._to_dev(color), self._to_dev(depth)
                     self.map_one(idx, color_d, depth_d, gt_c2w, init=idx == 0)
+                    self.log_and_mesh(idx)
                     if self.coarse_mapper is not None and idx != self.n_img - 1:
                         self.map_one(idx, color_d, depth_d, gt_c2w,
                                      init=idx == 0, coarse=True)
@@ -228,7 +330,7 @@ class NiceSLAM:
         self._sync()
         t = self.timings
         t["total_s"] = time.perf_counter() - t0
-        t["frames"] = self.n_img
+        t["frames"] = self.n_img - self._start_idx
         if t["frames"] > 0:
             t["fps"] = t["frames"] / max(t["total_s"], 1e-9)
         for skey, nkey, out in (

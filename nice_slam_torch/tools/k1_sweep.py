@@ -4,11 +4,13 @@
 
 Builds ``k1_sweep.cu`` (the register-walk design and the shipped kernel
 with L at run time; see its header) beside the port's own
-``csrc/trilinear.cu``, captures the three main-path lookups as
+``csrc/trilinear.cu``, captures the main-path lookups as
 ``chip_smoke.py`` does (one tracking iteration's and one color-stage
 mapping iteration's over the middle, fine and color grids, one
-coarse-mapping iteration's over the coarse grid) and makes the smoke's
-three random-ray cases, then for every case holds each variant against
+coarse-mapping iteration's over the coarse grid, a mesher chunk's 500k
+lattice points over the middle and fine grids and a render chunk's 4.8M
+ray samples over three grids) and makes the smoke's three random-ray
+cases, then for every case holds each variant against
 ``trilinear_fwd_multi_plain`` at 1e-5 and takes its ``device_ms`` as the
 smoke does (torch.profiler, the kernel's own time per lookup, the L2
 evicted before each call).  Variants:
@@ -172,7 +174,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib, log = build()
-    cases = {k: (v["grids"], v["p"]) for k, v in chip_smoke.phase_capture(dev).items()}
+    captured, lookups = chip_smoke.phase_capture(dev)
+    cases = {k: (v["grids"], v["p"]) for k, v in {**captured, **lookups}.items()}
     gen = torch.Generator().manual_seed(0)  # the smoke's random cases, in its order
     for label, shape, n_rays in (("fine_map", (74, 56, 43, 32), 1000),
                                  ("fine_track", (74, 56, 43, 32), 200),

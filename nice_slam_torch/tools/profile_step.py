@@ -6,7 +6,9 @@ Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
 17 frames of the strict loop, so the map and a full 5-frame keyframe
 window exist,
 then traces under ``torch.profiler`` one tracked frame (10 iterations),
-one main-mapper call (60 iterations) and one coarse-mapper call.  For each
+one main-mapper call (60 iterations), one coarse-mapper call, one mesh at
+resolution 256 and at 128 (``Mesher.get_mesh``) and one full-frame
+render (``render_img``, 680x1200).  For each
 it prints one JSON line: wall time of an unprofiled run (host clock,
 ending in a synchronize), the device's busy time in a profiled run (union
 of its kernel, copy and memset intervals), the idle share (1 - busy /
@@ -72,6 +74,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from nice_slam_torch.ops.geometry import tensor_from_pose
+    from nice_slam_torch.ops.render import render_img
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.slam.tracker import presample_pixels, track_frame_sampled
     from nice_slam_torch.tools.workloads import ROOT, replica_synthetic_cfg
@@ -97,6 +100,15 @@ def main() -> None:
     depth_d = torch.as_tensor(depth, device=dev)
     cur = slam.estimate_c2w_list[idx].clone()
     cfg_m = cfg["mapping"]
+    mesher = slam.mesher
+
+    def mesh(resolution):
+        def run():
+            mesher.resolution = resolution
+            mesher.get_mesh(os.path.join(out, "mesh", f"profile_{resolution}.ply"),
+                            slam.state, slam.keyframes, slam.estimate_c2w_list, idx)
+        return run
+
     work = {
         "tracking_frame": lambda: track_frame_sampled(
             slam.spec, slam.state, init, *pix, slam.tcfg, slam.rcfg),
@@ -106,6 +118,12 @@ def main() -> None:
         "coarse_mapping_call": lambda: slam.coarse_mapper.optimize_map(
             slam.state, cfg_m["iters"], cfg_m["lr_factor"], color_d, depth_d,
             slam.keyframes, cur, False),
+        "mesh_res256": mesh(256),
+        "mesh_res128": mesh(128),
+        "render_frame": lambda: render_img(
+            slam.spec, slam.state, cur, slam.H, slam.W, slam.cam["fx"],
+            slam.cam["fy"], slam.cam["cx"], slam.cam["cy"], "color",
+            gt_depth=depth_d, rcfg=slam.rcfg),
     }
     card = torch.cuda.get_device_name(0)
     for name, fn in work.items():
@@ -120,6 +138,8 @@ def main() -> None:
             torch.cuda.synchronize()
         row = {"what": name, "device": card}
         row.update(_device_summary(prof, wall))
+        if name.startswith("mesh"):
+            row["mesher_steps"] = mesher.last
         print(json.dumps(row), flush=True)
 
 

@@ -6,7 +6,9 @@ tracking 10 iters x 200 px, mapping 60 iters x 1000 px over a 5-frame
 window every 5th frame, coarse mapper on, BA off) on the procedural
 synthetic room, with random decoder weights from the config's seed.  A
 keyframe is kept every 5th frame (the Replica config keeps every 50th)
-so the 5-frame window fills within a short run.
+so the 5-frame window fills within a short run.  It meshes as the
+Replica configs do: the room as marching-cubes bound, resolution 256,
+``eval_rec`` on (a final mesh and its all-frames eval_rec variant).
 
 ``box_quality_cfg``: the 30-frame tracked box run whose ATE the quality
 gate of the JAX package holds to 9.5 cm (box.yaml on nice_slam.yaml,
@@ -31,8 +33,9 @@ def replica_synthetic_cfg(out_dir: str, n_frames: int = 12,
     cfg["pretrained_decoders"] = {"coarse": "", "middle_fine": ""}
     cfg["data"] = {"dim": 3, "n_frames": n_frames, "room": REPLICA_ROOM,
                    "output": out_dir, "orbit_radians": 0.3}
-    cfg["mapping"].update(bound=REPLICA_ROOM, BA=False, keyframe_every=5,
-                          iters_first=iters_first)
+    cfg["mapping"].update(bound=REPLICA_ROOM, marching_cubes_bound=REPLICA_ROOM,
+                          BA=False, keyframe_every=5, iters_first=iters_first)
+    cfg["meshing"]["eval_rec"] = True
     cfg["tracking"].update(ignore_edge_W=100, ignore_edge_H=100)
     return cfg
 

@@ -2,13 +2,19 @@
 
 Frames come back as host numpy arrays (color (H, W, 3) f32 in [0, 1],
 depth (H, W) f32 metres, c2w (4, 4) f32); the SLAM loop moves to the
-device what it needs.  This slice ports the base reader and the
-procedural ``Synthetic`` scenes (bare box and furnished room); the
-Replica, ScanNet, TUM, CoFusion and Azure readers come with a later slice.
+device what it needs.  The readers keep the reference's preprocessing:
+color BGR->RGB / 255, depth / png_depth_scale * scale, optional
+undistortion (color only), resize to crop_size (bilinear color, nearest
+depth) and crop_edge, the y/z axis flips of each dataset's poses,
+ScanNet's numeric frame order, and TUM's timestamp association (<= 0.08 s)
+with frame-rate subsampling and first-pose normalization.  ``Synthetic``
+is the procedural box room (bare or furnished).
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import queue
 import threading
 from typing import Any, Dict, List, Tuple
@@ -16,6 +22,25 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from nice_slam_torch.ops.geometry import as_intrinsics_matrix
+
+
+def readEXR_onlydepth(filename: str) -> np.ndarray:
+    """The depth channel of an EXR file (CoFusion): OpenCV's reader when it
+    has EXR support, else the port's scanline codec (``utils/exr.py``)."""
+    import cv2
+
+    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+    try:
+        img = cv2.imread(filename, cv2.IMREAD_UNCHANGED)
+    except cv2.error:
+        img = None
+    if img is None:
+        from nice_slam_torch.utils.exr import read_exr_depth
+
+        return read_exr_depth(filename)
+    if img.ndim == 3:
+        img = img[..., 0]
+    return img.astype(np.float32)
 
 
 class BaseDataset:
@@ -46,11 +71,18 @@ class BaseDataset:
     def __len__(self) -> int:
         return self.n_img
 
+    def _read_depth(self, path: str) -> np.ndarray:
+        import cv2
+
+        if path.endswith(".exr"):
+            return readEXR_onlydepth(path)
+        return cv2.imread(path, cv2.IMREAD_UNCHANGED).astype(np.float32)
+
     def __getitem__(self, index: int):
         import cv2
 
         color = cv2.imread(self.color_paths[index])
-        depth = cv2.imread(self.depth_paths[index], cv2.IMREAD_UNCHANGED)
+        depth = self._read_depth(self.depth_paths[index])
         if self.distortion is not None:
             K = as_intrinsics_matrix([self.fx, self.fy, self.cx, self.cy])
             color = cv2.undistort(color, K, self.distortion)
@@ -70,6 +102,148 @@ class BaseDataset:
         pose = self.poses[index].copy()
         pose[:3, 3] *= self.scale
         return index, color, depth, pose.astype(np.float32)
+
+
+class Replica(BaseDataset):
+    """Replica renders: results/frame*.jpg + depth*.png + traj.txt."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths = sorted(glob.glob(f"{self.input_folder}/results/frame*.jpg"))
+        self.depth_paths = sorted(glob.glob(f"{self.input_folder}/results/depth*.png"))
+        self.n_img = len(self.color_paths)
+        with open(f"{self.input_folder}/traj.txt") as f:
+            lines = f.readlines()
+        for i in range(self.n_img):
+            self.poses.append(_flip_yz(np.array(list(map(float, lines[i].split())))
+                                       .reshape(4, 4)))
+
+
+class Azure(BaseDataset):
+    """Azure Kinect captures with an Open3D .log trajectory (identity poses
+    when there is none)."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths = sorted(glob.glob(os.path.join(self.input_folder, "color", "*.jpg")))
+        self.depth_paths = sorted(glob.glob(os.path.join(self.input_folder, "depth", "*.png")))
+        self.n_img = len(self.color_paths)
+        path = os.path.join(self.input_folder, "scene", "trajectory.log")
+        if os.path.exists(path):
+            with open(path) as f:
+                content = f.readlines()
+            for i in range(0, len(content), 5):
+                vals = "".join(content[i + 1:i + 5]).strip().split()
+                self.poses.append(_flip_yz(np.array(list(map(float, vals))).reshape(4, 4)))
+        else:
+            self.poses = [np.eye(4, dtype=np.float32) for _ in range(self.n_img)]
+
+
+def _numbered(paths: List[str]) -> List[str]:
+    return sorted(paths, key=lambda p: int(os.path.basename(p).split(".")[0]))
+
+
+class ScanNet(BaseDataset):
+    """ScanNet exports: frames/{color,depth,pose} with numeric file names."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.input_folder = os.path.join(self.input_folder, "frames")
+        self.color_paths = _numbered(glob.glob(os.path.join(self.input_folder, "color", "*.jpg")))
+        self.depth_paths = _numbered(glob.glob(os.path.join(self.input_folder, "depth", "*.png")))
+        for pose_path in _numbered(glob.glob(os.path.join(self.input_folder, "pose", "*.txt"))):
+            with open(pose_path) as f:
+                rows = [list(map(float, line.split())) for line in f.readlines()]
+            self.poses.append(_flip_yz(np.array(rows).reshape(4, 4)))
+        self.n_img = len(self.color_paths)
+
+
+class CoFusion(BaseDataset):
+    """CoFusion synthetic sequences: colour/*.png + noisy EXR depth, with
+    identity poses (the reference could not align CoFusion's frame
+    either; ATE alignment absorbs it)."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths = sorted(glob.glob(os.path.join(self.input_folder, "colour", "*.png")))
+        self.depth_paths = sorted(glob.glob(os.path.join(self.input_folder, "depth_noise", "*.exr")))
+        self.n_img = len(self.color_paths)
+        self.poses = [np.eye(4, dtype=np.float32) for _ in range(self.n_img)]
+
+
+class TUM_RGBD(BaseDataset):
+    """TUM RGB-D: timestamped rgb/depth/groundtruth association."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths, self.depth_paths, self.poses = self._loadtum(
+            self.input_folder, frame_rate=32)
+        self.n_img = len(self.color_paths)
+
+    @staticmethod
+    def _parse_list(filepath, skiprows=0):
+        return np.loadtxt(filepath, delimiter=" ", dtype=np.str_, skiprows=skiprows)
+
+    @staticmethod
+    def _associate(t_img, t_depth, t_pose, max_dt=0.08):
+        out = []
+        for i, t in enumerate(t_img):
+            j = np.argmin(np.abs(t_depth - t))
+            k = np.argmin(np.abs(t_pose - t))
+            if np.abs(t_depth[j] - t) < max_dt and np.abs(t_pose[k] - t) < max_dt:
+                out.append((i, j, k))
+        return out
+
+    def _loadtum(self, datapath, frame_rate=-1):
+        pose_list = os.path.join(datapath, "groundtruth.txt")
+        if not os.path.isfile(pose_list):
+            pose_list = os.path.join(datapath, "pose.txt")
+        image_data = self._parse_list(os.path.join(datapath, "rgb.txt"))
+        depth_data = self._parse_list(os.path.join(datapath, "depth.txt"))
+        pose_data = self._parse_list(pose_list, skiprows=1)
+        pose_vecs = pose_data[:, 1:].astype(np.float64)
+        t_img = image_data[:, 0].astype(np.float64)
+        t_depth = depth_data[:, 0].astype(np.float64)
+        t_pose = pose_data[:, 0].astype(np.float64)
+        associations = self._associate(t_img, t_depth, t_pose)
+        indices = [0]
+        for i in range(1, len(associations)):
+            t0 = t_img[associations[indices[-1]][0]]
+            t1 = t_img[associations[i][0]]
+            if t1 - t0 > 1.0 / frame_rate:
+                indices.append(i)
+        images, depths, poses = [], [], []
+        inv_pose = None
+        for ix in indices:
+            i, j, k = associations[ix]
+            images.append(os.path.join(datapath, str(image_data[i, 1])))
+            depths.append(os.path.join(datapath, str(depth_data[j, 1])))
+            c2w = self._pose_from_quat(pose_vecs[k])
+            if inv_pose is None:
+                inv_pose = np.linalg.inv(c2w)
+                c2w = np.eye(4)
+            else:
+                c2w = inv_pose @ c2w
+            poses.append(_flip_yz(c2w))
+        return images, depths, poses
+
+    @staticmethod
+    def _pose_from_quat(pvec):
+        from scipy.spatial.transform import Rotation
+
+        pose = np.eye(4)
+        pose[:3, :3] = Rotation.from_quat(pvec[3:]).as_matrix()
+        pose[:3, 3] = pvec[:3]
+        return pose
+
+
+def _flip_yz(c2w: np.ndarray) -> np.ndarray:
+    """A dataset's camera-to-world pose in the system's convention (camera
+    y up, looking along -z): negate the y and z columns."""
+    c2w = np.array(c2w, dtype=np.float64)
+    c2w[:3, 1] *= -1
+    c2w[:3, 2] *= -1
+    return c2w.astype(np.float32)
 
 
 class Synthetic(BaseDataset):
@@ -281,6 +455,20 @@ class Synthetic(BaseDataset):
         return index, color, depth * self.scale, pose
 
 
+def quantize_frame(color: np.ndarray, depth: np.ndarray, qscale: float):
+    """Re-quantize a preprocessed f32 RGB-D frame to its source precision
+    (u8 color, u16 depth at ``qscale`` = png_depth_scale / scale).  For a
+    png-backed reader without resampling the round trip color = u8 / 255,
+    depth = u16 / qscale is exact.  None if a depth would clip at the u16
+    ceiling."""
+    d = np.rint(np.asarray(depth) * qscale)
+    if d.max() > 65535.0:
+        return None
+    c8 = np.rint(np.asarray(color) * 255.0)
+    np.clip(c8, 0.0, 255.0, out=c8)
+    return c8.astype(np.uint8), d.astype(np.uint16)
+
+
 class Prefetcher:
     """Reads frames on a background thread, ``depth`` ahead of the
     consumer.  ``packer`` (optional) runs on each raw ``(idx, color, depth,
@@ -334,13 +522,16 @@ class Prefetcher:
         self.thread.join(timeout=10)
 
 
-dataset_dict = {"synthetic": Synthetic}
+dataset_dict = {
+    "replica": Replica,
+    "scannet": ScanNet,
+    "cofusion": CoFusion,
+    "azure": Azure,
+    "tumrgbd": TUM_RGBD,
+    "synthetic": Synthetic,
+}
 
 
 def get_dataset(cfg: Dict[str, Any], args=None, scale: float = 1.0) -> BaseDataset:
     """Registry lookup by ``cfg['dataset']``."""
-    name = cfg["dataset"]
-    if name not in dataset_dict:
-        raise NotImplementedError(f"dataset {name!r} is not ported yet; "
-                                  f"ported: {sorted(dataset_dict)}")
-    return dataset_dict[name](cfg, args, scale)
+    return dataset_dict[cfg["dataset"]](cfg, args, scale)

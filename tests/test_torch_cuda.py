@@ -293,3 +293,83 @@ def test_tiny_strict_loop_launches_every_kernel(dev, tmp_path):
     slam.run()
     assert all(v > 0 for v in interp.launch_counts.values()), interp.launch_counts
     assert torch.isfinite(slam.estimate_c2w_list).all()
+
+
+def _lattice_points(res, n):
+    """The first ``n`` points of a res^3 mesher lattice over [-1.05, 1.05]^3
+    (x slowest, z fastest), normalized like the grid lookup's."""
+    g = torch.linspace(-1.05, 1.05, res)
+    X, Y, Z = torch.meshgrid(g, g, g, indexing="ij")
+    return torch.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)], -1)[:n].contiguous()
+
+
+@pytest.mark.parametrize("what", ["mesh_lattice", "render_rays"])
+def test_k1_matches_plain_at_mesher_and_render_sizes(dev, what):
+    """K1 at the new paths' sizes: 500k lattice points over the middle and
+    fine grids, and 2M ray samples over the middle, fine and color grids
+    (int32 offsets reach 2M x 32 per grid)."""
+    g = torch.Generator().manual_seed(11)
+    if what == "mesh_lattice":
+        shapes = [(37, 28, 21, 32), (74, 56, 43, 32)]
+        p = _lattice_points(256, 500_000).to(dev)
+    else:
+        shapes = [(37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32)]
+        p = _ray_samples(2_000_000 // 48).to(dev)
+    grids = [torch.randn(s, generator=g).to(dev) for s in shapes]
+    before = interp.launch_counts["trilinear_fwd"]
+    out = interp.trilinear_fwd_multi(grids, p)
+    assert interp.launch_counts["trilinear_fwd"] == before + 1
+    for o, r in zip(out, interp.trilinear_fwd_multi_plain(grids, p)):
+        torch.testing.assert_close(o, r, atol=1e-5, rtol=0)
+
+
+def test_get_mesh_on_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """One get_mesh at resolution 64 on the card: its occupancy field (the
+    marching-cubes input) matches the CPU port's on the same scene at
+    1e-4, and the mesh has faces."""
+    import numpy as np
+
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.convert import scene_from_jax, scene_to_numpy
+    from nice_slam_torch.models.pretrain import load_pretrain
+    from nice_slam_torch.models.scene import build_scene
+    from nice_slam_torch.slam.keyframes import KeyframeStore
+    from nice_slam_torch.utils import mesher as M
+    from nice_slam_torch.utils.datasets import Synthetic
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(ROOT, cfg["pretrained_decoders"][k])
+    cfg["verbose"] = False
+    cfg["cam"].update({"H": 48, "W": 64, "fx": 48.0, "fy": 48.0, "cx": 31.5, "cy": 23.5})
+    cfg["data"]["n_frames"] = 6
+    cfg["meshing"]["resolution"] = 64
+    spec, state = build_scene(cfg, device="cpu")
+    state = load_pretrain(cfg, spec, state, verbose=False)
+    gen = torch.Generator().manual_seed(2)
+    state = state._replace(grids={k: 0.3 * torch.randn(v.shape, generator=gen)
+                                  for k, v in state.grids.items()})
+    ds = Synthetic(cfg)
+    est = torch.tensor(np.stack([ds[i][3] for i in range(len(ds))]))
+    fields = {}
+    real_mc = M.meshlib.marching_cubes
+
+    def keep_field(field, *a, **k):
+        fields[len(fields)] = np.array(field)
+        return real_mc(field, *a, **k)
+
+    monkeypatch.setattr(M.meshlib, "marching_cubes", keep_field)
+    faces = []
+    for d in ("cpu", dev):
+        st = scene_from_jax(scene_to_numpy(state), d)
+        kf = KeyframeStore(4, 48, 64, d)
+        for i in (0, 5):
+            _, color, depth, c2w = ds[i]
+            kf.add(i, color, depth, c2w, c2w)
+        mesher = M.Mesher(cfg, dict(cfg["cam"]), spec)
+        mesher.get_mesh(str(tmp_path / f"{d}.ply"), st, kf, est.to(d), 5)
+        faces.append(mesher.last["faces"])
+    assert fields[0].shape == (64, 64, 64)
+    np.testing.assert_allclose(fields[1], fields[0], atol=1e-4, rtol=0)
+    assert faces[1] > 0

@@ -19,6 +19,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from nice_slam_tpu.config import load_config
 from nice_slam_tpu.slam.slam import NiceSLAM as JSLAM
@@ -30,12 +31,23 @@ from nice_slam_torch.tools.eval_ate import ate_rmse
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tier-1 run puts several workers on few cores, and torch's
+    thread pool in each would oversubscribe them (tiny loop runs took
+    ~10x longer that way), so this module's runs use one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_cfg(out):
     cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
                       os.path.join(ROOT, "configs", "nice_slam.yaml"))
     cfg["coarse"] = True
     cfg["verbose"] = False
-    cfg["meshing"] = None  # the mesher is not part of this slice
+    cfg["meshing"] = None  # no meshes: this test compares the loops
     cfg["data"].update({"n_frames": 4, "output": str(out),
                         "orbit_radians": 0.05})
     cfg["cam"].update({"H": 30, "W": 40, "fx": 30.0, "fy": 30.0, "cx": 19.5,

@@ -33,6 +33,17 @@ from nice_slam_torch.utils.datasets import Synthetic as TSynthetic
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tier-1 run puts several workers on few cores, and torch's
+    thread pool in each would oversubscribe them (tiny loop runs took
+    ~10x longer that way), so this module's runs use one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def small_cfg():
     cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
                       os.path.join(ROOT, "configs", "nice_slam.yaml"))
