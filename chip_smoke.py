@@ -49,7 +49,35 @@ Phases, each printing one JSON line:
            against the 9.5 cm gate, every draw against 20 cm; each draw's
            final mesh (resolution 128), the family median of each mesh's
            median | max(|x|,|y|,|z|) - 2 | over its vertices (the walls are
-           at +-2 m) against 0.15 m.
+           at +-2 m) against 0.15 m;
+  imap_slice  the iMAP* model (one 256-wide, 4-block MLP, no grids) through
+           the strict loop at the Replica iMAP widths on the synthetic room
+           at 680x1200: tracking 50 it x 5000 px, mapping 300 it x 5000 px
+           over a 5-frame 'global' window every 5th frame, 32 + 12
+           importance samples per ray and a 32-sample free-space
+           regulariser, BA off, the final colour refinement on; cut for
+           time to 12 frames, a first mapping of 300 iterations (config
+           1500) and a keyframe every 5th frame (config 50).  It asserts
+           the mapping iteration count of the schedule (300 at frame 0, 3
+           calls of 100 at frames 5 and 10, 5 of 300 at frame 11: 2400),
+           finite losses falling over the first call, no K1-K3 launch, an
+           ATE below that of a camera frozen at frame 0, the final
+           checkpoint and a resolution-256 final mesh with faces and
+           vertex colours rendered along the normals; it reports the
+           initial and final MLP's share of positive density along frame
+           0's rays (at 0 the ReLU passes no depth gradient), fps, ms
+           per tracking and mapping iteration, peak device memory,
+           meshing_s and the MLP's floating-point work per iteration beside
+           its time at the card's float32 peak (``mlp_f32_peak_share``);
+  imap_resume  a fresh iMAP* system resumes from that checkpoint: every
+           decoder tensor, the poses and the keyframes equal bit for bit;
+           one 680x1200 panel of the resumed state, timed;
+  imap_quality  the JAX package's ``selfcheck --imap`` run (30-frame box,
+           0.25 rad orbit, mapping iters 60, first 400) for pixel seeds 42,
+           0 and 1: every draw's ATE against 5 cm and against the ATE of a
+           camera frozen at frame 0 (0.73 cm on this orbit, which the 5 cm
+           gate alone would pass); each draw's box-mesh wall distance
+           reported, not gated.
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -77,6 +105,10 @@ ATE_DIVERGED_CM = 20.0     # any one draw: only a diverged run goes past it
 JAX_MEDIAN_GATE_CM = 6.5   # the JAX family's median gate, reported only
 QUALITY_SEEDS = (42, 0, 1, 2, 3)  # the config's default pixel seed, then 0-3
 BOX_MESH_GATE_M = 0.15     # family median of the box meshes' wall distance
+IMAP_FRAMES = 12           # the iMAP slice, cut for time
+IMAP_ITERS_FIRST = 300     # the Replica iMAP config's 1500, cut for time
+IMAP_ATE_GATE_CM = 5.0     # every draw (tests/test_quality_gates.py imap_tracked*)
+IMAP_QUALITY_SEEDS = (42, 0, 1)  # the JAX family imap_tracked, _s0, _s1
 
 
 def emit(obj) -> None:
@@ -727,6 +759,251 @@ def box_wall_distance(verts) -> float:
     return float(np.median(np.abs(np.abs(verts).max(axis=1) - 2.0)))
 
 
+def record_calls(mapper, sink) -> None:
+    """Append each optimize_map call's losses (on the host) to ``sink``."""
+    inner = mapper.optimize_map
+
+    def recorded(*a, **k):
+        out = inner(*a, **k)
+        sink.append(out[2].cpu().numpy())
+        return out
+
+    mapper.optimize_map = recorded
+
+
+def imap_schedule_iters(cfg, n_frames: int) -> int:
+    """Mapping iterations the strict schedule gives the iMAP* model
+    (nice_slam_tpu/slam/slam.py:_map_one): iters_first at frame 0; at
+    every every_frame-th frame 3 calls of iters // 3; at the last frame,
+    with colour refinement, 5 calls of 5 * iters // 5."""
+    m = cfg["mapping"]
+    total = m["iters_first"]
+    for idx in range(1, n_frames):
+        if idx == n_frames - 1:
+            total += 5 * (5 * m["iters"] // 5) if m["color_refine"] else 3 * (m["iters"] // 3)
+        elif idx % m["every_frame"] == 0:
+            total += 3 * (m["iters"] // 3)
+    return total
+
+
+def alive_share(slam) -> float:
+    """Share of the in-bound points along frame 0's rays (every 8th pixel
+    of every 8th row, 32 depths up to its largest depth) whose density is
+    positive under the current MLP: at 0 the ReLU passes no depth
+    gradient and the map never trains."""
+    import torch
+
+    from nice_slam_torch.models.scene import eval_points
+    from nice_slam_torch.ops.render import get_rays
+
+    _, _, depth, c2w = slam.frame_reader[0]
+    rays_o, rays_d = get_rays(slam.H, slam.W, slam.cam["fx"], slam.cam["fy"],
+                              slam.cam["cx"], slam.cam["cy"],
+                              torch.as_tensor(c2w, device=slam.device))
+    keep = torch.arange(slam.H * slam.W, device=slam.device)
+    keep = keep[(keep // slam.W % 8 == 0) & (keep % 8 == 0)]
+    z = torch.linspace(0.0, float(depth.max()), 33, device=slam.device)[1:]
+    pts = rays_o[keep, None] + rays_d[keep, None] * z[None, :, None]
+    with torch.no_grad():
+        density = eval_points(slam.spec, slam.state, pts.reshape(-1, 3))[:, 3]
+    inside = density != 100.0
+    return float((density[inside] > 0).float().mean())
+
+
+def frozen_ate_cm(gt) -> float:
+    """ATE of a trajectory that never leaves frame 0's pose: what a tracker
+    that never moves the camera scores on this orbit."""
+    import numpy as np
+
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+
+    return 100 * ate_rmse(np.repeat(gt[:1], len(gt), axis=0), gt)
+
+
+def phase_imap_slice(dev, card):
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.profile_step import (
+        F32_FLOPS_PER_S as PEAK,
+        imap_iteration_flops,
+    )
+    from nice_slam_torch.tools.workloads import replica_imap_cfg
+    from nice_slam_torch.utils.meshlib import read_ply
+
+    out = os.path.join(HERE, "output", "chip_smoke", "imap_slice")
+    shutil.rmtree(out, ignore_errors=True)  # imap_resume reads its last checkpoint
+    cfg = replica_imap_cfg(out, n_frames=IMAP_FRAMES, iters_first=IMAP_ITERS_FIRST)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
+    for i in range(slam.n_img):  # frame synthesis is not part of the timing
+        slam.frame_reader[i]
+    calls = []
+    record_calls(slam.mapper, calls)
+    init_alive = alive_share(slam)
+    interp.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slam.run()
+    counts = dict(interp.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    t, tc, r = slam.timings, slam.tcfg, slam.rcfg
+    map_iters = sum(len(c) for c in calls)
+    want = imap_schedule_iters(cfg, slam.n_img)
+    if map_iters != want or want != 2400:
+        raise AssertionError(f"{map_iters} mapping iterations in {len(calls)} calls; "
+                             f"the schedule gives {want} (2400 for 12 frames)")
+    if not all(np.isfinite(c).all() for c in calls):
+        raise AssertionError("non-finite mapping losses in the iMAP slice")
+    first = calls[0]
+    if not first[-10:].mean() < first[:10].mean():
+        raise AssertionError(f"the first mapping call's loss did not fall: "
+                             f"{first[:10].mean()} -> {first[-10:].mean()}")
+    if not torch.isfinite(slam.estimate_c2w_list).all():
+        raise AssertionError("non-finite poses in the iMAP slice")
+    if any(counts.values()):
+        raise AssertionError(f"the iMAP path launched trilinear kernels: {counts}")
+    ate = 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list)
+    frozen = frozen_ate_cm(slam.gt_c2w_list)
+    if not ate < frozen:
+        raise AssertionError(f"iMAP tracking did not beat a frozen camera: ATE {ate} cm, "
+                             f"frozen {frozen} cm (initial density alive share {init_alive})")
+    ckpt = os.path.join(out, "ckpts", f"{slam.n_img - 1:05d}.tar")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"no final checkpoint at {ckpt}")
+    mesh = os.path.join(out, "mesh", "final_mesh.ply")
+    verts, faces = mesh_stats(mesh)
+    colors = read_ply(mesh)[2]
+    if colors is None or len(colors) != len(verts) or len(np.unique(colors, axis=0)) < 2:
+        raise AssertionError(f"the iMAP mesh has no rendered vertex colours: {colors}")
+    rec = next(m for m in slam.meshes if m["path"].endswith("final_mesh.ply"))
+    track_flops = imap_iteration_flops(tc.pixels, r.N_samples, r.N_importance, 0, False)
+    track_flops_wgrad = imap_iteration_flops(tc.pixels, r.N_samples, r.N_importance,
+                                             0, True)
+    map_flops = imap_iteration_flops(cfg["mapping"]["pixels"], r.N_samples,
+                                     r.N_importance, r.N_samples, True)
+    track_ms_iter = t["tracking_ms_per_frame"] / tc.iters
+    map_ms_iter = 1e3 * t["mapping_s"] / map_iters
+    emit({"phase": "imap_slice", "ok": True, "card": card, "frames": slam.n_img,
+          "H": slam.H, "W": slam.W, "hidden": slam.spec.decoder.hidden_size,
+          "n_blocks": slam.spec.decoder.n_blocks,
+          "samples": [r.N_samples, r.N_importance], "regulariser_samples": r.N_samples,
+          "tracking": [tc.iters, tc.pixels],
+          "mapping": [cfg["mapping"]["iters"], cfg["mapping"]["pixels"]],
+          "cuts": {"frames": IMAP_FRAMES, "iters_first": [IMAP_ITERS_FIRST, 1500],
+                   "keyframe_every": [5, 50], "eval_rec_mesh": "off"},
+          "mapping_iters": map_iters, "mapping_calls": [len(c) for c in calls],
+          "first_call_loss": [float(first[:10].mean()), float(first[-10:].mean())],
+          "fps": t.get("fps"), "total_s": t.get("total_s"),
+          "fps_without_meshing": t["frames"] / (t["total_s"] - t["meshing_s"]),
+          "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+          "tracking_ms_per_iter": track_ms_iter, "mapping_ms_per_iter": map_ms_iter,
+          "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+          "peak_memory_gib": peak / 2 ** 30, "meshing_s": t["meshing_s"],
+          "mesh": {"vertices": len(verts), "faces": len(faces),
+                   "seconds": rec["seconds"], "color_chunks": rec["color_chunks"],
+                   "steps_s": {k: v for k, v in rec.items() if k.endswith("_s")}},
+          "mlp_tflop_per_iter": {"tracking": track_flops / 1e12,
+                                 "tracking_with_weight_grads": track_flops_wgrad / 1e12,
+                                 "mapping": map_flops / 1e12},
+          "mlp_bound_ms_per_iter": {"tracking": 1e3 * track_flops / PEAK,
+                                    "mapping": 1e3 * map_flops / PEAK},
+          "mlp_f32_peak_share": {"tracking": track_flops / (track_ms_iter / 1e3) / PEAK,
+                                 "mapping": map_flops / (map_ms_iter / 1e3) / PEAK},
+          "ate_cm": ate, "frozen_ate_cm": frozen, "init_alive_share": init_alive,
+          "final_alive_share": alive_share(slam),
+          "launches": counts, "checkpoint": ckpt})
+    return slam, cfg
+
+
+def phase_imap_resume(dev, done, cfg):
+    """A fresh iMAP* system resumes from the slice's final checkpoint: the
+    decoders, poses and keyframes equal the slice's bit for bit; then one
+    full-frame panel of the resumed state."""
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.utils.visualizer import Visualizer
+
+    t0 = time.perf_counter()
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
+    start = slam.resume()
+    if start != done.n_img:
+        raise AssertionError(f"resume starts at {start}, not {done.n_img}")
+    diff = []
+    flat_a, flat_b = leaves(done.state.decoders), leaves(slam.state.decoders)
+    if len(flat_a) != len(flat_b) or not all(torch.equal(a, b) for a, b in zip(flat_a, flat_b)):
+        diff.append("decoders")
+    if slam.state.grids or done.state.grids:
+        diff.append("grids")
+    if not torch.equal(slam.estimate_c2w_list, done.estimate_c2w_list):
+        diff.append("estimate_c2w_list")
+    if slam.keyframes.frame_ids != done.keyframes.frame_ids:
+        diff.append("keyframes")
+    if diff:
+        raise AssertionError(f"resumed iMAP state differs from the slice's: {diff}")
+    resume_s = time.perf_counter() - t0
+    out = os.path.join(HERE, "output", "chip_smoke", "imap_vis")
+    vis = Visualizer(1, 1, out, slam.spec, slam.rcfg, slam.cam)
+    idx = done.n_img - 1
+    _, color, depth, _ = slam.frame_reader[idx]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = vis.vis(idx, 0, depth, color, slam.estimate_c2w_list[idx], slam.state)
+    panel_s = time.perf_counter() - t0
+    if path is None or not os.path.exists(path):
+        raise AssertionError(f"no iMAP panel written (got {path})")
+    emit({"phase": "imap_resume", "ok": True, "start": start,
+          "decoder_tensors": len(flat_a), "keyframes": slam.keyframes.frame_ids,
+          "resume_s": resume_s, "panel": path, "H": slam.H, "W": slam.W,
+          "panel_s": panel_s})
+
+
+def phase_imap_quality(dev):
+    """The JAX package's selfcheck --imap run for seeds 42, 0, 1: every
+    draw's ATE against IMAP_ATE_GATE_CM, as tests/test_quality_gates.py
+    gates imap_tracked, _s0 and _s1.  The wall distance of each draw's
+    final mesh is reported only: short iMAP* sweeps carry frustum shells."""
+    import numpy as np
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import box_imap_quality_cfg
+
+    t0 = time.perf_counter()
+    draws = []
+    for seed in IMAP_QUALITY_SEEDS:
+        out = os.path.join(HERE, "output", "chip_smoke", f"imap_quality_s{seed}")
+        cfg = box_imap_quality_cfg(out)
+        cfg["seed"] = seed
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
+        init_alive = alive_share(slam)
+        slam.run()
+        verts, _ = mesh_stats(os.path.join(out, "mesh", "final_mesh.ply"))
+        draws.append({"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
+                      100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+                      "frozen_ate_cm": frozen_ate_cm(slam.gt_c2w_list),
+                      "init_alive_share": init_alive, "final_alive_share": alive_share(slam),
+                      "mesh_wall_m": box_wall_distance(verts), "vertices": len(verts),
+                      "meshing_s": slam.timings["meshing_s"]})
+    ates = [d["ate_rmse_cm"] for d in draws]
+    # a frozen camera scores 0.73 cm on this short orbit, under the 5 cm
+    # gate, so each draw must also beat it
+    ok = all(d["ate_rmse_cm"] <= IMAP_ATE_GATE_CM and d["ate_rmse_cm"] < d["frozen_ate_cm"]
+             for d in draws)
+    emit({"phase": "imap_quality", "ok": ok, "frames": 30, "draws": draws,
+          "median_ate_cm": float(np.median(ates)), "gate_cm": IMAP_ATE_GATE_CM,
+          "median_mesh_wall_m": float(np.median([d["mesh_wall_m"] for d in draws])),
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError(f"iMAP tracked ATE over seeds {IMAP_QUALITY_SEEDS}: {ates} cm; "
+                             f"every draw must be <= {IMAP_ATE_GATE_CM} and beat a frozen "
+                             f"camera ({[d['frozen_ate_cm'] for d in draws]} cm)")
+
+
 # kernel -> (TPU-side code it replaces, the case its line reports: each
 # kernel at a captured main-path launch)
 KERNEL_META = {
@@ -756,6 +1033,10 @@ def main() -> int:
         phase_vis(dev, done)
         del done
         phase_quality(dev)
+        done, cfg = phase_imap_slice(dev, card)
+        phase_imap_resume(dev, done, cfg)
+        del done
+        phase_imap_quality(dev)
     except Exception:  # any phase failure fails the run, with its traceback
         traceback.print_exc()
         return 1

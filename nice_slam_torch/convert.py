@@ -2,9 +2,10 @@
 
 Both packages keep the same parameter tree (dense layers as ``{"w": (in,
 out), "b": (out,)}``) and channels-last grids, so a conversion copies leaf
-for leaf.  The JAX side is handed over as numpy: any object with
-``decoders``, ``grids``, ``bound`` and ``coarse_bound`` (a ``SceneState``
-whose leaves are numpy arrays, or a dict with those keys).
+for leaf: the NICE stack with its grids, or the iMAP* single MLP (a flat
+tree) with an empty grid dict.  The JAX side is handed over as numpy: any
+object with ``decoders``, ``grids``, ``bound`` and ``coarse_bound`` (a
+``SceneState`` whose leaves are numpy arrays, or a dict with those keys).
 """
 
 from __future__ import annotations

@@ -2,25 +2,28 @@
 
 Parameters are plain nested dicts of tensors with the JAX package's
 layout (a dense layer is ``{"w": (in, out), "b": (out,)}``), so a
-parameter tree converts leaf for leaf.  Only the NICE model family is
-ported here; the iMAP single MLP comes with a later slice.
+parameter tree converts leaf for leaf.
 
-  * ``apply_mlp``        grid-conditioned point decoder: Fourier embedding,
-                         n_blocks layers with post-relu feature injection
-                         ``h += fc_c[i](feat)`` and a skip concat;
+  * ``apply_mlp``        point decoder: Fourier embedding, n_blocks layers
+                         with post-relu feature injection
+                         ``h += fc_c[i](feat)`` when it reads grids
+                         (c_dim > 0), and a skip concat;
   * ``apply_mlp_no_xyz`` the coarse decoder (the grid feature is the input);
   * ``apply_nice``       stage dispatch: coarse -> coarse occ, middle ->
                          middle occ, fine -> fine + middle occ, color -> rgb
                          of the color head + fine + middle occ;
   * ``apply_nice_stage_batched``  the fine/color stages' 2-3 decoders as one
-                         batched matmul chain on 128-wide zero-padded inputs.
+                         batched matmul chain on 128-wide zero-padded inputs;
+  * ``imap_spec``, ``apply_imap``  the iMAP* model: one 256-wide, 4-block
+                         MLP on the Fourier embedding, no grids, rgb +
+                         volume density out.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -154,19 +157,25 @@ def _dense(layer: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(params: Params, spec: MLPSpec, p: torch.Tensor,
-              grids: Dict[str, torch.Tensor], bound: torch.Tensor) -> torch.Tensor:
-    """One grid-conditioned decoder on (N, 3) world points -> (N,) occupancy
-    or (N, 4) rgb+occ."""
-    names = ["grid_" + spec.name] + (["grid_middle"] if spec.concat_feature else [])
-    feats = sample_grid_features([grids[k] for k in names], p, bound)
-    feat = feats[0]
-    if spec.concat_feature:
-        # the fine decoder sees the middle feature without a gradient path
-        feat = torch.cat([feat, feats[1].detach()], dim=-1)
+              grids: Optional[Dict[str, torch.Tensor]] = None,
+              bound: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder on (N, 3) world points -> (N,) occupancy or (N, 4)
+    rgb+occ.  With c_dim > 0 it reads its grid features (and adds them
+    after every block's relu); with c_dim 0 it reads no grid."""
+    feat = None
+    if spec.c_dim != 0:
+        names = ["grid_" + spec.name] + (["grid_middle"] if spec.concat_feature else [])
+        feats = sample_grid_features([grids[k] for k in names], p, bound)
+        feat = feats[0]
+        if spec.concat_feature:
+            # the fine decoder sees the middle feature without a gradient path
+            feat = torch.cat([feat, feats[1].detach()], dim=-1)
     embedded = embed_points(params, spec, p)
     h = embedded
     for i, layer in enumerate(params["pts_linears"]):
-        h = torch.relu(_dense(layer, h)) + _dense(params["fc_c"][i], feat)
+        h = torch.relu(_dense(layer, h))
+        if feat is not None:
+            h = h + _dense(params["fc_c"][i], feat)
         if i in spec.skips:
             h = torch.cat([embedded, h], dim=-1)
     out = _dense(params["output_linear"], h)
@@ -278,3 +287,14 @@ def apply_nice(params: Dict[str, Params], spec: NICESpec, p: torch.Tensor,
         raw = apply_mlp(params["color"], subs["color"], p, grids, bound)
         return torch.cat([raw[:, :3], occ[:, None]], dim=-1)
     raise ValueError(f"unknown stage {stage}")
+
+
+def imap_spec(dim: int = 3, pos_embedding_method: str = "fourier") -> MLPSpec:
+    """The iMAP* decoder: 4 blocks of 256, no skip, no grid, rgb + density."""
+    return MLPSpec(name="", dim=dim, c_dim=0, hidden_size=256, n_blocks=4,
+                   skips=(), color=True, pos_embedding_method=pos_embedding_method)
+
+
+def apply_imap(params: Params, spec: MLPSpec, p: torch.Tensor) -> torch.Tensor:
+    """iMAP* forward on (N, 3) world points -> (N, 4) rgb + volume density."""
+    return apply_mlp(params, spec, p)

@@ -3,8 +3,9 @@
 
 Camera rays, quaternion <-> matrix pose conversion (unnormalized-quaternion
 tolerant), the NeRF volume-rendering integrator in occupancy and density
-modes, and scene-bound coordinate normalization.  Random pixel selection
-takes an explicit ``torch.Generator`` on the tensors' device.
+modes, inverse-CDF importance sampling (``sample_pdf``), and scene-bound
+coordinate normalization.  Random draws take an explicit
+``torch.Generator`` on the tensors' device.
 """
 
 from __future__ import annotations
@@ -203,6 +204,42 @@ def raw2outputs_nerf_color(raw: torch.Tensor, z_vals: torch.Tensor,
     tmp = z_vals - depth_map[..., None]
     depth_var = torch.sum(weights * tmp * tmp, dim=-1)
     return depth_map, depth_var, rgb_map, weights
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical importance sampling
+# ---------------------------------------------------------------------------
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,
+               det: bool = False, u: Optional[torch.Tensor] = None,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverse-CDF sampling of ``N_samples`` z-values per ray from bin edges
+    ``bins`` (B, M) weighted by ``weights`` (B, M-1), with the 1e-5 weight
+    floor and the ``denom < 1e-5`` guard.  The quantiles are
+    ``linspace(0, 1)`` with ``det``, else ``u`` (B, N_samples) when given,
+    else uniform draws from ``gen``."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # (B, M)
+    shape = cdf.shape[:-1] + (N_samples,)
+    if det:
+        u = linspace(0.0, 1.0, N_samples, device=cdf.device).expand(shape)
+    elif u is None:
+        u = torch.rand(shape, generator=gen, device=cdf.device)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    last = bins.shape[-1] - 1
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, torch.clamp(below, max=last))
+    bins_above = torch.gather(bins, -1, torch.clamp(above, max=last))
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
 
 
 # ---------------------------------------------------------------------------

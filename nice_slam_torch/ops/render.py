@@ -4,9 +4,13 @@ Per ray: far plane = scene-box exit + 0.01, clamped to 1.2 x the batch's
 largest sensor depth when depth is given; ``N_samples`` stratified samples
 in [0.01 d, far] plus ``N_surface`` samples in [0.95 d, 1.05 d] (rays with
 zero depth sweep [0.001, max depth] instead); the merged samples are
-sorted, decoded and integrated.  ``N_importance`` re-sampling is not
-ported yet (it is 0 for the NICE model).  ``render_img`` renders a whole
-frame in chunks of ``ray_batch_size`` rays without a gradient.
+sorted, decoded and integrated.  With ``N_importance`` > 0 (the iMAP*
+model) that first pass only places ``N_importance`` more samples by
+inverse-CDF sampling of its weights (``sample_pdf``); the merged samples
+are decoded and integrated again, and only this second pass carries a
+gradient.  ``render_img`` renders a whole frame in chunks of
+``ray_batch_size`` rays without a gradient.  ``regulation`` draws the
+iMAP* free-space samples.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from nice_slam_torch.ops.geometry import (
     ray_aabb_far,
     rays_from_uv,
     raw2outputs_nerf_color,
+    sample_pdf,
 )
 
 
@@ -41,9 +46,6 @@ class RenderConfig:
     @staticmethod
     def from_cfg(cfg) -> "RenderConfig":
         r = cfg["rendering"]
-        if r["N_importance"]:
-            raise NotImplementedError("N_importance > 0 (sample_pdf) is not "
-                                      "ported yet")
         return RenderConfig(N_samples=r["N_samples"], N_surface=r["N_surface"],
                             N_importance=r["N_importance"], lindisp=r["lindisp"],
                             perturb=r["perturb"], occupancy=bool(cfg["occupancy"]))
@@ -51,9 +53,12 @@ class RenderConfig:
 
 def _stratified_z(near: torch.Tensor, far: torch.Tensor, N_samples: int,
                   lindisp: bool, perturb: float,
-                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                  gen: Optional[torch.Generator] = None,
+                  t_rand: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stratified z-values in [near, far] per ray; near/far are (N, 1) or
-    scalars broadcast against (N, 1)."""
+    scalars broadcast against (N, 1).  With ``perturb`` each sample moves
+    within its stratum by ``t_rand`` (N, N_samples) when given, else by
+    uniform draws from ``gen``."""
     t_vals = linspace(0.0, 1.0, N_samples, device=far.device)
     if not lindisp:
         z_vals = near * (1.0 - t_vals) + far * t_vals
@@ -63,7 +68,8 @@ def _stratified_z(near: torch.Tensor, far: torch.Tensor, N_samples: int,
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        t_rand = torch.rand(z_vals.shape, generator=gen, device=z_vals.device)
+        if t_rand is None:
+            t_rand = torch.rand(z_vals.shape, generator=gen, device=z_vals.device)
         z_vals = lower + (upper - lower) * t_rand
     return z_vals
 
@@ -101,12 +107,40 @@ def render_batch_ray(spec: SceneSpec, state: SceneState, rays_o: torch.Tensor,
         z_vals = torch.sort(torch.cat([z_vals, z_vals_surface], dim=-1),
                             dim=-1).values
 
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    raw = eval_points(spec, state, pts.reshape(-1, 3), stage)
-    raw = raw.reshape(z_vals.shape[0], z_vals.shape[1], 4)
-    depth, uncertainty, color, _ = raw2outputs_nerf_color(
-        raw, z_vals, rays_d, occupancy=rcfg.occupancy)
+    def integrate(z):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        raw = eval_points(spec, state, pts.reshape(-1, 3), stage)
+        return raw2outputs_nerf_color(raw.reshape(z.shape[0], z.shape[1], 4),
+                                      z, rays_d, occupancy=rcfg.occupancy)
+
+    if rcfg.N_importance > 0:
+        # the first pass only places the new samples, which carry no
+        # gradient, so nothing the caller reads depends on it: run it
+        # without a graph
+        with torch.no_grad():
+            weights = integrate(z_vals)[3]
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = sample_pdf(z_mid, weights[..., 1:-1], rcfg.N_importance,
+                                   det=rcfg.perturb == 0.0, gen=gen)
+        z_vals = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+    depth, uncertainty, color, _ = integrate(z_vals)
     return depth, uncertainty, color
+
+
+def regulation(spec: SceneSpec, state: SceneState, rays_o: torch.Tensor,
+               rays_d: torch.Tensor, gt_depth: torch.Tensor, N_samples: int,
+               stage: str = "color", gen: Optional[torch.Generator] = None,
+               t_rand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """iMAP* free-space regulariser: the raw volume density (N * N_samples,)
+    at ``N_samples`` stratified samples (perturb 1, jittered by ``t_rand``
+    (N, N_samples) when given, else draws from ``gen``) in [0, 0.85 *
+    depth] along each ray."""
+    gt_depth = gt_depth.reshape(-1, 1)
+    z_vals = _stratified_z(torch.zeros_like(gt_depth), gt_depth * 0.85,
+                           N_samples, lindisp=False, perturb=1.0, gen=gen,
+                           t_rand=t_rand)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    return eval_points(spec, state, pts.reshape(-1, 3), stage)[:, 3]
 
 
 def get_rays(H: int, W: int, fx, fy, cx, cy, c2w: torch.Tensor

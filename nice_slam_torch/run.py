@@ -1,9 +1,11 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m nice_slam_torch.run configs/<scene>.yaml [--nice]
+    python -m nice_slam_torch.run configs/<scene>.yaml [--nice | --imap]
         [--input_folder DIR] [--output DIR] [--resume] [--device cuda|cpu]
 
-Loads the config over ``configs/nice_slam.yaml``, runs the strict
+``--nice`` (the default) runs the hierarchical-grid model over
+``configs/nice_slam.yaml``, ``--imap`` the single-MLP iMAP* model over
+``configs/imap.yaml``.  It loads the config over that base, runs the strict
 schedule and writes the JAX package's output tree to the output
 directory (``ckpts/``, ``mesh/``, ``tracking_vis/``, ``mapping_vis/``)
 plus ``poses.npz`` (estimated and true poses) and ``timings.json``.
@@ -30,8 +32,12 @@ def main() -> None:
                         help="override cfg data.output")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the output folder's last checkpoint")
-    parser.add_argument("--nice", dest="nice", action="store_true", default=True,
-                        help="hierarchical-grid model (the only one ported)")
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument("--nice", dest="nice", action="store_true",
+                       help="hierarchical-grid model (the default)")
+    group.add_argument("--imap", dest="nice", action="store_false",
+                       help="single-MLP iMAP* model")
+    parser.set_defaults(nice=True)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args()
 
@@ -39,7 +45,8 @@ def main() -> None:
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
 
-    base = os.path.join(ROOT, "configs", "nice_slam.yaml")
+    base = os.path.join(ROOT, "configs",
+                        "nice_slam.yaml" if args.nice else "imap.yaml")
     cfg = load_config(args.config, base)
     slam = NiceSLAM(cfg, args, device=args.device)
     if args.resume:

@@ -17,6 +17,13 @@ the window poses over a keyframe window:
     color stage;
   * loss = masked depth L1 (+ weighted color L1 at the color stage),
     summed.
+
+For the iMAP* model (``nice`` false) the whole decoder tree is one group
+``dec`` on a StepLR schedule (``imap_decoders_lr * 0.8 ** (it // 200)``
+over a call's iterations), every iteration is a color-stage iteration
+with every ray kept, the camera learning rate is always on under BA, and
+the loss adds the free-space regulariser ``5e-4 * sum |sigma|`` whenever
+the model renders volume density (``occupancy`` false).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from nice_slam_torch.ops.geometry import (
     tensor_from_pose,
 )
 from nice_slam_torch.ops.interp import bilinear_sample_2d
-from nice_slam_torch.ops.render import RenderConfig, render_batch_ray
+from nice_slam_torch.ops.render import RenderConfig, regulation, render_batch_ray
 from nice_slam_torch.slam.optim import GroupAdam, tree_leaves, tree_map
 
 STAGE_INDEX = {"coarse": 0, "middle": 1, "fine": 2, "color": 3}
@@ -78,6 +85,7 @@ class MapperConfig:
     nice: bool
     coarse_mapper: bool
     occupancy: bool
+    imap_decoders_lr: float
     # ((decoders_lr, coarse_lr, middle_lr, fine_lr, color_lr) per stage)
     stage_lr: Tuple[Tuple[float, float, float, float, float], ...]
 
@@ -104,6 +112,7 @@ class MapperConfig:
             lr_first_factor=m["lr_first_factor"], lr_factor=m["lr_factor"],
             color_refine=m["color_refine"], nice=nice,
             coarse_mapper=coarse_mapper, occupancy=bool(cfg["occupancy"]),
+            imap_decoders_lr=float(m.get("imap_decoders_lr", 0.0)),
             stage_lr=stage_lr,
         )
 
@@ -238,7 +247,9 @@ def _opt_param_groups(spec: SceneSpec, state: SceneState, mcfg: MapperConfig,
                       cam_tensors: torch.Tensor, BA: bool) -> Dict[str, Any]:
     """Trainable copies (leaf tensors) of the groups this mapper trains."""
     src: Dict[str, Any] = {}
-    if mcfg.coarse_mapper:
+    if not spec.nice:
+        src["dec"] = state.decoders
+    elif mcfg.coarse_mapper:
         src["grid_coarse"] = state.grids["grid_coarse"]
     else:
         for name in ("grid_middle", "grid_fine", "grid_color"):
@@ -254,6 +265,8 @@ def _opt_param_groups(spec: SceneSpec, state: SceneState, mcfg: MapperConfig,
 
 
 def _merge_scene(state: SceneState, groups: Dict[str, Any]) -> SceneState:
+    if "dec" in groups:  # iMAP*: the decoder tree is the group
+        return state._replace(decoders=groups["dec"])
     grids = dict(state.grids)
     for k in GRID_NAMES:
         if k in groups:
@@ -267,7 +280,10 @@ def _merge_scene(state: SceneState, groups: Dict[str, Any]) -> SceneState:
 
 
 def _active_groups(stage: str, groups: Dict[str, Any]) -> Dict[str, bool]:
-    """Which groups take a step at this stage (those in its forward graph)."""
+    """Which groups take a step at this stage (those in its forward graph;
+    all of them for iMAP*)."""
+    if "dec" in groups:
+        return {k: True for k in groups}
     active = {"coarse": {"grid_coarse"},
               "middle": {"grid_middle"},
               "fine": {"grid_middle", "grid_fine", "dec_fine"},
@@ -285,8 +301,16 @@ def _stage_lrs(mcfg: MapperConfig, stage: str, lr_factor: float,
              "dec_fine": dec_lr, "dec_color": dec_lr}
     lrs = {k: table[k] * lr_factor for k in groups if k in table}
     if "cams" in groups:
-        lrs["cams"] = mcfg.BA_cam_lr if stage == "color" else 0.0
+        lrs["cams"] = mcfg.BA_cam_lr if (not mcfg.nice or stage == "color") else 0.0
     return lrs
+
+
+def imap_lr(mcfg: MapperConfig, it: int) -> float:
+    """iMAP*'s decoder learning rate at iteration ``it`` of a call: StepLR
+    with step 200 and gamma 0.8, in float32 as the JAX package computes it;
+    the call's lr_factor does not apply."""
+    return float(np.float32(mcfg.imap_decoders_lr)
+                 * np.float32(0.8) ** np.float32(it // 200))
 
 
 def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
@@ -295,9 +319,11 @@ def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
                  opt_cam_mask: torch.Tensor, frame_valid: torch.Tensor,
                  stage: str, mcfg: MapperConfig, rcfg: RenderConfig,
                  pixs_per_image: int, pix_idx: Optional[torch.Tensor] = None,
-                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                 gen: Optional[torch.Generator] = None,
+                 reg_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One mapping iteration's loss over the window.  ``pix_idx`` (F, n)
-    gives the flat pixel indices per window frame; when None they are drawn
+    gives the flat pixel indices per window frame and ``reg_t`` (F * n,
+    N_samples) the regulariser's stratum jitter; when None they are drawn
     from ``gen``."""
     state = _merge_scene(base_state, groups)
     F = colors.shape[0]
@@ -317,18 +343,28 @@ def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
     rays_o = rays_o.reshape(-1, 3)
     rays_d = rays_d.reshape(-1, 3)
 
-    inside = ray_aabb_far(rays_o, rays_d, state.bound).detach() >= gt_d
+    if spec.nice:
+        inside = ray_aabb_far(rays_o, rays_d, state.bound).detach() >= gt_d
+    else:
+        inside = torch.ones_like(gt_d, dtype=torch.bool)
     inside = inside & torch.repeat_interleave(frame_valid, pixs_per_image)
     depth, _, color = render_batch_ray(
         spec, state, rays_o, rays_d, stage,
-        gt_depth=None if mcfg.coarse_mapper else gt_d, rcfg=rcfg)
+        gt_depth=None if mcfg.coarse_mapper else gt_d, rcfg=rcfg, gen=gen)
     ddiff = torch.abs(gt_d - depth)
     loss = torch.sum(torch.where((gt_d > 0) & inside, ddiff,
                                  torch.zeros_like(ddiff)))
-    if stage == "color":
+    if not spec.nice or stage == "color":
         cdiff = torch.abs(gt_c - color)
         loss = loss + mcfg.w_color_loss * torch.sum(
             torch.where(inside[:, None], cdiff, torch.zeros_like(cdiff)))
+    if not mcfg.occupancy:
+        # the free-space regulariser, with rays_d and rays_o in the order
+        # the JAX mapper passes them (nice_slam_tpu/slam/mapper.py:553-554:
+        # its samples lie at rays_d + rays_o * z; ROADMAP C)
+        sigma = regulation(spec, state, rays_d, rays_o, gt_d, rcfg.N_samples,
+                           stage, gen=gen, t_rand=reg_t)
+        loss = loss + 0.0005 * torch.sum(torch.abs(sigma))
     return loss
 
 
@@ -338,10 +374,11 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                       stage_plan: Tuple[Tuple[str, int], ...], BA: bool,
                       pixs_per_image: int, gen: Optional[torch.Generator] = None,
                       pix_idx: Optional[torch.Tensor] = None, vis_hook=None,
-                      vis_every: int = 0):
+                      vis_every: int = 0, reg_t: Optional[torch.Tensor] = None):
     """One optimize_map call: a fresh group Adam, then the stages in order.
-    ``pix_idx`` (num_iters, F, n) fixes every iteration's pixels; otherwise
-    they are drawn from ``gen``.  ``vis_hook(it, state)``, when given, is
+    ``pix_idx`` (num_iters, F, n) fixes every iteration's pixels and
+    ``reg_t`` (num_iters, F * n, N_samples) the regulariser's jitter;
+    otherwise they are drawn from ``gen``.  ``vis_hook(it, state)``, when given, is
     called with the pre-iteration scene state at every ``vis_every``-th
     iteration.  Returns (new state, new cam tensors, losses (num_iters,)),
     all on the device."""
@@ -370,7 +407,8 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
             loss = mapping_loss(
                 spec, groups, state, colors, depths, fixed_c2w, opt_cam_mask,
                 frame_valid, stage, mcfg, rcfg, pixs_per_image,
-                None if pix_idx is None else pix_idx[it], gen)
+                None if pix_idx is None else pix_idx[it], gen,
+                None if reg_t is None else reg_t[it])
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads, pos = {}, 0
             for k in names:
@@ -379,6 +417,8 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                 pos += n
                 if k in masks and grads[k][0] is not None:
                     grads[k][0] = grads[k][0] * masks[k]
+            if "dec" in groups:
+                lrs["dec"] = imap_lr(mcfg, it)
             adam.step(grads, lrs, active)
             losses.append(loss.detach())
             it += 1
@@ -394,9 +434,11 @@ def stage_plan_for(mcfg: MapperConfig, num_joint_iters: int,
                    ) -> Tuple[Tuple[str, int], ...]:
     """Split a call's iterations into stages: iteration t is middle while
     t <= int(n * middle_ratio), fine while t <= int(n * fine_ratio), color
-    after; the coarse mapper is all-coarse."""
+    after; the coarse mapper is all-coarse, iMAP* all-color."""
     if mcfg.coarse_mapper:
         return (("coarse", num_joint_iters),)
+    if not mcfg.nice:
+        return (("color", num_joint_iters),)
     mr = mcfg.middle_iter_ratio if middle_iter_ratio is None else middle_iter_ratio
     fr = mcfg.fine_iter_ratio if fine_iter_ratio is None else fine_iter_ratio
     n_mid = min(num_joint_iters, int(num_joint_iters * mr) + 1)

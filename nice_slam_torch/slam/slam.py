@@ -1,14 +1,16 @@
 """NiceSLAM driver: counterpart of the JAX package's ``slam/slam.py``, strict
-schedule only.
+schedule only, for the NICE model (``args.nice``) and the iMAP* model.
 
 The strict schedule: map frame 0 (main mapper, then coarse mapper), then
 for every later frame track it, and on every ``every_frame``-th frame (and
-the last) map it with the main mapper and then the coarse mapper.  Frames
+the last) map it with the main mapper and then the coarse mapper.  The
+iMAP* model has no coarse mapper and no pretrained decoders, and splits
+each mapping event after the first into 3 calls (the final color
+refinement into 5, as for NICE).  Frames
 are read on a background thread; a frame that is only tracked ships just
 its pre-drawn tracking pixels to the device.  Stage times are host clocks
 around work that ends in a device synchronize, so they are device-true.
-The mesher, visualizers, checkpoint logger, the loose/free schedules and
-spatial grid sharding are not ported yet.
+The loose/free schedules and spatial grid sharding are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,26 +68,28 @@ def update_cam(cfg: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class NiceSLAM:
-    """The NICE-SLAM system on one device (``cuda`` unless asked)."""
+    """The NICE-SLAM system on one device (``cuda`` unless asked);
+    ``args.nice`` false selects the iMAP* model."""
 
     def __init__(self, cfg: Dict[str, Any], args, device="cuda"):
-        if not getattr(args, "nice", True):
-            raise NotImplementedError("the iMAP model family is not ported yet")
         if cfg["sync_method"] != "strict":
             raise NotImplementedError(f"sync_method {cfg['sync_method']!r} is "
                                       "not ported yet; only 'strict'")
         self.cfg = cfg
         self.device = torch.device(device)
         self.verbose = cfg["verbose"]
-        self.coarse = bool(cfg["coarse"])
+        self.nice = bool(getattr(args, "nice", True))
+        self.coarse = bool(cfg["coarse"]) and self.nice
         self.scale = cfg["scale"]
         self.output = getattr(args, "output", None) or cfg["data"]["output"]
         os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
 
         self.cam = update_cam(cfg)
         self.H, self.W = self.cam["H"], self.cam["W"]
-        self.spec, self.state = build_scene(cfg, nice=True, device=self.device)
-        self.state = load_pretrain(cfg, self.spec, self.state, self.verbose)
+        self.spec, self.state = build_scene(cfg, nice=self.nice,
+                                            device=self.device)
+        if self.nice:
+            self.state = load_pretrain(cfg, self.spec, self.state, self.verbose)
 
         self.frame_reader = get_dataset(cfg, args, self.scale)
         self.n_img = len(self.frame_reader)
@@ -94,8 +98,8 @@ class NiceSLAM:
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
 
         self.rcfg = RenderConfig.from_cfg(cfg)
-        self.tcfg = TrackerConfig.from_cfg(cfg, self.cam, True)
-        self.mcfg = MapperConfig.from_cfg(cfg, self.cam, True, False)
+        self.tcfg = TrackerConfig.from_cfg(cfg, self.cam, self.nice)
+        self.mcfg = MapperConfig.from_cfg(cfg, self.cam, self.nice, False)
         self.keyframes = KeyframeStore(
             self.n_img // self.mcfg.keyframe_every + 3, self.H, self.W,
             self.device)
@@ -198,6 +202,8 @@ class NiceSLAM:
                 num_joint_iters *= 5
                 mapper.fix_color = True
                 mapper.frustum_feature_selection = False
+            elif not self.nice:
+                outer_joint_iters = 3
         num_joint_iters //= outer_joint_iters
         cur_c2w = self.estimate_c2w_list[idx].clone()
         vis_hook, vis_every = None, 0

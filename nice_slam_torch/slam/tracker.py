@@ -4,7 +4,7 @@ The pose is an unnormalized quaternion + translation 7-vector optimized
 with Adam (optionally the quaternion at 0.2 x lr).  Each iteration renders
 a batch of pre-drawn pixels at stage 'color' and sums an
 uncertainty-weighted depth L1 and a weighted color L1 over the rays that
-end inside the scene box and pass the dynamic-pixel test
+end inside the scene box (every ray, for iMAP*) and pass the dynamic-pixel test
 ``tmp < 10 * median(tmp)``.  The pose kept for the frame is the post-step
 tensor of the iteration whose pre-step loss was lowest.  Pixels are drawn
 on the host with numpy (``presample_pixels``), so a tracked frame needs
@@ -92,7 +92,10 @@ def tracking_loss_sampled(spec: SceneSpec, state: SceneState,
     c2w = pose_from_tensor(cam_tensor)
     rays_o, rays_d = rays_from_uv(pix_i, pix_j, c2w, tcfg.fx, tcfg.fy,
                                   tcfg.cx, tcfg.cy)
-    inside = ray_aabb_far(rays_o, rays_d, state.bound).detach() >= pix_depth
+    if tcfg.nice:
+        inside = ray_aabb_far(rays_o, rays_d, state.bound).detach() >= pix_depth
+    else:  # iMAP* keeps every ray
+        inside = torch.ones_like(pix_depth, dtype=torch.bool)
     depth, uncertainty, color = render_batch_ray(
         spec, state, rays_o, rays_d, "color", gt_depth=pix_depth, rcfg=rcfg)
     tmp = torch.abs(pix_depth - depth) / torch.sqrt(uncertainty.detach() + 1e-10)

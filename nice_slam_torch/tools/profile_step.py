@@ -1,6 +1,6 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
-    python -m nice_slam_torch.tools.profile_step [--out DIR]
+    python -m nice_slam_torch.tools.profile_step [--out DIR] [--imap]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
 17 frames of the strict loop, so the map and a full 5-frame keyframe
@@ -14,8 +14,16 @@ ending in a synchronize), the device's busy time in a profiled run (union
 of its kernel, copy and memset intervals), the idle share (1 - busy /
 wall), the number of device operations, the operations taking the
 most device time, and (``kernels``) the device ms and launch count of
-each trilinear kernel, K1-K3, whether or not it ranks in ``top``.  Needs
-a CUDA device.
+each trilinear kernel, K1-K3, whether or not it ranks in ``top``, and
+(``gemm_ms``) the device time of the cuBLAS GEMMs.  Needs a CUDA device.
+
+``--imap`` profiles the iMAP* model instead (``replica_imap_cfg``, 17
+frames, the first mapping 300 iterations): one tracked frame (50
+iterations x 5000 px), one mapping call (100 iterations x 5000 px: the
+third of a mapping event the strict loop runs per call), one mesh at
+resolution 256 and one full-frame render; each row also gives the MLP's
+floating-point work (``mlp_tflop``, from the shapes) and its time at the
+card's float32 peak (``mlp_bound_ms``).
 
 Run as a file with another checkout first on ``PYTHONPATH`` to measure
 that checkout's port with this instrumentation.
@@ -29,6 +37,30 @@ import os
 import time
 
 TRILINEAR_KERNELS = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp")
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def imap_point_flops(hidden: int = 256, embed: int = 93, n_blocks: int = 4,
+                     out: int = 4, dim: int = 3) -> int:
+    """Forward floating-point operations of the iMAP* MLP on one point:
+    2 x the multiply-adds of the embedding and the dense layers."""
+    macs = dim * embed + embed * hidden + (n_blocks - 1) * hidden * hidden + hidden * out
+    return 2 * macs
+
+
+def imap_iteration_flops(rays: int, samples: int, importance: int,
+                         reg_samples: int, mapping: bool) -> float:
+    """MLP floating-point operations of one iMAP* iteration over ``rays``
+    rays: the importance pass forward only; the merged samples forward
+    and backward (the backward is 2 x forward with weight gradients, the
+    mapper's, 1 x without, the tracker's, which only needs the input
+    gradient); the mapper's regulariser samples forward and backward."""
+    f = imap_point_flops()
+    bwd = 2 if mapping else 1
+    per_ray = samples + (1 + bwd) * (samples + importance)
+    if mapping:
+        per_ray += 3 * reg_samples
+    return float(rays) * per_ray * f
 
 
 def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
@@ -53,6 +85,7 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     kernels = {}
+    gemm = sum(t for n, (t, _) in by_name.items() if "gemm" in n.lower())
     for k in TRILINEAR_KERNELS:
         hits = [(t, c) for n, (t, c) in by_name.items() if k + "_kernel" in n]
         kernels[k] = {"ms": sum(t for t, _ in hits) / 1e3,
@@ -62,12 +95,14 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
             "device_ops": len(evts),
             "top": [{"name": n[:80], "ms": t / 1e3, "count": c}
                     for n, (t, c) in ranked],
-            "kernels": kernels}
+            "gemm_ms": gemm / 1e3, "kernels": kernels}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="output directory")
+    parser.add_argument("--imap", action="store_true",
+                        help="profile the iMAP* model")
     args = parser.parse_args()
 
     import torch
@@ -77,13 +112,19 @@ def main() -> None:
     from nice_slam_torch.ops.render import render_img
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.slam.tracker import presample_pixels, track_frame_sampled
-    from nice_slam_torch.tools.workloads import ROOT, replica_synthetic_cfg
+    from nice_slam_torch.tools.workloads import (
+        ROOT,
+        replica_imap_cfg,
+        replica_synthetic_cfg,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
-    out = args.out or os.path.join(ROOT, "output", "profile_step")
-    cfg = replica_synthetic_cfg(out, n_frames=17, iters_first=300)
-    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+    out = args.out or os.path.join(ROOT, "output",
+                                   "profile_step_imap" if args.imap else "profile_step")
+    make = replica_imap_cfg if args.imap else replica_synthetic_cfg
+    cfg = make(out, n_frames=17, iters_first=300)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=not args.imap, output=None), "cuda")
     slam.run()  # keyframes at 0, 5, 10, 15
     m = slam.mapper  # undo the final frame's color-refine settings
     for attr in ("mapping_window_size", "middle_iter_ratio", "fine_iter_ratio",
@@ -109,11 +150,13 @@ def main() -> None:
                             slam.state, slam.keyframes, slam.estimate_c2w_list, idx)
         return run
 
+    # the strict loop's iMAP* mapping events run as 3 calls of iters // 3
+    map_iters = cfg_m["iters"] // (1 if slam.nice else 3)
     work = {
         "tracking_frame": lambda: track_frame_sampled(
             slam.spec, slam.state, init, *pix, slam.tcfg, slam.rcfg),
         "mapping_call": lambda: slam.mapper.optimize_map(
-            slam.state, cfg_m["iters"], cfg_m["lr_factor"], color_d, depth_d,
+            slam.state, map_iters, cfg_m["lr_factor"], color_d, depth_d,
             slam.keyframes, cur, False),
         "coarse_mapping_call": lambda: slam.coarse_mapper.optimize_map(
             slam.state, cfg_m["iters"], cfg_m["lr_factor"], color_d, depth_d,
@@ -125,6 +168,15 @@ def main() -> None:
             slam.cam["fy"], slam.cam["cx"], slam.cam["cy"], "color",
             gt_depth=depth_d, rcfg=slam.rcfg),
     }
+    if not slam.nice:
+        for k in ("coarse_mapping_call", "mesh_res128"):
+            del work[k]
+        r = slam.rcfg
+        mlp_tflop = {
+            "tracking_frame": slam.tcfg.iters * imap_iteration_flops(
+                slam.tcfg.pixels, r.N_samples, r.N_importance, 0, False),
+            "mapping_call": map_iters * imap_iteration_flops(
+                cfg_m["pixels"], r.N_samples, r.N_importance, r.N_samples, True)}
     card = torch.cuda.get_device_name(0)
     for name, fn in work.items():
         fn()  # warm
@@ -137,7 +189,12 @@ def main() -> None:
             fn()
             torch.cuda.synchronize()
         row = {"what": name, "device": card}
+        if name == "mapping_call":
+            row["iterations"] = map_iters
         row.update(_device_summary(prof, wall))
+        if not slam.nice and name in mlp_tflop:
+            row["mlp_tflop"] = mlp_tflop[name] / 1e12
+            row["mlp_bound_ms"] = 1e3 * mlp_tflop[name] / F32_FLOPS_PER_S
         if name.startswith("mesh"):
             row["mesher_steps"] = mesher.last
         print(json.dumps(row), flush=True)

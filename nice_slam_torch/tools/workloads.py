@@ -13,6 +13,22 @@ Replica configs do: the room as marching-cubes bound, resolution 256,
 ``box_quality_cfg``: the 30-frame tracked box run whose ATE the quality
 gate of the JAX package holds to 9.5 cm (box.yaml on nice_slam.yaml,
 coarse off, 0.25 rad orbit, mapping iters 60, first 400).
+
+``replica_imap_cfg``: the iMAP* model at the Replica iMAP configs' widths
+(``configs/Replica/replica_imap.yaml`` on ``configs/imap.yaml``: tracking
+50 iters x 5000 px, mapping 300 iters x 5000 px over a 5-frame window
+every 5th frame with 'global' selection, 32 + 12 importance samples per
+ray, a 32-sample free-space regulariser, BA off, perturb 0, the final
+colour refinement on) on the synthetic room with room0's bound at
+680x1200, random decoder weights from the config's seed.  Cut for time:
+``n_frames`` frames, the first mapping ``iters_first`` iterations (config
+1500), a keyframe every 5th frame (config 50), one final mesh (the config
+also writes its ``eval_rec`` variant).
+
+``box_imap_quality_cfg``: the JAX package's ``selfcheck --imap`` run
+(box.yaml on imap.yaml, 30 frames, 0.25 rad orbit, mapping iters 60,
+first 400, coarse off, resolution 128) whose per-seed ATE
+``tests/test_quality_gates.py`` holds to 5 cm.
 """
 
 from __future__ import annotations
@@ -46,6 +62,29 @@ def box_quality_cfg(out_dir: str) -> Dict[str, Any]:
     for k in ("coarse", "middle_fine"):
         cfg["pretrained_decoders"][k] = os.path.join(
             ROOT, cfg["pretrained_decoders"][k])
+    cfg["coarse"] = False
+    cfg["verbose"] = False
+    cfg["data"].update(n_frames=30, orbit_radians=0.25, output=out_dir)
+    cfg["mapping"].update(iters=60, iters_first=400)
+    return cfg
+
+
+def replica_imap_cfg(out_dir: str, n_frames: int = 12,
+                     iters_first: int = 1500) -> Dict[str, Any]:
+    cfg = load_config(os.path.join(ROOT, "configs", "Replica", "replica_imap.yaml"),
+                      os.path.join(ROOT, "configs", "imap.yaml"))
+    cfg.update(dataset="synthetic", verbose=False, seed=0)
+    cfg["data"] = {"dim": 3, "n_frames": n_frames, "room": REPLICA_ROOM,
+                   "output": out_dir, "orbit_radians": 0.3}
+    cfg["mapping"].update(bound=REPLICA_ROOM, marching_cubes_bound=REPLICA_ROOM,
+                          BA=False, keyframe_every=5, iters_first=iters_first)
+    cfg["meshing"]["eval_rec"] = False
+    return cfg
+
+
+def box_imap_quality_cfg(out_dir: str) -> Dict[str, Any]:
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "imap.yaml"))
     cfg["coarse"] = False
     cfg["verbose"] = False
     cfg["data"].update(n_frames=30, orbit_radians=0.25, output=out_dir)

@@ -5,7 +5,9 @@ and the reference's keys (``c``, ``decoder_state_dict``, ``gt_c2w_list``,
 ``estimate_c2w_list``, ``keyframe_list``, ``selected_keyframes``,
 ``idx``) plus ``bound``, every tensor on the CPU: grids in the
 reference's ``[1, C, Z, Y, X]`` layout, decoder parameters under torch
-state-dict names with weights as (out, in).  The port's parameter tree is
+state-dict names with weights as (out, in) (``{name}_decoder.`` prefixes
+for the NICE stack; the iMAP* MLP's names have no prefix and it has no
+grids).  The port's parameter tree is
 the JAX package's (dense layers ``{"w": (in, out), "b"}``, channels-last
 grids), so a checkpoint from either package loads in the other.
 ``load_checkpoint`` restores a runnable ``SceneState`` on the caller's
@@ -81,8 +83,10 @@ def _mlp_from_state_dict(sd: Dict[str, Any], prefix: str,
 
 
 def decoders_to_state_dict(spec: SceneSpec, decoders) -> Dict[str, torch.Tensor]:
-    """The NICE decoders' parameters as one torch state dict
-    (``{name}_decoder.`` prefixes)."""
+    """The decoders' parameters as one torch state dict (NICE:
+    ``{name}_decoder.`` prefixes; iMAP*: the one MLP, no prefix)."""
+    if not spec.nice:
+        return _mlp_to_state_dict(decoders, "")
     sd: Dict[str, torch.Tensor] = {}
     for name, params in decoders.items():
         sd.update(_mlp_to_state_dict(params, f"{name}_decoder."))
@@ -91,6 +95,8 @@ def decoders_to_state_dict(spec: SceneSpec, decoders) -> Dict[str, torch.Tensor]
 
 def decoders_from_state_dict(spec: SceneSpec, sd, template, device="cpu"):
     """Decoder parameters from a state dict, shaped like ``template``."""
+    if not spec.nice:
+        return _mlp_from_state_dict(sd, "", template, device)
     return {name: _mlp_from_state_dict(sd, f"{name}_decoder.", params, device)
             for name, params in template.items()}
 

@@ -6,7 +6,7 @@ Extract a culled, coloured triangle mesh from the scene:
      0.05 pad (``get_grid_uniform``);
   2. its occupancy through the 'fine' stage on the device in chunks of
      ``points_batch_size`` (``chunked_eval``: one K1 launch over the middle
-     and fine grids per chunk); lattice points outside the scene hull (the
+     and fine grids per chunk; the iMAP* model's volume density, no K1); lattice points outside the scene hull (the
      convex hull of the keyframes' back-projected depth and camera
      centres, scipy on the host) get +100.  With ``show_forecast`` (and a
      coarse grid) the seen region uses 'fine', the forecast region
@@ -17,11 +17,13 @@ Extract a culled, coloured triangle mesh from the scene:
      on the device) and components below ``remove_small_geometry_threshold``
      (or all but the largest);
   5. vertex colours by a 'color'-stage query of each vertex
-     (``direct_point_query``: one K1 launch over three grids per chunk);
+     (``direct_point_query``: one K1 launch over three grids per chunk),
+     or (``render_ray_along_normal``, the iMAP* configs) by rendering a
+     0.1 m ray that ends at each vertex along its inward normal, sensor
+     depth 0.1, in chunks of ``ray_batch_size`` rays;
   6. vertices / scale, written as a binary PLY.
 
-Everything runs without a gradient.  The iMAP colouring (a short render
-along each vertex normal) waits for the iMAP model.
+Everything runs without a gradient.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 from nice_slam_torch.models.scene import SceneSpec, SceneState, eval_points
 from nice_slam_torch.ops.geometry import invert
 from nice_slam_torch.ops.interp import bilinear_sample_2d
-from nice_slam_torch.ops.render import RenderConfig
+from nice_slam_torch.ops.render import RenderConfig, render_batch_ray
 from nice_slam_torch.utils import meshlib
 
 
@@ -64,6 +66,41 @@ def chunked_color(spec: SceneSpec, state: SceneState, points: np.ndarray,
                   chunk: int) -> np.ndarray:
     """'color'-stage rgb of a host point set, ``chunk`` points per call."""
     return _chunked(spec, state, points, "color", chunk, lambda raw: raw[:, :3])
+
+
+@torch.no_grad()
+def render_along_normals(spec: SceneSpec, state: SceneState,
+                         verts: np.ndarray, faces: np.ndarray,
+                         rcfg: RenderConfig) -> np.ndarray:
+    """Rendered rgb of each vertex: a ray from 0.1 m outside the vertex
+    along its area-weighted inward normal, sensor depth 0.1, rendered at
+    the 'color' stage in chunks of ``rcfg.ray_batch_size`` rays."""
+    dev = state.bound.device
+    length = 0.1
+    normals = vertex_normals(verts, faces)
+    rays_o = torch.from_numpy((verts - length * normals).astype(np.float32)).to(dev)
+    rays_d = torch.from_numpy(normals.astype(np.float32)).to(dev)
+    bs = rcfg.ray_batch_size
+    out = [np.zeros((0, 3), np.float32)]
+    for i in range(0, len(verts), bs):
+        ro, rd = rays_o[i:i + bs], rays_d[i:i + bs]
+        gt = torch.full((ro.shape[0],), length, device=dev)
+        _, _, c = render_batch_ray(spec, state, ro, rd, "color", gt_depth=gt,
+                                   rcfg=rcfg)
+        out.append(c.cpu().numpy())
+    return np.concatenate(out)
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted unit vertex normals (zero where no face touches)."""
+    fn = np.cross(verts[faces[:, 1]] - verts[faces[:, 0]],
+                  verts[faces[:, 2]] - verts[faces[:, 0]])
+    vn = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    norm = np.linalg.norm(vn, axis=1, keepdims=True)
+    norm[norm == 0] = 1.0
+    return vn / norm
 
 
 def _frame_masks(points: torch.Tensor, c2w: torch.Tensor,
@@ -279,13 +316,13 @@ class Mesher:
 
         vertex_colors = None
         if color:
-            if self.color_mesh_extraction_method != "direct_point_query":
-                raise NotImplementedError(
-                    "color_mesh_extraction_method "
-                    f"{self.color_mesh_extraction_method!r} (the iMAP rendering "
-                    "along vertex normals) is not ported yet")
-            rgb = chunked_color(self.spec, state, verts, chunk)
-            last["color_chunks"] = -(-len(verts) // chunk)
+            if self.color_mesh_extraction_method == "direct_point_query":
+                rgb = chunked_color(self.spec, state, verts, chunk)
+                last["color_chunks"] = -(-len(verts) // chunk)
+            else:
+                rgb = render_along_normals(self.spec, state, verts, faces,
+                                           self.rcfg)
+                last["color_chunks"] = -(-len(verts) // self.rcfg.ray_batch_size)
             vertex_colors = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
             if show_forecast:
                 _, forecast_mask, _ = self.point_masks(

@@ -373,3 +373,137 @@ def test_get_mesh_on_cuda_matches_cpu(dev, tmp_path, monkeypatch):
     assert fields[0].shape == (64, 64, 64)
     np.testing.assert_allclose(fields[1], fields[0], atol=1e-4, rtol=0)
     assert faces[1] > 0
+
+
+def _imap_scene(H, W, n_frames):
+    """An iMAP* scene (random MLP from seed 3) on the CPU, its config at an
+    HxW camera, and the box frames at the config's scale."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.models.scene import build_scene
+    from nice_slam_torch.utils.datasets import Synthetic
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "imap.yaml"))
+    cfg["verbose"] = False
+    cfg["cam"].update({"H": H, "W": W, "fx": float(H), "fy": float(H),
+                       "cx": (W - 1) / 2, "cy": (H - 1) / 2})
+    cfg["data"]["n_frames"] = n_frames
+    spec, state = build_scene(cfg, nice=False, seed=3, device="cpu")
+    ds = Synthetic(cfg, scale=cfg["scale"])
+    return cfg, spec, state, [ds[i] for i in range(len(ds))]
+
+
+def test_imap_render_on_cuda_matches_cpu(dev):
+    """The iMAP* render (32 + 12 importance samples, density mode) of 4096
+    rays on the card against the CPU port on the same MLP and rays: depth,
+    uncertainty and colour within 1e-3 (float32 GEMMs in another order,
+    and an importance sample may move by a bin where the CDF ties)."""
+    from nice_slam_torch.convert import scene_from_jax, scene_to_numpy
+    from nice_slam_torch.ops.geometry import rays_from_uv
+    from nice_slam_torch.ops.render import RenderConfig, render_batch_ray
+
+    cfg, spec, state, frames = _imap_scene(48, 64, 4)
+    _, _, depth, c2w = frames[2]
+    g = torch.Generator().manual_seed(4)
+    i = torch.randint(0, 64, (4096,), generator=g).float()
+    j = torch.randint(0, 48, (4096,), generator=g).float()
+    ro, rd = rays_from_uv(i, j, torch.tensor(c2w), 48.0, 48.0, 31.5, 23.5)
+    gt = torch.tensor(depth)[j.long(), i.long()]
+    rcfg = RenderConfig.from_cfg(cfg)
+    assert rcfg.N_importance == 12 and not rcfg.occupancy
+    ref = render_batch_ray(spec, state, ro, rd, "color", gt_depth=gt, rcfg=rcfg)
+    on_dev = scene_from_jax(scene_to_numpy(state), dev)
+    got = render_batch_ray(spec, on_dev, ro.to(dev), rd.to(dev), "color",
+                           gt_depth=gt.to(dev), rcfg=rcfg)
+    for a, b in zip(ref, got):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-3, rtol=0)
+
+
+def test_imap_get_mesh_on_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """One iMAP* get_mesh at resolution 64 on the card against the CPU
+    port: the density field (the marching-cubes input) at 1e-4, and the
+    vertex colours rendered along the normals within 2 uint8 levels at
+    matching vertices.  The random MLP's density lies in about [-1.4, 2.2]
+    inside the box, so the level set is 0.3 (the configs' 10 needs a
+    trained map)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from nice_slam_torch.convert import scene_from_jax, scene_to_numpy
+    from nice_slam_torch.slam.keyframes import KeyframeStore
+    from nice_slam_torch.utils import mesher as M
+
+    cfg, spec, state, frames = _imap_scene(48, 64, 6)
+    cfg["meshing"].update(resolution=64, level_set=0.3)
+    est = torch.tensor(np.stack([f[3] for f in frames]))
+    fields = []
+    real_mc = M.meshlib.marching_cubes
+
+    def keep_field(field, *a, **k):
+        fields.append(np.array(field))
+        return real_mc(field, *a, **k)
+
+    monkeypatch.setattr(M.meshlib, "marching_cubes", keep_field)
+    meshes = []
+    for d in ("cpu", dev):
+        st = scene_from_jax(scene_to_numpy(state), d)
+        kf = KeyframeStore(4, 48, 64, d)
+        for i in (0, 5):
+            _, color, depth, c2w = frames[i]
+            kf.add(i, color, depth, c2w, c2w)
+        path = str(tmp_path / f"{d}.ply")
+        M.Mesher(cfg, dict(cfg["cam"]), spec).get_mesh(path, st, kf, est.to(d), 5)
+        meshes.append(M.meshlib.read_ply(path))
+    assert fields[0].shape == (64, 64, 64)
+    np.testing.assert_allclose(fields[1], fields[0], atol=1e-4, rtol=0)
+    (cv, cf, cc), (gv, gf, gc) = meshes
+    assert len(gf) > 0 and abs(len(gf) - len(cf)) <= 0.01 * len(cf)
+    dist, nearest = cKDTree(cv).query(gv)
+    b = np.asarray(cfg["mapping"]["marching_cubes_bound"])
+    assert dist.max() <= 0.5 * float(np.max(b[:, 1] - b[:, 0] + 1.0)) / 63
+    assert np.abs(gc.astype(int) - cc[nearest].astype(int)).max() <= 2
+
+
+def test_imap_mapping_iterations_on_cuda_match_cpu(dev):
+    """Five iMAP* mapping iterations (StepLR, regulariser, importance
+    pass) on the card against the CPU port from the same MLP on the same
+    pixel and regulariser draws: losses within 1e-4 relative; after the
+    Adam steps at least 99.9 % of each decoder leaf's entries within 1e-4
+    and every entry within the call's step budget 2 x 5 x lr (Adam moves
+    an entry by about lr per step whatever its gradient's size, so an
+    entry whose gradient is ~0 on both devices can step either way on
+    rounding alone: 2 of 23808 did on an H100)."""
+    import numpy as np
+
+    from nice_slam_torch.convert import scene_from_jax, scene_to_numpy
+    from nice_slam_torch.ops.geometry import tensor_from_pose
+    from nice_slam_torch.ops.render import RenderConfig
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.slam.optim import tree_leaves
+
+    cfg, spec, state, frames = _imap_scene(48, 64, 6)
+    sel = [frames[i] for i in (0, 2, 4)]
+    colors = torch.tensor(np.stack([f[1] for f in sel]))
+    depths = torch.tensor(np.stack([f[2] for f in sel]))
+    c2w = torch.tensor(np.stack([f[3] for f in sel]))
+    mcfg = M.MapperConfig.from_cfg(cfg, cfg["cam"], False)
+    rcfg = RenderConfig.from_cfg(cfg)
+    F, n, iters = 3, 200, 5
+    g = torch.Generator().manual_seed(6)
+    pix = torch.randint(0, 48 * 64, (iters, F, n), generator=g)
+    reg_t = torch.rand((iters, F * n, rcfg.N_samples), generator=g)
+    out = []
+    for d in ("cpu", dev):
+        st = scene_from_jax(scene_to_numpy(state), d)
+        args = [x.to(d) for x in (colors, depths, c2w, tensor_from_pose(c2w),
+                                  torch.zeros(F), torch.ones(F, dtype=torch.bool))]
+        new, _, losses = M.optimize_map_core(
+            spec, st, *args, 1.0, mcfg, rcfg, (("color", iters),), False, n,
+            pix_idx=pix.to(d), reg_t=reg_t.to(d))
+        out.append((losses.cpu(), [x.cpu() for x in tree_leaves(new.decoders)]))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-4, atol=0)
+    budget = 2 * iters * mcfg.imap_decoders_lr
+    for a, b in zip(out[0][1], out[1][1]):
+        d = (b - a).abs()
+        assert float((d <= 1e-4).float().mean()) >= 0.999
+        assert float(d.max()) <= budget

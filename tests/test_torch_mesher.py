@@ -14,7 +14,8 @@
   * ``get_mesh`` at resolution 40 from the same scene, keyframes and
     poses: face counts within 1 % and every port vertex within half a
     voxel of the JAX mesh (the two fields differ by f32 rounding only, so
-    the surfaces nearly coincide).
+    the surfaces nearly coincide); the iMAP* colouring (rendering along
+    the vertex normals) on the same mesh within 2 uint8 levels.
 """
 
 import os
@@ -255,8 +256,19 @@ def test_get_mesh_matches_jax(scene, tmp_path, eval_rec):
 
 
 def test_imap_colouring_not_ported(scene, tmp_path):
-    cfg, _, (tspec, tstate, tkf), est = scene
+    """The iMAP* colouring (rendering along the vertex normals) is ported
+    now: on this scene's mesh its vertex colours match the JAX package's
+    (uint8, within 2 levels at the nearest JAX vertex)."""
+    cfg, (jspec, jstate, jkf), (tspec, tstate, tkf), est = scene
     cfg = dict(cfg, meshing=dict(cfg["meshing"], color_mesh_extraction_method="render_ray_along_normal"))
+    jpath, tpath = str(tmp_path / "j.ply"), str(tmp_path / "t.ply")
+    jmesher.Mesher(cfg, dict(cfg["cam"]), jspec, str(tmp_path)).get_mesh(
+        jpath, jstate, jkf, est, 5)
     tm = tmesher.Mesher(cfg, dict(cfg["cam"]), tspec)
-    with pytest.raises(NotImplementedError):
-        tm.get_mesh(str(tmp_path / "t.ply"), tstate, tkf, torch.tensor(est), 5)
+    tm.get_mesh(tpath, tstate, tkf, torch.tensor(est), 5)
+    jv, _, jc = jml.read_ply(jpath)
+    tv, _, tc = tml.read_ply(tpath)
+    dist, nearest = cKDTree(jv).query(tv)
+    b = np.asarray(cfg["mapping"]["marching_cubes_bound"])
+    assert dist.max() <= 0.5 * float(np.max(b[:, 1] - b[:, 0] + 0.1)) / (tm.resolution - 1)
+    assert tc is not None and np.abs(tc.astype(int) - jc[nearest].astype(int)).max() <= 2
