@@ -76,8 +76,30 @@ Phases, each printing one JSON line:
            0.25 rad orbit, mapping iters 60, first 400) for pixel seeds 42,
            0 and 1: every draw's ATE against 5 cm and against the ATE of a
            camera frozen at frame 0 (0.73 cm on this orbit, which the 5 cm
-           gate alone would pass); each draw's box-mesh wall distance
-           reported, not gated.
+           gate alone would pass); the seed-42 draw's depth L1 (2D metric,
+           200 views) against 3 cm; each draw's box-mesh wall distance
+           reported, not gated;
+  readers  first makes cv2, PIL, matplotlib, jax and nice_slam_tpu
+           unimportable for the rest of the run (failing if any was
+           imported before); the port's export_synthetic writes the
+           Replica, ScanNet, TUM, CoFusion and Azure layouts at Replica's
+           camera (680x1200, 5 frames each) and the port's readers read
+           them back: PNG depth equal to the generator's
+           quantised depth, EXR depth exact, poses within 1e-5, JPEG colour
+           at >= 30 dB PSNR, PNG colour exact (TUM read with
+           freiburg1_desk's distortion, so undistort runs); the OpenCV
+           fixtures of tests/data/imageio decode to OpenCV's pixels; then
+           ``nice_slam_torch.run`` runs the strict loop for ten frames from
+           a 120x160 Replica-layout export (K1-K3 launched, ATE within
+           20 cm, the checkpoint's selected_keyframes recorded); reports the
+           read ms per 680x1200 frame;
+  gt_tour  the port's ``selfcheck --gt_camera --frames 150 --orbit_radians
+           6.283`` (resolution 128, iters 60, first 400, 200 depth-L1 views,
+           pretrained decoders) against tests/test_quality_gates.py:42-45:
+           accuracy and completion <= 1.5 cm, depth L1 <= 0.5 cm,
+           completion ratio >= 98 %; K3 never launched, K1 and K2 launched;
+  imap_tour  the same with ``--imap`` against :46-47: accuracy <= 10 cm,
+           depth L1 <= 6 cm; no K1-K3 launch.
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -965,12 +987,17 @@ def phase_imap_resume(dev, done, cfg):
 def phase_imap_quality(dev):
     """The JAX package's selfcheck --imap run for seeds 42, 0, 1: every
     draw's ATE against IMAP_ATE_GATE_CM, as tests/test_quality_gates.py
-    gates imap_tracked, _s0 and _s1.  The wall distance of each draw's
-    final mesh is reported only: short iMAP* sweeps carry frustum shells."""
+    gates imap_tracked, _s0 and _s1.  The seed-42 draw (imap_tracked
+    itself) also writes its eval_rec mesh and gets the 2D metric (200
+    views, seed 0, as the selfcheck scores it), its depth L1 against
+    IMAP_TRACKED_DEPTH_L1_CM.  The wall distance of each draw's final
+    mesh is reported only: short iMAP* sweeps carry frustum shells."""
     import numpy as np
 
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.eval_recon import calc_2d_metric
+    from nice_slam_torch.tools.selfcheck import gt_room_mesh
     from nice_slam_torch.tools.workloads import box_imap_quality_cfg
 
     t0 = time.perf_counter()
@@ -979,29 +1006,272 @@ def phase_imap_quality(dev):
         out = os.path.join(HERE, "output", "chip_smoke", f"imap_quality_s{seed}")
         cfg = box_imap_quality_cfg(out)
         cfg["seed"] = seed
+        scored = seed == IMAP_QUALITY_SEEDS[0]
+        cfg["meshing"]["eval_rec"] = scored
         slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
         init_alive = alive_share(slam)
         slam.run()
         verts, _ = mesh_stats(os.path.join(out, "mesh", "final_mesh.ply"))
-        draws.append({"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
-                      100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
-                      "frozen_ate_cm": frozen_ate_cm(slam.gt_c2w_list),
-                      "init_alive_share": init_alive, "final_alive_share": alive_share(slam),
-                      "mesh_wall_m": box_wall_distance(verts), "vertices": len(verts),
-                      "meshing_s": slam.timings["meshing_s"]})
+        draw = {"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
+                100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+                "frozen_ate_cm": frozen_ate_cm(slam.gt_c2w_list),
+                "init_alive_share": init_alive, "final_alive_share": alive_share(slam),
+                "mesh_wall_m": box_wall_distance(verts), "vertices": len(verts),
+                "meshing_s": slam.timings["meshing_s"]}
+        if scored:
+            t1 = time.perf_counter()
+            gt = gt_room_mesh(np.asarray(slam.frame_reader.room),
+                              os.path.join(out, "gt_room.ply"), list(slam.gt_c2w_list),
+                              slam.cam, sdf=slam.frame_reader.scene_sdf)
+            d1 = calc_2d_metric(os.path.join(out, "mesh", "final_mesh_eval_rec.ply"), gt,
+                                n_imgs=DEPTH_L1_IMGS, seed=0)["depth_l1_cm"]
+            draw.update(depth_l1_cm=d1, metric_2d_s=time.perf_counter() - t1)
+        draws.append(draw)
     ates = [d["ate_rmse_cm"] for d in draws]
+    depth_l1 = draws[0]["depth_l1_cm"]
     # a frozen camera scores 0.73 cm on this short orbit, under the 5 cm
     # gate, so each draw must also beat it
     ok = all(d["ate_rmse_cm"] <= IMAP_ATE_GATE_CM and d["ate_rmse_cm"] < d["frozen_ate_cm"]
-             for d in draws)
+             for d in draws) and depth_l1 <= IMAP_TRACKED_DEPTH_L1_CM
     emit({"phase": "imap_quality", "ok": ok, "frames": 30, "draws": draws,
           "median_ate_cm": float(np.median(ates)), "gate_cm": IMAP_ATE_GATE_CM,
+          "depth_l1_gate_cm": IMAP_TRACKED_DEPTH_L1_CM,
           "median_mesh_wall_m": float(np.median([d["mesh_wall_m"] for d in draws])),
           "seconds": time.perf_counter() - t0})
     if not ok:
         raise AssertionError(f"iMAP tracked ATE over seeds {IMAP_QUALITY_SEEDS}: {ates} cm; "
                              f"every draw must be <= {IMAP_ATE_GATE_CM} and beat a frozen "
-                             f"camera ({[d['frozen_ate_cm'] for d in draws]} cm)")
+                             f"camera ({[d['frozen_ate_cm'] for d in draws]} cm); seed "
+                             f"{IMAP_QUALITY_SEEDS[0]} depth L1 {depth_l1} cm (gate "
+                             f"{IMAP_TRACKED_DEPTH_L1_CM})")
+
+
+READERS_FRAMES = 5            # frames per layout of the readers' export
+REPLICA_CAM = {"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0, "cx": 599.5, "cy": 339.5}
+READERS_PSNR_DB = 30.0        # JPEG colour against the generator's render
+POSE_TOL = 1e-5
+READERS_LOOP_FRAMES = 10      # the strict loop from a Replica-layout export
+TOUR_FRAMES = 150             # the tours the JAX quality gates were set for
+TOUR_ORBIT = 6.283
+# tests/test_quality_gates.py:42-45 (gt_tour) and :46-47 (imap); ratio is a floor
+GT_TOUR_GATES = {"accuracy_cm": 1.5, "completion_cm": 1.5, "depth_l1_cm": 0.5}
+GT_TOUR_RATIO_PCT = 98.0
+IMAP_TOUR_GATES = {"accuracy_cm": 10.0, "depth_l1_cm": 6.0}
+IMAP_TRACKED_DEPTH_L1_CM = 3.0  # tests/test_quality_gates.py:72-73 (imap_tracked)
+DEPTH_L1_IMGS = 200           # the JAX selfcheck's default
+NOT_IMPORTED = ("cv2", "PIL", "matplotlib", "jax", "nice_slam_tpu")
+
+
+def psnr_db(a, b) -> float:
+    import numpy as np
+
+    return float(10 * np.log10(1.0 / np.mean((np.asarray(a, np.float64) - b) ** 2)))
+
+
+def check_layout(name, ds, gen, cfg):
+    """One exported layout read back against the generator: depth bit for
+    bit (PNG: quantised to its step; EXR: exact), poses within POSE_TOL
+    (TUM: relative to the first pose; CoFusion has identity poses), colour
+    at READERS_PSNR_DB (JPEG) or exactly the generator's 8-bit colour
+    (PNG; TUM's undistorted by the same map).  Returns the worst PSNR and
+    pose error (PSNR None for a PNG layout)."""
+    import numpy as np
+
+    from nice_slam_torch.utils import imageio
+
+    pds = cfg["cam"]["png_depth_scale"]
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    g0_inv = np.linalg.inv(gen.poses[0].astype(np.float64))
+    worst_psnr, worst_pose = None, 0.0
+    for i in range(len(gen)):
+        _, color, depth, pose = ds[i]
+        _, gcolor, gdepth, gpose = gen[i]
+        if name == "cofusion":
+            want_depth = gdepth
+        else:
+            want_depth = np.round(gdepth * pds).astype(np.uint16).astype(np.float32) / pds
+        if not np.array_equal(depth, want_depth.astype(np.float32)):
+            raise AssertionError(f"{name} frame {i}: depth differs from the generator's "
+                                 f"(max {np.abs(depth - want_depth).max()})")
+        if name == "tumrgbd":  # relative to the first pose: flip(inv(g0 flip) gk flip)
+            want_pose = flip @ g0_inv @ gpose.astype(np.float64)
+        elif name == "cofusion":
+            want_pose = np.eye(4)
+        else:
+            want_pose = gpose
+        err = float(np.abs(pose - want_pose).max())
+        worst_pose = max(worst_pose, err)
+        if err > POSE_TOL:
+            raise AssertionError(f"{name} frame {i}: pose off by {err}")
+        u8 = (np.clip(gcolor, 0, 1) * 255).astype(np.uint8)
+        if name in ("tumrgbd", "cofusion"):
+            if name == "tumrgbd":
+                u8 = imageio.remap(u8, ds._undistort_maps)
+            if not np.array_equal(color, u8.astype(np.float32) / 255.0):
+                raise AssertionError(f"{name} frame {i}: PNG colour is not the generator's")
+        else:
+            p = psnr_db(color, gcolor)
+            worst_psnr = p if worst_psnr is None else min(worst_psnr, p)
+            if not p >= READERS_PSNR_DB:
+                raise AssertionError(f"{name} frame {i}: colour at {p:.2f} dB PSNR, "
+                                     f"below {READERS_PSNR_DB}")
+    return worst_psnr, worst_pose
+
+
+def phase_readers(dev):
+    """The port's exporter writes the five real layouts at Replica's
+    camera; its readers read them back with no imaging library importable
+    and are held to the generator; the OpenCV-written fixtures of
+    tests/data/imageio decode to OpenCV's pixels; then the strict loop runs
+    ten frames from a Replica-layout export through the CLI's entry point
+    (``nice_slam_torch.run.main``), launching K1-K3."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from nice_slam_torch import run as cli
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.tools import export_synthetic as tex
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import box_quality_cfg
+    from nice_slam_torch.utils import datasets, imageio
+
+    # this machine may have OpenCV or PIL installed: from here on their
+    # import raises, so the readers and the tours run as without them
+    for mod in NOT_IMPORTED:
+        if sys.modules.get(mod) is not None:
+            raise AssertionError(f"{mod} was imported by the port")
+        sys.modules[mod] = None
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, "output", "chip_smoke", "readers")
+    shutil.rmtree(out, ignore_errors=True)
+    with open(os.path.join(HERE, "configs", "TUM_RGBD", "freiburg1_desk.yaml")) as f:
+        tum_distortion = yaml.safe_load(f)["cam"]["distortion"]
+    export_cfg = tex._default_cfg(READERS_FRAMES, REPLICA_CAM["H"], REPLICA_CAM["W"])
+    export_cfg["cam"].update(REPLICA_CAM)
+    gen = datasets.Synthetic(export_cfg)
+    layouts = {"replica": "replica", "scannet": "scannet", "tumrgbd": "tum",
+               "cofusion": "cofusion", "azure": "azure"}
+    report, export_s = {}, {}
+    for name, fmt in layouts.items():
+        folder = os.path.join(out, name)
+        t1 = time.perf_counter()
+        tex.EXPORTERS[fmt](folder, export_cfg)
+        export_s[name] = time.perf_counter() - t1
+        cfg = {"dataset": name, "cam": dict(export_cfg["cam"]),
+               "data": {"input_folder": folder}}
+        if name == "cofusion":
+            cfg["cam"]["png_depth_scale"] = 1.0
+        if name == "tumrgbd":
+            cfg["cam"]["distortion"] = tum_distortion
+        ds = datasets.get_dataset(cfg, None, 1.0)
+        if len(ds) != READERS_FRAMES:
+            raise AssertionError(f"{name}: read {len(ds)} frames, wrote {READERS_FRAMES}")
+        worst_psnr, worst_pose = check_layout(name, ds, gen, cfg)
+        report[name] = {"reader": type(ds).__name__, "worst_psnr_db": worst_psnr,
+                        "worst_pose_err": worst_pose, "export_s": export_s[name]}
+    # the reader's cost per 680x1200 frame: JPEG colour + 16-bit PNG depth
+    replica = datasets.get_dataset({"dataset": "replica", "cam": dict(export_cfg["cam"]),
+                                    "data": {"input_folder": os.path.join(out, "replica")}})
+    read_ms = []
+    for i in range(len(replica)):
+        t1 = time.perf_counter()
+        replica[i]
+        read_ms.append(1e3 * (time.perf_counter() - t1))
+    # OpenCV's pixels of the fixtures, decoded here
+    data = os.path.join(HERE, "tests", "data", "imageio")
+    with open(os.path.join(data, "manifest.json")) as f:
+        manifest = json.load(f)
+    for fname, entry in sorted(manifest.items()):
+        path = os.path.join(data, fname)
+        img = imageio.imread_color(path) if entry["read"] == "color" \
+            else imageio.imread_unchanged(path)
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise AssertionError(f"fixture {fname}: decoded pixels differ from OpenCV's")
+
+    # ten frames of the strict loop from a Replica layout at the box camera
+    loop_dir = os.path.join(out, "box_replica")
+    box_cfg = tex._default_cfg(READERS_LOOP_FRAMES, 120, 160)
+    box_cfg["data"]["orbit_radians"] = 0.25 * READERS_LOOP_FRAMES / 30.0
+    tex.export_replica(loop_dir, box_cfg)
+    run_out = os.path.join(out, "box_replica_run")
+    cfg = box_quality_cfg(run_out)
+    cfg["dataset"] = "replica"
+    cfg["cam"]["png_depth_scale"] = box_cfg["cam"]["png_depth_scale"]
+    cfg["mapping"]["save_selected_keyframes_info"] = True
+    cfg_path = os.path.join(out, "box_replica.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    interp.reset_launch_counts()
+    slam = cli.main([cfg_path, "--input_folder", loop_dir])
+    counts = dict(interp.launch_counts)
+    if type(slam.frame_reader).__name__ != "Replica" or slam.n_img != READERS_LOOP_FRAMES:
+        raise AssertionError(f"the loop read {slam.n_img} frames through "
+                             f"{type(slam.frame_reader).__name__}, not Replica")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the readers' loop: {missing}")
+    ate = 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list)
+    if not ate <= ATE_DIVERGED_CM:
+        raise AssertionError(f"the readers' loop diverged: ATE {ate} cm")
+    ckpt = torch.load(os.path.join(run_out, "ckpts", f"{slam.n_img - 1:05d}.tar"),
+                      map_location="cpu", weights_only=False)
+    sel = ckpt["selected_keyframes"]
+    mapped = sorted({*range(0, slam.n_img, slam.mcfg.every_frame), slam.n_img - 1})
+    if not sel or sorted(sel) != mapped:
+        raise AssertionError(f"checkpoint selected_keyframes: {sel and sorted(sel)}")
+    emit({"phase": "readers", "ok": True, "H": REPLICA_CAM["H"], "W": REPLICA_CAM["W"],
+          "frames_per_layout": READERS_FRAMES, "layouts": report,
+          "read_ms_per_frame": read_ms, "read_ms_mean": float(np.mean(read_ms)),
+          "fixtures": sorted(manifest), "loop_frames": slam.n_img,
+          "loop_fps": slam.timings.get("fps"), "loop_ate_cm": ate,
+          "loop_launches": counts, "selected_keyframes": sorted(sel),
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_tour(dev, imap: bool):
+    """The port's ``selfcheck --gt_camera`` tour (150 frames, a full
+    orbit, mapped from ground-truth cameras; ``--imap`` for the iMAP*
+    model, as QUALITY.json's 'imap' row was recorded), its other flags at
+    their defaults, held to the JAX quality gates; K1-K3 launches counted
+    over the whole call."""
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.tools import selfcheck
+
+    name = "imap_tour" if imap else "gt_tour"
+    out = os.path.join(HERE, "output", "chip_smoke", name)
+    shutil.rmtree(out, ignore_errors=True)
+    flags = ["--frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
+             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--out", out, "--device", "cuda",
+             "--gt_camera"] + (["--imap"] if imap else [])
+    interp.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = selfcheck.run(selfcheck.parser().parse_args(flags))
+    seconds = time.perf_counter() - t0
+    counts = dict(interp.launch_counts)
+    t = s["timings"]
+    gates = IMAP_TOUR_GATES if imap else GT_TOUR_GATES
+    failed = [k for k, bound in gates.items()
+              if s[k] is None or not s[k] <= bound]
+    if not imap and not s["completion_ratio_pct"] >= GT_TOUR_RATIO_PCT:
+        failed.append("completion_ratio_pct")
+    if imap:
+        if any(counts.values()):
+            failed.append(f"launches {counts} (the iMAP* path launches none)")
+    elif counts["trilinear_bwd_dp"] != 0 or counts["trilinear_fwd"] <= 0 \
+            or counts["trilinear_bwd_dgrid"] <= 0:
+        failed.append(f"launches {counts} (no tracking: K3 0, K1 and K2 > 0)")
+    emit({"phase": name, "ok": not failed, "flags": flags, "summary": s,
+          "gates": gates, **({} if imap else {"completion_ratio_floor_pct": GT_TOUR_RATIO_PCT}),
+          "slam_s": t["total_s"] - t["meshing_s"], "mesh_s": t["meshing_s"],
+          "gt_mesh_s": t["gt_mesh_s"], "metric_3d_s": t["eval_3d_s"],
+          "metric_2d_s": t["eval_2d_s"], "fps": t.get("fps"), "launches": counts,
+          "seconds": seconds})
+    if failed:
+        raise AssertionError(f"{name} failed its gates: {failed}")
 
 
 # kernel -> (TPU-side code it replaces, the case its line reports: each
@@ -1037,6 +1307,9 @@ def main() -> int:
         phase_imap_resume(dev, done, cfg)
         del done
         phase_imap_quality(dev)
+        phase_readers(dev)
+        phase_tour(dev, imap=False)
+        phase_tour(dev, imap=True)
     except Exception:  # any phase failure fails the run, with its traceback
         traceback.print_exc()
         return 1

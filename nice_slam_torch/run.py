@@ -22,7 +22,9 @@ import os
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> None:
+def main(argv=None):
+    """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); returns the
+    finished system."""
     parser = argparse.ArgumentParser(
         description="NICE-SLAM on PyTorch/CUDA: dense neural-implicit RGB-D SLAM.")
     parser.add_argument("config", type=str, help="path to scene config file")
@@ -39,7 +41,7 @@ def main() -> None:
                        help="single-MLP iMAP* model")
     parser.set_defaults(nice=True)
     parser.add_argument("--device", type=str, default="cuda")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     from nice_slam_torch.config import load_config
     from nice_slam_torch.slam.slam import NiceSLAM
@@ -56,6 +58,7 @@ def main() -> None:
     print(f"INFO: ATE RMSE {100 * ate_rmse(est, slam.gt_c2w_list):.3f} cm; "
           f"{slam.timings.get('fps', 0.0):.3f} frames/s; outputs in "
           f"{slam.output}")
+    return slam
 
 
 if __name__ == "__main__":

@@ -453,7 +453,7 @@ class Mapper:
     the BA pose write-back."""
 
     def __init__(self, spec: SceneSpec, mcfg: MapperConfig, rcfg: RenderConfig,
-                 device, seed: int = 1):
+                 device, seed: int = 1, save_selected_keyframes_info: bool = False):
         self.spec = spec
         self.mcfg = mcfg
         self.rcfg = rcfg
@@ -465,15 +465,20 @@ class Mapper:
         self.fine_iter_ratio = mcfg.fine_iter_ratio
         self.fix_color = mcfg.fix_color
         self.frustum_feature_selection = mcfg.frustum_feature_selection
+        # frame index -> the window of its last mapping call: [{idx, gt_c2w,
+        # est_c2w} per window keyframe, then the current frame], host arrays
+        # taken before the call (a host sync per call, so only on request)
+        self.selected_keyframes = {} if save_selected_keyframes_info else None
 
     def optimize_map(self, state: SceneState, num_joint_iters: int,
                      lr_factor: float, cur_color: torch.Tensor,
                      cur_depth: torch.Tensor, keyframes,
                      cur_c2w: torch.Tensor, BA: bool, vis_hook=None,
-                     vis_every: int = 0):
-        """One mapping call on the current frame (device tensors; cur_c2w is
-        4x4), with ``vis_hook`` as in ``optimize_map_core``.  Returns (new
-        state, updated current pose or None, losses)."""
+                     vis_every: int = 0, idx: int = 0, gt_cur_c2w=None):
+        """One mapping call on frame ``idx`` (device tensors; cur_c2w is
+        4x4, ``gt_cur_c2w`` its true pose for the selected-keyframe record),
+        with ``vis_hook`` as in ``optimize_map_core``.  Returns (new state,
+        updated current pose or None, losses)."""
         mcfg = dataclasses.replace(
             self.mcfg, mapping_window_size=self.mapping_window_size,
             middle_iter_ratio=self.middle_iter_ratio,
@@ -512,6 +517,15 @@ class Mapper:
                     opt_mask[oldest] = 0.0
             frame_valid = torch.ones(F, dtype=torch.bool, device=cur_depth.device)
             positions = pos_t
+        if self.selected_keyframes is not None:
+            valid = frame_valid[:-1].tolist()
+            infos = [{"idx": keyframes.frame_ids[p],
+                      "gt_c2w": a.gt_c2w[p].cpu().numpy(),
+                      "est_c2w": a.est_c2w[p].cpu().numpy()}
+                     for p, v in zip(positions.tolist(), valid) if v]
+            infos.append({"idx": idx, "gt_c2w": np.asarray(gt_cur_c2w, np.float32),
+                          "est_c2w": cur_c2w.cpu().numpy()})
+            self.selected_keyframes[idx] = infos
         F = colors.shape[0]
         plan = stage_plan_for(mcfg, num_joint_iters)
         new_state, new_cams, losses = optimize_map_core(

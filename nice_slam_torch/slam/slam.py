@@ -103,7 +103,10 @@ class NiceSLAM:
         self.keyframes = KeyframeStore(
             self.n_img // self.mcfg.keyframe_every + 3, self.H, self.W,
             self.device)
-        self.mapper = Mapper(self.spec, self.mcfg, self.rcfg, self.device)
+        self.mapper = Mapper(
+            self.spec, self.mcfg, self.rcfg, self.device,
+            save_selected_keyframes_info=cfg["mapping"].get(
+                "save_selected_keyframes_info", False))
         self.coarse_mapper = None
         if self.coarse:
             self.coarse_mapper = Mapper(
@@ -220,7 +223,7 @@ class NiceSLAM:
             new_state, cur_out, losses = mapper.optimize_map(
                 self.state, num_joint_iters, lr_factor, color, depth,
                 self.keyframes, cur_c2w, BA, vis_hook=vis_hook,
-                vis_every=vis_every)
+                vis_every=vis_every, idx=idx, gt_cur_c2w=gt_c2w)
             if coarse:
                 grids = dict(self.state.grids)
                 grids["grid_coarse"] = new_state.grids["grid_coarse"]
@@ -252,7 +255,8 @@ class NiceSLAM:
         if last or (idx % cfg_m["ckpt_freq"] == 0
                     and not (idx == 0 and cfg_m["no_log_on_first_frame"])):
             self.logger.log(idx, self.state, self.estimate_c2w_list,
-                            self.gt_c2w_list, self.keyframes.frame_ids)
+                            self.gt_c2w_list, self.keyframes.frame_ids,
+                            selected_keyframes=self.mapper.selected_keyframes)
         if self.mesher is None:
             return
         mesh_dir = os.path.join(self.output, "mesh")

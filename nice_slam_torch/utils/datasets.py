@@ -2,13 +2,16 @@
 
 Frames come back as host numpy arrays (color (H, W, 3) f32 in [0, 1],
 depth (H, W) f32 metres, c2w (4, 4) f32); the SLAM loop moves to the
-device what it needs.  The readers keep the reference's preprocessing:
-color BGR->RGB / 255, depth / png_depth_scale * scale, optional
-undistortion (color only), resize to crop_size (bilinear color, nearest
-depth) and crop_edge, the y/z axis flips of each dataset's poses,
-ScanNet's numeric frame order, and TUM's timestamp association (<= 0.08 s)
-with frame-rate subsampling and first-pose normalization.  ``Synthetic``
-is the procedural box room (bare or furnished).
+device what it needs.  Files are decoded and resampled by the port's own
+``utils/imageio.py`` (OpenCV's pixels, no imaging library needed) and
+``utils/exr.py``.  The readers keep the reference's preprocessing order:
+decode, optional undistortion (color only), color / 255, depth /
+png_depth_scale * scale, resize of the color to the depth's shape,
+resize to crop_size (bilinear color, nearest depth) and crop_edge, the
+y/z axis flips of each dataset's poses, ScanNet's numeric frame order,
+and TUM's timestamp association (<= 0.08 s) with frame-rate subsampling
+and first-pose normalization.  ``Synthetic`` is the procedural box room
+(bare or furnished).
 """
 
 from __future__ import annotations
@@ -22,25 +25,21 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from nice_slam_torch.ops.geometry import as_intrinsics_matrix
+from nice_slam_torch.utils.exr import read_exr_depth
+from nice_slam_torch.utils.imageio import (
+    imread_color,
+    imread_unchanged,
+    remap,
+    resize_linear,
+    resize_nearest,
+    undistort_map,
+)
 
 
 def readEXR_onlydepth(filename: str) -> np.ndarray:
-    """The depth channel of an EXR file (CoFusion): OpenCV's reader when it
-    has EXR support, else the port's scanline codec (``utils/exr.py``)."""
-    import cv2
-
-    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
-    try:
-        img = cv2.imread(filename, cv2.IMREAD_UNCHANGED)
-    except cv2.error:
-        img = None
-    if img is None:
-        from nice_slam_torch.utils.exr import read_exr_depth
-
-        return read_exr_depth(filename)
-    if img.ndim == 3:
-        img = img[..., 0]
-    return img.astype(np.float32)
+    """The depth channel of an EXR file (CoFusion), read by the port's
+    scanline codec (``utils/exr.py``)."""
+    return read_exr_depth(filename)
 
 
 class BaseDataset:
@@ -67,34 +66,34 @@ class BaseDataset:
         self.depth_paths: List[str] = []
         self.poses: List[np.ndarray] = []
         self.n_img = 0
+        self._undistort_maps = None
 
     def __len__(self) -> int:
         return self.n_img
 
     def _read_depth(self, path: str) -> np.ndarray:
-        import cv2
-
         if path.endswith(".exr"):
             return readEXR_onlydepth(path)
-        return cv2.imread(path, cv2.IMREAD_UNCHANGED).astype(np.float32)
+        return imread_unchanged(path).astype(np.float32)
 
     def __getitem__(self, index: int):
-        import cv2
-
-        color = cv2.imread(self.color_paths[index])
+        color = imread_color(self.color_paths[index])
         depth = self._read_depth(self.depth_paths[index])
         if self.distortion is not None:
-            K = as_intrinsics_matrix([self.fx, self.fy, self.cx, self.cy])
-            color = cv2.undistort(color, K, self.distortion)
-        color = cv2.cvtColor(color, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+            if self._undistort_maps is None:  # one map per reader
+                K = as_intrinsics_matrix([self.fx, self.fy, self.cx, self.cy])
+                self._undistort_maps = undistort_map(
+                    K, self.distortion, color.shape[0], color.shape[1])
+            color = remap(color, self._undistort_maps)
+        color = color.astype(np.float32) / 255.0
         depth = depth.astype(np.float32) / self.png_depth_scale * self.scale
         H, W = depth.shape
         if color.shape[:2] != (H, W):
-            color = cv2.resize(color, (W, H))
+            color = resize_linear(color, (H, W))
         if self.crop_size is not None:
             th, tw = self.crop_size
-            color = cv2.resize(color, (tw, th), interpolation=cv2.INTER_LINEAR)
-            depth = cv2.resize(depth, (tw, th), interpolation=cv2.INTER_NEAREST)
+            color = resize_linear(color, (th, tw))
+            depth = resize_nearest(depth, (th, tw))
         edge = self.crop_edge
         if edge > 0:
             color = color[edge:-edge, edge:-edge]
@@ -351,6 +350,27 @@ class Synthetic(BaseDataset):
             spheres.append([c[0], c[1], c[2], 0.18 + 0.02 * (k % 3)])
         return (np.asarray(spheres, np.float32),
                 np.asarray(boxes, np.float32))
+
+    def scene_sdf(self, pts: np.ndarray) -> np.ndarray:
+        """Signed distance of the whole scene, positive in free space: its
+        zero level set is the walls and furniture, the surfaces ``_render``
+        hits (the ground-truth mesh of ``tools/selfcheck.py``)."""
+        pts = np.asarray(pts, np.float32)
+        lo, hi = self.room[:, 0], self.room[:, 1]
+        f = np.minimum.reduce([
+            pts[..., 0] - lo[0], hi[0] - pts[..., 0],
+            pts[..., 1] - lo[1], hi[1] - pts[..., 1],
+            pts[..., 2] - lo[2], hi[2] - pts[..., 2],
+        ]).astype(np.float32)
+        for s in self.spheres:
+            f = np.minimum(f, np.linalg.norm(pts - s[:3], axis=-1) - s[3])
+        for b in self.boxes:
+            c, h = (b[:3] + b[3:]) / 2.0, (b[3:] - b[:3]) / 2.0
+            q = np.abs(pts - c) - h
+            f = np.minimum(
+                f, np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+                + np.minimum(np.max(q, axis=-1), 0.0))
+        return f
 
     def _render(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
         if index in self._cache:
