@@ -88,7 +88,8 @@ Phases, each printing one JSON line:
            quantised depth, EXR depth exact, poses within 1e-5, JPEG colour
            at >= 30 dB PSNR, PNG colour exact (TUM read with
            freiburg1_desk's distortion, so undistort runs); the OpenCV
-           fixtures of tests/data/imageio decode to OpenCV's pixels; then
+           fixtures of tests/data/imageio decode to OpenCV's pixels, and
+           undistort at freiburg1_desk's camera gives OpenCV's; then
            ``nice_slam_torch.run`` runs the strict loop for ten frames from
            a 120x160 Replica-layout export (K1-K3 launched, ATE within
            20 cm, the checkpoint's selected_keyframes recorded); reports the
@@ -1180,14 +1181,20 @@ def phase_readers(dev):
         t1 = time.perf_counter()
         replica[i]
         read_ms.append(1e3 * (time.perf_counter() - t1))
-    # OpenCV's pixels of the fixtures, decoded here
+    # OpenCV's pixels of the fixtures, decoded here; the undistort entry is
+    # OpenCV's undistort of a fixture's crop at freiburg1_desk's camera
     data = os.path.join(HERE, "tests", "data", "imageio")
     with open(os.path.join(data, "manifest.json")) as f:
         manifest = json.load(f)
     for fname, entry in sorted(manifest.items()):
-        path = os.path.join(data, fname)
-        img = imageio.imread_color(path) if entry["read"] == "color" \
-            else imageio.imread_unchanged(path)
+        if entry["read"] == "undistort":
+            H, W = entry["shape"][:2]
+            src = imageio.imread_color(os.path.join(data, entry["source"]))[:H, :W]
+            img = imageio.undistort(src, np.array(entry["K"]), entry["dist"])
+        elif entry["read"] == "color":
+            img = imageio.imread_color(os.path.join(data, fname))
+        else:
+            img = imageio.imread_unchanged(os.path.join(data, fname))
         digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
         if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
             raise AssertionError(f"fixture {fname}: decoded pixels differ from OpenCV's")

@@ -65,6 +65,9 @@ void build_huffman(Huffman& h, const uint8_t* bits, const uint8_t* vals,
     h.valptr[l] = k;
     h.mincode[l] = code;
     for (int i = 0; i < bits[l - 1]; ++i, ++k, ++code) {
+      // a canonical code that outgrows its length (libjpeg: "bad Huffman
+      // table") would also index past the lookahead tables
+      if (code >= (1 << l)) throw Error{"bad Huffman table"};
       if (l <= 9) {
         int lo = code << (9 - l), n = 1 << (9 - l);
         for (int j = 0; j < n; ++j) {
@@ -313,7 +316,8 @@ struct Jpeg {
     while (p < end) {
       int pq = d[p] >> 4, tq = d[p] & 15;
       ++p;
-      if (tq > 3) throw Error{"bad DQT table id"};
+      if (pq > 1 || tq > 3) throw Error{"bad DQT table id"};
+      if (p + (pq ? 128 : 64) > end) throw Error{"bad DQT segment"};
       for (int i = 0; i < 64; ++i) {
         int v = pq ? u16(p + 2 * i) : d[p + i];
         qt[tq][kZigzag[i]] = v;
@@ -327,6 +331,7 @@ struct Jpeg {
     while (p < end) {
       int tc = d[p] >> 4, th = d[p] & 15;
       if (tc > 1 || th > 3) throw Error{"bad DHT table id"};
+      if (p + 17 > end) throw Error{"bad DHT segment"};
       const uint8_t* bits = d + p + 1;
       int total = 0;
       for (int i = 0; i < 16; ++i) total += bits[i];
@@ -337,8 +342,9 @@ struct Jpeg {
     }
   }
 
-  void read_sof(int64_t p, int marker) {
+  void read_sof(int64_t p, int64_t end, int marker) {
     if (frame) throw Error{"more than one frame header"};
+    if (p + 6 > end) throw Error{"bad JPEG frame header"};
     int precision = d[p];
     if (precision != 8)
       throw Error{"unsupported JPEG: " + std::to_string(precision) +
@@ -351,6 +357,7 @@ struct Jpeg {
     if (ncomp != 1 && ncomp != 3)
       throw Error{"unsupported JPEG: " + std::to_string(ncomp) +
                   " components (1 or 3 supported)"};
+    if (p + 6 + 3 * ncomp > end) throw Error{"bad JPEG frame header"};
     for (int i = 0; i < ncomp; ++i) {
       Component c;
       c.id = d[p + 6 + 3 * i];
@@ -401,6 +408,7 @@ struct Jpeg {
 
   // one scan's entropy-coded segment, starting at pos
   void read_scan(int64_t p, int64_t end) {
+    if (p >= end) throw Error{"bad SOS segment"};
     int ns = d[p];
     if (ns < 1 || ns > ncomp || p + 1 + 2 * ns + 3 > end)
       throw Error{"bad SOS segment"};
@@ -493,7 +501,7 @@ struct Jpeg {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          read_sof(p, m);
+          read_sof(p, end, m);
           if (header_only) return;
           break;
         case 0xC2:
@@ -522,6 +530,7 @@ struct Jpeg {
           read_dqt(p, end);
           break;
         case 0xDD:
+          if (p + 2 > end) throw Error{"bad DRI segment"};
           restart = u16(p);
           break;
         case 0xDA:

@@ -70,13 +70,16 @@ def ate_rmse(est_c2w: np.ndarray, gt_c2w: np.ndarray) -> float:
     return float(np.sqrt(np.mean(err ** 2)))
 
 
-def plot_trajectories(path: str, first_xy: np.ndarray, second_xy: np.ndarray,
-                      size: Tuple[int, int] = (480, 640)) -> None:
+PLOT_HW = (480, 640)
+
+
+def plot_trajectories(path: str, first_xy: np.ndarray, second_xy: np.ndarray) -> None:
     """Draw two (2, N) x-y polylines, ``first_xy`` black and ``second_xy``
-    blue, on a white JPEG with equal axis scales and a 5 % margin."""
+    blue, on a white ``PLOT_HW`` JPEG with equal axis scales and a 5 %
+    margin."""
     from nice_slam_torch.utils.jpeg import write_jpeg
 
-    H, W = size
+    H, W = PLOT_HW
     img = np.full((H, W, 3), 255, np.uint8)
     pts = np.concatenate([first_xy, second_xy], axis=1)
     lo, hi = pts.min(axis=1), pts.max(axis=1)

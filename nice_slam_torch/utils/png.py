@@ -16,7 +16,7 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+def write_png(path: str, img: np.ndarray) -> None:
     """Write an (H, W, 3) uint8 RGB image or an (H, W) uint16 gray image."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
@@ -30,7 +30,7 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
     data = (b"\x89PNG\r\n\x1a\n"
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color_type, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(data)

@@ -17,12 +17,15 @@ import os
 import cv2
 import numpy as np
 import pytest
+import yaml
 
 from nice_slam_torch.utils import imageio
 from nice_slam_torch.utils.jpeg import write_jpeg
 from nice_slam_torch.utils.png import write_png
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "imageio")
+FR1_DESK = os.path.join(os.path.dirname(__file__), "..", "configs", "TUM_RGBD",
+                        "freiburg1_desk.yaml")
 LINEAR_ATOL = 1e-6
 
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
@@ -71,6 +74,49 @@ def test_progressive_jpeg_raises(tmp_path):
     cv2.imwrite(path, textured(40, 40), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     with pytest.raises(ValueError, match="progressive.*SOF2"):
         imageio.imread_color(path)
+
+
+def _segment(data: bytearray, marker: bytes) -> int:
+    """Offset of the first ``marker`` segment's length field."""
+    return data.index(marker) + 2
+
+
+def _dht_overfull(data):
+    # three 1-bit codes, a 3-bit count lowered to keep the total: the third
+    # code (2) does not fit in one bit
+    p = _segment(data, b"\xff\xc4") + 3
+    assert data[p] == 0 and data[p + 2] >= 3
+    data[p], data[p + 2] = 3, data[p + 2] - 3
+
+
+def _shorten(marker: bytes, length: int):
+    def corrupt(data):
+        p = _segment(data, marker)
+        data[p:p + 2] = length.to_bytes(2, "big")
+    return corrupt
+
+
+MALFORMED = {
+    "dht_code_overflows_length": (_dht_overfull, "bad Huffman table"),
+    "dht_bits_past_segment": (_shorten(b"\xff\xc4", 2 + 10), "bad DHT segment"),
+    "dqt_table_past_segment": (_shorten(b"\xff\xdb", 2 + 1 + 30), "bad DQT segment"),
+    "sof_components_past_segment": (_shorten(b"\xff\xc0", 2 + 6 + 3),
+                                    "bad JPEG frame header"),
+    "sof_header_past_segment": (_shorten(b"\xff\xc0", 2 + 3), "bad JPEG frame header"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MALFORMED))
+def test_malformed_jpeg_headers_raise(tmp_path, case):
+    """Header tables that do not fit their segment, or a Huffman table
+    whose codes outgrow their lengths, raise instead of being read."""
+    path = str(tmp_path / "m.jpg")
+    cv2.imwrite(path, textured(24, 40), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    data = bytearray(open(path, "rb").read())
+    corrupt, message = MALFORMED[case]
+    corrupt(data)
+    with pytest.raises(ValueError, match=message):
+        imageio.decode_jpeg(bytes(data))
 
 
 def _png_image(kind, rng):
@@ -189,14 +235,58 @@ def test_default_jpeg_writer_keeps_444(tmp_path):
     np.testing.assert_array_equal(imageio.imread_color(jpg), cv2.imread(jpg)[..., ::-1])
 
 
+# SHA-256 of the files the panel writer wrote before its entropy coder was
+# vectorised; its default output stays byte for byte the same
+DEFAULT_JPEG_SHA256 = {
+    None: "b944fee57789f8c384588eff9eff44be9bec812ac057cd30fd6a6dbcf2aa2311",
+    50: "4948c376535a2d67c70a0e7fd74e6225b7654bb097c5a49906104d003b0a5e3f",
+    100: "a46dac8d3f9ab32eb715dc4a75f6dc78f989daca317c3dab73e664e8b2e68404",
+}
+
+
+@pytest.mark.parametrize("quality", [None, 50, 100])
+def test_default_jpeg_writer_bytes_are_pinned(tmp_path, quality):
+    y, x = np.mgrid[0:37, 0:53]
+    img = np.stack([(x * 7 + y * 13) % 256, (x * y) % 256, ((x ^ y) * 9) % 256],
+                   -1).astype(np.uint8)
+    img[:16, :24] = (200, 120, 40)  # flat blocks: DC and end-of-block only
+    img[20:, :8] = ((x[20:, :8] // 4) % 2 * 255)[..., None]  # stripes
+    path = str(tmp_path / "d.jpg")
+    write_jpeg(path, img, **({} if quality is None else {"quality": quality}))
+    with open(path, "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == DEFAULT_JPEG_SHA256[quality]
+
+
 def _manifest():
     with open(os.path.join(DATA, "manifest.json")) as f:
         return json.load(f)
 
 
-def fixture_pixels(name: str, read: str) -> np.ndarray:
+def fixture_pixels(name: str, entry: dict) -> np.ndarray:
+    """The port's pixels of a manifest entry: a decoded file, or (``read:
+    undistort``) its ``source``'s colour cropped to ``shape`` and
+    undistorted with the entry's ``K`` and ``dist``."""
+    if entry["read"] == "undistort":
+        H, W = entry["shape"][:2]
+        src = imageio.imread_color(os.path.join(DATA, entry["source"]))[:H, :W]
+        return imageio.undistort(src, np.array(entry["K"]), entry["dist"])
     path = os.path.join(DATA, name)
-    return imageio.imread_color(path) if read == "color" else imageio.imread_unchanged(path)
+    if entry["read"] == "color":
+        return imageio.imread_color(path)
+    return imageio.imread_unchanged(path)
+
+
+def cv2_pixels(name: str, entry: dict, folder: str = DATA) -> np.ndarray:
+    """OpenCV's pixels of a manifest entry in ``folder``, RGB where colour."""
+    if entry["read"] == "undistort":
+        H, W = entry["shape"][:2]
+        src = cv2.imread(os.path.join(folder, entry["source"]))[:H, :W, ::-1]
+        return cv2.undistort(np.ascontiguousarray(src), np.array(entry["K"]),
+                             np.array(entry["dist"]))
+    path = os.path.join(folder, name)
+    if entry["read"] == "color":
+        return cv2.imread(path)[..., ::-1]
+    return cv2.imread(path, cv2.IMREAD_UNCHANGED)
 
 
 @pytest.mark.parametrize("name", sorted(_manifest()))
@@ -204,14 +294,20 @@ def test_committed_fixtures(name):
     """OpenCV's pixels of each fixture are the recorded ones, and so are
     the port's (the smoke runs the same comparison on the card)."""
     entry = _manifest()[name]
-    path = os.path.join(DATA, name)
-    ref = cv2.imread(path) if entry["read"] == "color" else cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if entry["read"] == "color":
-        ref = ref[..., ::-1]
-    assert sha(ref) == entry["sha256"]
-    got = fixture_pixels(name, entry["read"])
+    assert sha(cv2_pixels(name, entry)) == entry["sha256"]
+    got = fixture_pixels(name, entry)
     assert list(got.shape) == entry["shape"] and str(got.dtype) == entry["dtype"]
     assert sha(got) == entry["sha256"]
+
+
+def test_undistort_fixture_uses_freiburg1_desk_camera():
+    with open(FR1_DESK) as f:
+        cam = yaml.safe_load(f)["cam"]
+    entry = _manifest()["cv2_undistort_fr1desk_480x640"]
+    assert entry["shape"][:2] == [cam["H"], cam["W"]]
+    assert entry["K"] == [[cam["fx"], 0.0, cam["cx"]], [0.0, cam["fy"], cam["cy"]],
+                          [0.0, 0.0, 1.0]]
+    assert entry["dist"] == cam["distortion"]
 
 
 def write_fixtures(folder: str) -> None:
@@ -239,13 +335,20 @@ def write_fixtures(folder: str) -> None:
     }
     manifest = {}
     for name, (img, params, read) in files.items():
-        path = os.path.join(folder, name)
-        cv2.imwrite(path, img[..., ::-1] if img.ndim == 3 else img, params)
-        ref = cv2.imread(path) if read == "color" else cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        if read == "color":
-            ref = ref[..., ::-1]
-        manifest[name] = {"read": read, "shape": list(ref.shape), "dtype": str(ref.dtype),
-                          "sha256": sha(ref)}
+        cv2.imwrite(os.path.join(folder, name), img[..., ::-1] if img.ndim == 3 else img,
+                    params)
+        manifest[name] = {"read": read}
+    # OpenCV's undistort at freiburg1_desk's camera, of the large fixture's
+    # top-left 480x640 (no file of its own: the manifest holds its hash)
+    with open(FR1_DESK) as f:
+        cam = yaml.safe_load(f)["cam"]
+    manifest["cv2_undistort_fr1desk_480x640"] = {
+        "read": "undistort", "source": "cv2_420_q95_680x1200.jpg",
+        "K": [[cam["fx"], 0.0, cam["cx"]], [0.0, cam["fy"], cam["cy"]], [0.0, 0.0, 1.0]],
+        "dist": cam["distortion"], "shape": [cam["H"], cam["W"], 3]}
+    for name, entry in manifest.items():
+        ref = cv2_pixels(name, entry, folder)
+        entry.update(shape=list(ref.shape), dtype=str(ref.dtype), sha256=sha(ref))
     with open(os.path.join(folder, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
 
