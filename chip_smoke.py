@@ -50,6 +50,27 @@ Phases, each printing one JSON line:
            final mesh (resolution 128), the family median of each mesh's
            median | max(|x|,|y|,|z|) - 2 | over its vertices (the walls are
            at +-2 m) against 0.15 m;
+  threaded the loose and then the free schedule on the slice's workload
+           (the same 12 frames at full width, coarse mapper on): after a
+           warm-up on the main thread the tracker, the mapper and the
+           coarse mapper run as threads, each on its own CUDA stream.  Each
+           run must track frames 1-11 with finite poses, map frame 11,
+           write the final checkpoint and a final mesh with faces, and
+           launch K1-K3 with exact counts (K3 = tracking iterations, K2 =
+           mapping + coarse-mapping iterations, K1 = both + mesher chunks)
+           on the streams they belong to: per stream, K3 = the tracker
+           thread's tracking iterations, K2 = each mapper thread's mapping
+           iterations, the warm-up's on the default stream; a stream that
+           is missing fails the run.  The loose run's largest lag (idx -
+           mapping_idx as a frame's tracking starts) must be at most every
+           + every // 2.  Reports fps, tracking ms per frame, mapping and
+           coarse-mapping ms per event, events, the lag and peak device
+           memory beside the slice's strict numbers;
+  threaded_quality  the quality phase's box run under loose for pixel
+           seeds 42, 0, 1: every draw's ATE at most 20 cm, the median at
+           most max(3 x the quality phase's median, 12 cm), the JAX
+           package's rule for loose against strict
+           (tests/test_sync_hardening.py:109-110);
   imap_slice  the iMAP* model (one 256-wide, 4-block MLP, no grids) through
            the strict loop at the Replica iMAP widths on the synthetic room
            at 680x1200: tracking 50 it x 5000 px, mapping 300 it x 5000 px
@@ -128,6 +149,8 @@ ATE_DIVERGED_CM = 20.0     # any one draw: only a diverged run goes past it
 JAX_MEDIAN_GATE_CM = 6.5   # the JAX family's median gate, reported only
 QUALITY_SEEDS = (42, 0, 1, 2, 3)  # the config's default pixel seed, then 0-3
 BOX_MESH_GATE_M = 0.15     # family median of the box meshes' wall distance
+THREADED_SEEDS = (42, 0, 1)  # the loose box family
+LOOSE_ATE_FLOOR_CM = 12.0  # tests/test_sync_hardening.py:109-110
 IMAP_FRAMES = 12           # the iMAP slice, cut for time
 IMAP_ITERS_FIRST = 300     # the Replica iMAP config's 1500, cut for time
 IMAP_ATE_GATE_CM = 5.0     # every draw (tests/test_quality_gates.py imap_tracked*)
@@ -542,12 +565,14 @@ def stack_check(dev) -> float:
 
 
 def count_iterations(mapper, sink, key) -> None:
-    """Add each optimize_map call's iteration count to ``sink[key]``."""
+    """Add each optimize_map call's iteration count to ``sink[key]``, or,
+    where ``key`` is a function, to ``sink[key()]``."""
     inner = mapper.optimize_map
 
     def counted(*a, **k):
         out = inner(*a, **k)
-        sink[key] += int(out[2].shape[0])
+        name = key() if callable(key) else key
+        sink[name] = sink.get(name, 0) + int(out[2].shape[0])
         return out
 
     mapper.optimize_map = counted
@@ -584,9 +609,11 @@ def phase_slice(dev):
     iters = {"mapping": 0, "coarse_mapping": 0}
     count_iterations(slam.mapper, iters, "mapping")
     count_iterations(slam.coarse_mapper, iters, "coarse_mapping")
+    torch.cuda.reset_peak_memory_stats()
     interp.reset_launch_counts()
     slam.run()
     counts = dict(interp.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     est = slam.estimate_c2w_list.cpu().numpy()
     if not torch.isfinite(slam.estimate_c2w_list).all():
@@ -628,7 +655,7 @@ def phase_slice(dev):
         raise AssertionError(f"K2 launched {counts['trilinear_bwd_dgrid']} times "
                              f"for {map_iters} mapping iterations")
     grids = {k: list(v.shape) for k, v in slam.state.grids.items()}
-    emit({"phase": "slice", "ok": True, "frames": slam.n_img,
+    record = {"phase": "slice", "ok": True, "frames": slam.n_img,
           "H": slam.H, "W": slam.W, "grids": grids,
           "iters_first": SLICE_ITERS_FIRST,
           "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
@@ -653,8 +680,10 @@ def phase_slice(dev):
           "launches_per_tracking_iter": counts["trilinear_bwd_dp"] / track_iters,
           "k1_launches_per_iter": (counts["trilinear_fwd"] - mesh_chunks)
           / (track_iters + map_iters),
-          "k2_launches_per_mapping_iter": counts["trilinear_bwd_dgrid"] / map_iters})
-    return counts, slam, cfg
+          "k2_launches_per_mapping_iter": counts["trilinear_bwd_dgrid"] / map_iters,
+          "peak_mem_gib": peak_gib}
+    emit(record)
+    return counts, slam, cfg, record
 
 
 def phase_resume(dev, done, cfg):
@@ -772,6 +801,7 @@ def phase_quality(dev):
                              f"{median:.3f} (gate {ATE_GATE_CM}), worst draw gate "
                              f"{ATE_DIVERGED_CM}; box mesh wall distance {walls} m, "
                              f"median {wall_median:.4f} (gate {BOX_MESH_GATE_M})")
+    return median
 
 
 def box_wall_distance(verts) -> float:
@@ -780,6 +810,176 @@ def box_wall_distance(verts) -> float:
     import numpy as np
 
     return float(np.median(np.abs(np.abs(verts).max(axis=1) - 2.0)))
+
+
+def threaded_run(dev, sync):
+    """One threaded run of the slice's workload; checks its frames, outputs
+    and every kernel's launches per stream, and returns its record."""
+    import math
+    import threading
+
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import replica_synthetic_cfg
+
+    out = os.path.join(HERE, "output", "chip_smoke", f"threaded_{sync}")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_synthetic_cfg(out, n_frames=12, iters_first=SLICE_ITERS_FIRST)
+    cfg["sync_method"] = sync
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+    for i in range(slam.n_img):  # frame synthesis is not part of the timing
+        slam.frame_reader[i]
+    map_iters, coarse_iters = {}, {}
+
+    def thread() -> str:  # the warm-up runs on MainThread
+        return threading.current_thread().name
+
+    count_iterations(slam.mapper, map_iters, thread)
+    count_iterations(slam.coarse_mapper, coarse_iters, thread)
+    track_iters = {}
+    lags = []
+    inner_track = slam.track_one
+
+    def tracked(idx, *a, **k):
+        lags.append(idx - slam.mapping_idx)
+        track_iters[thread()] = track_iters.get(thread(), 0) + slam.tcfg.iters
+        return inner_track(idx, *a, **k)
+
+    slam.track_one = tracked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    interp.reset_launch_counts()
+    slam.run()
+    counts = dict(interp.launch_counts)
+    by = dict(interp.launches_by_stream)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n, t = slam.n_img, slam.timings
+    if not torch.isfinite(slam.estimate_c2w_list).all():
+        raise AssertionError(f"{sync}: non-finite poses")
+    if t["tracked_frames"] != n - 1 or slam.mapping_idx != n - 1:
+        raise AssertionError(f"{sync}: tracked {t['tracked_frames']} frames, "
+                             f"mapping_idx {slam.mapping_idx}; expected {n - 1} each")
+    ckpt = os.path.join(out, "ckpts", f"{n - 1:05d}.tar")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"{sync}: no final checkpoint at {ckpt}")
+    chunk = slam.rcfg.points_batch_size
+    lattice = slam.mesher.resolution ** 3
+    mesh_chunks = 0
+    for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
+        verts, _ = mesh_stats(os.path.join(out, "mesh", name))
+        mesh_chunks += math.ceil(lattice / chunk) + math.ceil(len(verts) / chunk)
+
+    # the streams: the warm-up's on the default stream, then one per thread
+    expected = {"tracker", "mapper", "coarse_mapper"}
+    if set(slam.streams) != expected:
+        raise AssertionError(f"{sync}: thread streams {sorted(slam.streams)}, "
+                             f"expected {sorted(expected)}")
+    ids = {"MainThread": torch.cuda.default_stream().cuda_stream,
+           **{k: v.cuda_stream for k, v in slam.streams.items()}}
+    if len(set(ids.values())) != 4:
+        raise AssertionError(f"{sync}: the threads do not have streams of "
+                             f"their own: {ids}")
+    k1, k2, k3 = "trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp"
+    all_track = sum(track_iters.values())
+    all_map = sum(map_iters.values()) + sum(coarse_iters.values())
+    if counts[k3] != all_track or counts[k2] != all_map or \
+            counts[k1] != all_track + all_map + mesh_chunks:
+        raise AssertionError(f"{sync}: launches {counts} for {all_track} tracking "
+                             f"+ {all_map} mapping iterations + {mesh_chunks} "
+                             "mesher chunks")
+    want = {}  # (kernel, thread) -> launches
+    for thread, sid in ids.items():
+        tr = track_iters.get(thread, 0)
+        mp = map_iters.get(thread, 0) + coarse_iters.get(thread, 0)
+        want[(k3, thread)] = tr
+        want[(k2, thread)] = mp
+        if thread != "mapper":  # the mapper's stream also runs the meshes
+            want[(k1, thread)] = tr + mp
+    got = {(k, thread): by.get((k, sid), 0) for thread, sid in ids.items()
+           for k in (k1, k2, k3)}
+    bad = {key: (got[key], v) for key, v in want.items() if got[key] != v}
+    stray = {key: v for key, v in by.items() if key[1] not in ids.values()}
+    if bad or stray or got[(k1, "mapper")] <= 0:
+        raise AssertionError(f"{sync}: launches per stream (got, expected) {bad}; "
+                             f"on unknown streams {stray}")
+    for thread in expected:
+        if got[(k1, thread)] <= 0:
+            raise AssertionError(f"{sync}: no K1 launch on the {thread}'s stream")
+    every = slam.mcfg.every_frame
+    worst = max(lags)
+    if sync == "loose" and worst > every + every // 2:
+        raise AssertionError(f"loose: lag {worst} frames > {every + every // 2}")
+    est = slam.estimate_c2w_list.cpu().numpy()
+    return {"sync": sync, "fps": t.get("fps"), "total_s": t["total_s"],
+            "meshing_s": t["meshing_s"],
+            "fps_without_meshing": t["frames"] / (t["total_s"] - t["meshing_s"]),
+            "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+            "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+            "coarse_mapping_ms_per_event": t.get("coarse_mapping_ms_per_event"),
+            "tracked_frames": t["tracked_frames"],
+            "mapping_events": t["mapping_events"],
+            "coarse_mapping_events": t["coarse_mapping_events"],
+            "max_lag": worst, "lags": lags, "peak_mem_gib": peak_gib,
+            "ate_cm": 100 * ate_rmse(est, slam.gt_c2w_list),
+            "iters": {"tracking": track_iters, "mapping": map_iters,
+                      "coarse_mapping": coarse_iters},
+            "launches": counts,
+            "launches_by_thread": {f"{k}@{th}": v for (k, th), v in got.items()},
+            "mesher_k1_launches": mesh_chunks, "checkpoint": ckpt}
+
+
+def phase_threaded(dev, strict):
+    """The loose and free schedules on the slice's workload, beside the
+    slice phase's strict numbers (``strict``, its record)."""
+    t0 = time.perf_counter()
+    runs = [threaded_run(dev, sync) for sync in ("loose", "free")]
+    keys = ("fps", "total_s", "meshing_s", "fps_without_meshing",
+            "tracking_ms_per_frame", "mapping_ms_per_event",
+            "coarse_mapping_ms_per_event", "tracked_frames", "mapping_events",
+            "coarse_mapping_events", "peak_mem_gib", "ate_cm")
+    emit({"phase": "threaded", "ok": True, "runs": runs,
+          "strict": {k: strict.get(k) for k in keys},
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_threaded_quality(dev, strict_median_cm):
+    """The quality phase's box run under loose for THREADED_SEEDS: every
+    draw against ATE_DIVERGED_CM, the median against max(3 x the strict
+    family's median, LOOSE_ATE_FLOOR_CM)."""
+    import numpy as np
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import box_quality_cfg
+
+    t0 = time.perf_counter()
+    draws = []
+    for seed in THREADED_SEEDS:
+        out = os.path.join(HERE, "output", "chip_smoke", f"threaded_quality_s{seed}")
+        cfg = box_quality_cfg(out)
+        cfg.update(seed=seed, sync_method="loose")
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+        slam.run()
+        t = slam.timings
+        draws.append({"seed": seed, "fps": t.get("fps"),
+                      "mapping_events": t["mapping_events"],
+                      "ate_rmse_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(),
+                                                    slam.gt_c2w_list)})
+    ates = [d["ate_rmse_cm"] for d in draws]
+    median = float(np.median(ates))
+    gate = max(3 * strict_median_cm, LOOSE_ATE_FLOOR_CM)
+    ok = median <= gate and max(ates) <= ATE_DIVERGED_CM
+    emit({"phase": "threaded_quality", "ok": ok, "frames": 30, "draws": draws,
+          "median_ate_cm": median, "gate_cm": gate, "strict_median_cm": strict_median_cm,
+          "draw_gate_cm": ATE_DIVERGED_CM, "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError(f"loose ATE over seeds {THREADED_SEEDS}: {ates} cm; median "
+                             f"{median:.3f} (gate {gate:.3f}), worst draw gate "
+                             f"{ATE_DIVERGED_CM}")
 
 
 def record_calls(mapper, sink) -> None:
@@ -1305,11 +1505,13 @@ def main() -> int:
         phase_build()
         cases, lookups = phase_capture(dev)
         rows = phase_kernels(dev, cases, lookups)
-        counts, done, cfg = phase_slice(dev)
+        counts, done, cfg, strict = phase_slice(dev)
         phase_resume(dev, done, cfg)
         phase_vis(dev, done)
         del done
-        phase_quality(dev)
+        strict_median = phase_quality(dev)
+        phase_threaded(dev, strict)
+        phase_threaded_quality(dev, strict_median)
         done, cfg = phase_imap_slice(dev, card)
         phase_imap_resume(dev, done, cfg)
         del done

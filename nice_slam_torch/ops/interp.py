@@ -29,6 +29,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -36,16 +37,29 @@ import torch
 from nice_slam_torch.ops import kernels
 from nice_slam_torch.ops.geometry import normalize_3d_coordinate
 
-# launches per kernel, counted where each wrapper launches its kernel
+# launches per kernel, counted where each wrapper launches its kernel, and
+# per (kernel, CUDA stream handle); the threaded schedules launch from
+# several threads, so a lock keeps the counts exact
 launch_counts: Dict[str, int] = {"trilinear_fwd": 0, "trilinear_bwd_dgrid": 0,
                                  "trilinear_bwd_dp": 0}
+launches_by_stream: Dict[Tuple[str, int], int] = {}
+_count_lock = threading.Lock()
 
 MAX_GRIDS = 3  # grids per K1/K2/K3 launch (kMaxGrids in trilinear.cu)
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        launches_by_stream.clear()
+
+
+def _count(name: str, stream: int) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
+        key = (name, stream)
+        launches_by_stream[key] = launches_by_stream.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -236,11 +250,12 @@ def trilinear_fwd_multi(grids: Sequence[torch.Tensor],
         desc = []
         for grid, out in zip(grids, outs):
             desc += [grid.data_ptr(), out.data_ptr(), *grid.shape[:3]]
+        stream = _stream()
         rc = kernels.library("trilinear").trilinear_fwd(
             (ctypes.c_longlong * len(desc))(*desc), len(grids), p.data_ptr(), n, C,
-            _stream())
+            stream)
         kernels.check(rc, "trilinear_fwd")
-        launch_counts["trilinear_fwd"] += 1
+        _count("trilinear_fwd", stream)
     return outs
 
 
@@ -265,11 +280,12 @@ def trilinear_bwd_dgrid_multi(p: torch.Tensor, gs: Sequence[torch.Tensor],
         desc = []
         for g, o, s in zip(gs, outs, shapes):
             desc += [g.data_ptr(), o.data_ptr(), s[0], s[1], s[2]]
+        stream = _stream()
         rc = kernels.library("trilinear").trilinear_bwd_dgrid(
             (ctypes.c_longlong * len(desc))(*desc), len(gs), p.data_ptr(), n, C,
-            _stream())
+            stream)
         kernels.check(rc, "trilinear_bwd_dgrid")
-        launch_counts["trilinear_bwd_dgrid"] += 1
+        _count("trilinear_bwd_dgrid", stream)
     return outs
 
 
@@ -287,11 +303,12 @@ def trilinear_bwd_dp_multi(grids: Sequence[torch.Tensor], p: torch.Tensor,
         desc = []
         for grid, g in zip(grids, gs):
             desc += [grid.data_ptr(), g.data_ptr(), *grid.shape[:3]]
+        stream = _stream()
         rc = kernels.library("trilinear").trilinear_bwd_dp(
             (ctypes.c_longlong * len(desc))(*desc), len(grids), p.data_ptr(),
-            dp.data_ptr(), n, C, _stream())
+            dp.data_ptr(), n, C, stream)
         kernels.check(rc, "trilinear_bwd_dp")
-        launch_counts["trilinear_bwd_dp"] += 1
+        _count("trilinear_bwd_dp", stream)
     return dp
 
 

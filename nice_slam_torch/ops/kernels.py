@@ -6,7 +6,8 @@ library with a plain C interface, built on first use into
 ``build/nice_slam_torch/`` at the checkout root (a directory
 ``.gitignore`` lists), named by the hash of the source so an edited
 source is rebuilt.  Libraries are loaded with ``ctypes``.  A failed build
-raises.  Nothing here runs at import time.
+raises.  Nothing here runs at import time.  Loading is serialised by a
+lock, so threads that first call a kernel together build it once.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +42,7 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 build_logs: Dict[str, str] = {}
 
 
@@ -119,12 +122,16 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built on first use)."""
     lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
-        for fn, argtypes in SIGNATURES.get(name, {}).items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build([name])[name])
+            for fn, argtypes in SIGNATURES.get(name, {}).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
     return lib
 
 

@@ -1,16 +1,27 @@
-"""NiceSLAM driver: counterpart of the JAX package's ``slam/slam.py``, strict
-schedule only, for the NICE model (``args.nice``) and the iMAP* model.
+"""The NiceSLAM system: counterpart of the JAX package's ``slam/slam.py``, for
+the NICE model (``args.nice``) and the iMAP* model, on the strict, loose
+and free schedules.
 
 The strict schedule: map frame 0 (main mapper, then coarse mapper), then
 for every later frame track it, and on every ``every_frame``-th frame (and
 the last) map it with the main mapper and then the coarse mapper.  The
 iMAP* model has no coarse mapper and no pretrained decoders, and splits
 each mapping event after the first into 3 calls (the final color
-refinement into 5, as for NICE).  Frames
-are read on a background thread; a frame that is only tracked ships just
-its pre-drawn tracking pixels to the device.  Stage times are host clocks
-around work that ends in a device synchronize, so they are device-true.
-The loose/free schedules and spatial grid sharding are not ported yet.
+refinement into 5, as for NICE).  Frames are read on a background thread;
+a frame that is only tracked ships just its pre-drawn tracking pixels to
+the device.
+
+Any other ``sync_method`` runs the threaded schedule: after a warm-up on
+the calling thread, the tracker, the mapper and the coarse mapper are
+host threads polling ``idx`` / ``mapping_idx``, each issuing its work on
+its own CUDA stream.  ``loose`` keeps the tracker within ``every +
+every // 2`` frames of the last mapped frame and maps every ``every //
+2`` frames; ``free`` has no gates.  Shared device data passes between the
+streams through ``Handoff``s (``slam/handoff.py``).
+
+Stage times are host clocks around work that ends in a synchronize of
+the calling thread's stream, so they are device-true for that thread.
+Spatial grid sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +30,9 @@ import glob
 import json
 import os
 import shutil
+import threading
 import time
+from contextlib import nullcontext
 from typing import Any, Dict, List
 
 import numpy as np
@@ -33,8 +46,10 @@ from nice_slam_torch.ops.geometry import (
     tensor_from_pose,
 )
 from nice_slam_torch.ops.render import RenderConfig
+from nice_slam_torch.slam.handoff import Handoff, hold
 from nice_slam_torch.slam.keyframes import KeyframeStore
 from nice_slam_torch.slam.mapper import Mapper, MapperConfig
+from nice_slam_torch.slam.optim import tree_leaves
 from nice_slam_torch.slam.tracker import (
     TrackerConfig,
     const_speed_init,
@@ -72,10 +87,8 @@ class NiceSLAM:
     ``args.nice`` false selects the iMAP* model."""
 
     def __init__(self, cfg: Dict[str, Any], args, device="cuda"):
-        if cfg["sync_method"] != "strict":
-            raise NotImplementedError(f"sync_method {cfg['sync_method']!r} is "
-                                      "not ported yet; only 'strict'")
         self.cfg = cfg
+        self.sync_method = cfg["sync_method"]
         self.device = torch.device(device)
         self.verbose = cfg["verbose"]
         self.nice = bool(getattr(args, "nice", True))
@@ -132,14 +145,61 @@ class NiceSLAM:
         # mesher's device chunks and per-step host seconds
         self.meshes: List[Dict[str, Any]] = []
         self._start_idx = 0
+        self.idx = 0               # latest tracked frame
+        self.mapping_idx = -1      # latest frame of the main mapper
+        self.mapping_cnt = 0
+        # the scene state and the pose list, shared by the threads of the
+        # loose and free schedules (keyframes carry their own Handoff)
+        self._state_handoff = Handoff(self.device)
+        self._est_handoff = Handoff(self.device)
+        # the CUDA stream of each thread of the last threaded run
+        self.streams: Dict[str, torch.cuda.Stream] = {}
         self.timings = {"tracking_s": 0.0, "mapping_s": 0.0,
                         "coarse_mapping_s": 0.0, "meshing_s": 0.0, "frames": 0,
                         "tracked_frames": 0, "mapping_events": 0,
                         "coarse_mapping_events": 0}
 
     def _sync(self) -> None:
+        """Wait for the calling thread's stream (the other threads' streams
+        run on)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _snapshot(self):
+        """The current scene state, ready to read on this thread's stream."""
+        with self._state_handoff.access():
+            state = self.state
+        hold(tree_leaves(state))
+        return state
+
+    def _publish(self, new_state, coarse: bool) -> None:
+        """Make a mapper's output the current state.  The coarse mapper
+        owns only the coarse grid; the main mapper's output carries a copy
+        of the coarse grid from its snapshot, which the current one
+        replaces (a concurrent coarse update is kept)."""
+        with self._state_handoff.access():
+            if coarse:
+                grids = dict(self.state.grids)
+                grids["grid_coarse"] = new_state.grids["grid_coarse"]
+                self.state = self.state._replace(grids=grids)
+            else:
+                grids = dict(new_state.grids)
+                if "grid_coarse" in self.state.grids:
+                    grids["grid_coarse"] = self.state.grids["grid_coarse"]
+                self.state = new_state._replace(grids=grids)
+
+    def _poses(self, *idxs: int) -> List[torch.Tensor]:
+        """Copies of the estimated poses of frames ``idxs``."""
+        with self._est_handoff.access():
+            return [self.estimate_c2w_list[i].clone() for i in idxs]
+
+    def _set_pose(self, idx: int, c2w: torch.Tensor) -> None:
+        with self._est_handoff.access():
+            self.estimate_c2w_list[idx] = c2w
+
+    def _all_poses(self) -> torch.Tensor:
+        with self._est_handoff.access():
+            return self.estimate_c2w_list.clone()
 
     def _to_dev(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
@@ -153,32 +213,34 @@ class NiceSLAM:
         t0 = time.perf_counter()
         self.gt_c2w_list[idx] = gt_c2w
         vis = self.tracking_visualizer
+        state = self._snapshot()
         if self.tcfg.gt_camera:
-            self.estimate_c2w_list[idx] = self._to_dev(gt_c2w)
+            c2w = self._to_dev(gt_c2w)
+            self._set_pose(idx, c2w)
             if idx % vis.freq == 0:
-                vis.vis(idx, 0, depth, color, self.estimate_c2w_list[idx], self.state)
+                vis.vis(idx, 0, depth, color, c2w, state)
         else:
-            est = self.estimate_c2w_list
-            pre = est[idx - 1]
+            pre, pre_pre = self._poses(idx - 1, max(idx - 2, 0))
             init = pre
             if self.tcfg.const_speed_assumption and idx >= 2:
-                init = const_speed_init(pre, est[idx - 2])
+                init = const_speed_init(pre, pre_pre)
             init_tensor = tensor_from_pose(init)
             pi, pj, pd, pc = (self._to_dev(a) for a in pix)
             cand, losses, cams, _ = track_frame_sampled(
-                self.spec, self.state, init_tensor, pi, pj, pd, pc, self.tcfg,
+                self.spec, state, init_tensor, pi, pj, pd, pc, self.tcfg,
                 self.rcfg)
-            est[idx] = c2w44(pose_from_tensor(cand))
+            self._set_pose(idx, c2w44(pose_from_tensor(cand)))
             if idx % vis.freq == 0:
                 # iteration it renders at its pre-step pose
                 for it in range(0, self.tcfg.iters, vis.inside_freq):
                     vis.vis(idx, it, depth, color,
-                            init_tensor if it == 0 else cams[it - 1], self.state)
+                            init_tensor if it == 0 else cams[it - 1], state)
             if self.verbose:
                 l = losses.cpu().numpy()
                 print(f"Tracking Frame {idx}  re-rendering loss: "
                       f"{l[0]:.2f}->{l[-1]:.2f}")
         self._sync()
+        self.idx = idx  # the pose is written and visible to other streams
         self.timings["tracking_s"] += time.perf_counter() - t0
         self.timings["tracked_frames"] += 1
 
@@ -208,7 +270,9 @@ class NiceSLAM:
             elif not self.nice:
                 outer_joint_iters = 3
         num_joint_iters //= outer_joint_iters
-        cur_c2w = self.estimate_c2w_list[idx].clone()
+        (cur_c2w,) = self._poses(idx)
+        # the coarse mapper reads the keyframes the main mapper writes
+        keyframes = self.keyframes.snapshot() if coarse else self.keyframes
         vis_hook, vis_every = None, 0
         vis = self.mapping_visualizer
         if (not coarse and vis is not None and idx % vis.freq == 0
@@ -216,23 +280,18 @@ class NiceSLAM:
             vis_every = vis.inside_freq
 
             def vis_hook(it, state):
-                vis.vis(idx, it, depth, color, self.estimate_c2w_list[idx], state)
+                vis.vis(idx, it, depth, color, self._poses(idx)[0], state)
 
         for outer in range(outer_joint_iters):
-            BA = len(self.keyframes) > 4 and cfg_m["BA"] and not coarse
+            BA = len(keyframes) > 4 and cfg_m["BA"] and not coarse
             new_state, cur_out, losses = mapper.optimize_map(
-                self.state, num_joint_iters, lr_factor, color, depth,
-                self.keyframes, cur_c2w, BA, vis_hook=vis_hook,
+                self._snapshot(), num_joint_iters, lr_factor, color, depth,
+                keyframes, cur_c2w, BA, vis_hook=vis_hook,
                 vis_every=vis_every, idx=idx, gt_cur_c2w=gt_c2w)
-            if coarse:
-                grids = dict(self.state.grids)
-                grids["grid_coarse"] = new_state.grids["grid_coarse"]
-                self.state = self.state._replace(grids=grids)
-            else:
-                self.state = new_state
+            self._publish(new_state, coarse)
             if BA and cur_out is not None:
                 cur_c2w = cur_out
-                self.estimate_c2w_list[idx] = cur_c2w
+                self._set_pose(idx, cur_c2w)
             if (outer == outer_joint_iters - 1 and not coarse
                     and (idx % self.mcfg.keyframe_every == 0
                          or idx == self.n_img - 2)
@@ -243,6 +302,9 @@ class NiceSLAM:
             print(f"{'Coarse ' if coarse else ''}Mapping Frame {idx}  loss: "
                   f"{l[0]:.2f}->{l[-1]:.2f}")
         self._sync()
+        if not coarse:
+            self.mapping_idx = idx
+            self.mapping_cnt += 1
         key = "coarse_mapping" if coarse else "mapping"
         self.timings[key + "_s"] += time.perf_counter() - t0
         self.timings[key + "_events"] += 1
@@ -254,7 +316,7 @@ class NiceSLAM:
         last = idx == self.n_img - 1
         if last or (idx % cfg_m["ckpt_freq"] == 0
                     and not (idx == 0 and cfg_m["no_log_on_first_frame"])):
-            self.logger.log(idx, self.state, self.estimate_c2w_list,
+            self.logger.log(idx, self._snapshot(), self._all_poses(),
                             self.gt_c2w_list, self.keyframes.frame_ids,
                             selected_keyframes=self.mapper.selected_keyframes)
         if self.mesher is None:
@@ -275,7 +337,7 @@ class NiceSLAM:
         t0 = time.perf_counter()
         m = self.cfg["meshing"]
         self.mesher.get_mesh(
-            path, self.state, self.keyframes, self.estimate_c2w_list, idx,
+            path, self._snapshot(), self.keyframes, self._all_poses(), idx,
             show_forecast=m["mesh_coarse_level"] and not eval_rec,
             clean_mesh=m["clean_mesh"], get_mask_use_all_frames=eval_rec)
         self._sync()
@@ -302,6 +364,7 @@ class NiceSLAM:
             self.keyframes.add(kf_idx, color, depth,
                                self.estimate_c2w_list[kf_idx], gt_c2w)
         self._start_idx = idx + 1
+        self.idx = self.mapping_idx = idx
         print(f"INFO: resumed from {ckpts[-1]} at frame {idx}")
         return self._start_idx
 
@@ -317,27 +380,22 @@ class NiceSLAM:
     def _should_map(self, idx: int) -> bool:
         return idx % self.mcfg.every_frame == 0 or idx == self.n_img - 1
 
+    def _map_event(self, idx: int, color, depth, gt_c2w, init: bool) -> None:
+        """Map frame ``idx`` (host arrays) with the main mapper, log and mesh
+        what is due, then map it with the coarse mapper unless it is the
+        last frame."""
+        color_d, depth_d = self._to_dev(color), self._to_dev(depth)
+        self.map_one(idx, color_d, depth_d, gt_c2w, init=init)
+        self.log_and_mesh(idx)
+        if self.coarse_mapper is not None and idx != self.n_img - 1:
+            self.map_one(idx, color_d, depth_d, gt_c2w, init=init, coarse=True)
+
     def run(self) -> None:
         t0 = time.perf_counter()
-        prefetch = Prefetcher(self.frame_reader, depth=4, start=self._start_idx,
-                              packer=self._packer)
-        try:
-            for idx, color, depth, gt_c2w, pix in prefetch:
-                if idx == 0:
-                    self.estimate_c2w_list[0] = self._to_dev(gt_c2w)
-                    self.gt_c2w_list[0] = gt_c2w
-                else:
-                    self.track_one(idx, pix, gt_c2w, color, depth)
-                if idx == 0 or self._should_map(idx):
-                    color_d, depth_d = self._to_dev(color), self._to_dev(depth)
-                    self.map_one(idx, color_d, depth_d, gt_c2w, init=idx == 0)
-                    self.log_and_mesh(idx)
-                    if self.coarse_mapper is not None and idx != self.n_img - 1:
-                        self.map_one(idx, color_d, depth_d, gt_c2w,
-                                     init=idx == 0, coarse=True)
-        finally:
-            prefetch.close()
-        self._sync()
+        if self.sync_method == "strict":
+            self._run_strict()
+        else:
+            self._run_threaded()
         t = self.timings
         t["total_s"] = time.perf_counter() - t0
         t["frames"] = self.n_img - self._start_idx
@@ -351,6 +409,135 @@ class NiceSLAM:
             if t[nkey] > 0:
                 t[out] = 1e3 * t[skey] / t[nkey]
         self.save()
+
+    def _run_strict(self) -> None:
+        prefetch = Prefetcher(self.frame_reader, depth=4, start=self._start_idx,
+                              packer=self._packer)
+        try:
+            for idx, color, depth, gt_c2w, pix in prefetch:
+                if idx == 0:
+                    self._set_pose(0, self._to_dev(gt_c2w))
+                    self.gt_c2w_list[0] = gt_c2w
+                else:
+                    self.track_one(idx, pix, gt_c2w, color, depth)
+                if idx == 0 or self._should_map(idx):
+                    self._map_event(idx, color, depth, gt_c2w, init=idx == 0)
+        finally:
+            prefetch.close()
+        self._sync()
+
+    def _run_threaded(self) -> None:
+        """loose/free: a warm-up on the calling thread (map the start frame,
+        track the next two, map the last of them), then the tracker and the
+        mapper(s) as host threads, each on its own CUDA stream.  The tracker
+        reads frames from a Prefetcher and publishes them, as host arrays,
+        to a small cache the mappers read (each uploads on its own
+        stream).  A thread failure is recorded and trips a shared abort
+        that every poll loop watches; ``run`` then raises."""
+        n, every = self.n_img, self.mcfg.every_frame
+        loose = self.sync_method == "loose"
+        frame_cache: Dict[int, tuple] = {}
+        cache_lock = threading.Lock()
+
+        def read_frame(idx: int):
+            with cache_lock:
+                if idx in frame_cache:
+                    return frame_cache[idx]
+            _, color, depth, gt_c2w = self.frame_reader[idx]
+            return color, depth, gt_c2w
+
+        def publish_frame(idx: int, color, depth, gt_c2w) -> None:
+            with cache_lock:
+                frame_cache[idx] = (color, depth, gt_c2w)
+                for k in [k for k in frame_cache if k < idx - 2 * every]:
+                    del frame_cache[k]
+
+        try:
+            idx0 = self.idx
+            _, c0, d0, p0 = self.frame_reader[idx0]
+            publish_frame(idx0, c0, d0, p0)
+            if self._start_idx == 0:  # a resumed run keeps its estimate
+                self._set_pose(idx0, self._to_dev(p0))
+                self.gt_c2w_list[idx0] = p0
+            self._map_event(idx0, c0, d0, p0, init=True)
+            warm_last = idx0
+            for t in range(idx0 + 1, min(idx0 + 3, n)):
+                _, ct, dt, pt, pix = self._packer(self.frame_reader[t])
+                publish_frame(t, ct, dt, pt)
+                self.track_one(t, pix, pt, ct, dt)
+                warm_last = t
+            if warm_last > idx0:
+                self._map_event(warm_last, *read_frame(warm_last), init=False)
+            self._sync()
+        except Exception as e:  # same contract as a thread failure
+            raise RuntimeError(f"SLAM thread failed: {e!r}") from e
+
+        errors: List[BaseException] = []
+        abort = threading.Event()
+        self._abort = abort
+
+        def tracker() -> None:
+            prefetch = Prefetcher(self.frame_reader, depth=3,
+                                  start=warm_last + 1, packer=self._packer)
+            try:
+                for idx, color, depth, gt_c2w, pix in prefetch:
+                    publish_frame(idx, color, depth, gt_c2w)
+                    if loose:
+                        while self.mapping_idx < idx - every - every // 2:
+                            if abort.is_set():
+                                return
+                            time.sleep(0.005)
+                    if abort.is_set():
+                        return
+                    self.track_one(idx, pix, gt_c2w, color, depth)
+            finally:
+                prefetch.close()
+
+        def mapper(coarse: bool) -> None:
+            prev = warm_last
+            while not abort.is_set() and prev != n - 1:
+                idx = self.idx
+                due = idx != prev and (idx == n - 1 or not loose
+                                       or idx >= prev + every // 2)
+                if not due:
+                    time.sleep(0.005)
+                    continue
+                prev = idx
+                color, depth, gt_c2w = read_frame(idx)
+                color_d, depth_d = self._to_dev(color), self._to_dev(depth)
+                self.map_one(idx, color_d, depth_d, gt_c2w, init=False,
+                             coarse=coarse)
+                if not coarse:
+                    self.log_and_mesh(idx)
+
+        def guarded(name: str, fn, *args):
+            stream = None
+            if self.device.type == "cuda":
+                stream = self.streams[name] = torch.cuda.Stream(self.device)
+
+            def body() -> None:
+                try:
+                    with (nullcontext() if stream is None
+                          else torch.cuda.stream(stream)):
+                        fn(*args)
+                except Exception as e:  # noqa: BLE001 -- reported by run()
+                    errors.append(e)
+                    abort.set()
+            return threading.Thread(target=body, name=name, daemon=True)
+
+        self.streams = {}
+        threads = [guarded("mapper", mapper, False)]
+        if self.coarse_mapper is not None:
+            threads.append(guarded("coarse_mapper", mapper, True))
+        threads.append(guarded("tracker", tracker))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if errors:
+            raise RuntimeError(f"SLAM thread failed: {errors[0]!r}") from errors[0]
 
     def save(self) -> None:
         """Write poses.npz (estimated and true c2w per frame) and

@@ -1,6 +1,7 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
-    python -m nice_slam_torch.tools.profile_step [--out DIR] [--imap]
+    python -m nice_slam_torch.tools.profile_step [--out DIR]
+        [--imap | --schedules [strict,loose,free]]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
 17 frames of the strict loop, so the map and a full 5-frame keyframe
@@ -24,6 +25,15 @@ third of a mapping event the strict loop runs per call), one mesh at
 resolution 256 and one full-frame render; each row also gives the MLP's
 floating-point work (``mlp_tflop``, from the shapes) and its time at the
 card's float32 peak (``mlp_bound_ms``).
+
+``--schedules`` profiles whole runs instead: the 12-frame loop of the
+Replica-scale workload (first mapping 300 iterations, no meshes) under
+the strict, loose and free schedules (or those listed), one row each with the run's wall
+time, fps, tracking ms per frame, mapping and coarse-mapping ms per event
+and events of an unprofiled run, and the wall, device busy time and idle
+share of a second run traced for device activity only (the threads'
+streams together; the threaded schedules' event counts vary from run to
+run, so both runs' are given).
 
 Run as a file with another checkout first on ``PYTHONPATH`` to measure
 that checkout's port with this instrumentation.
@@ -98,11 +108,66 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
             "gemm_ms": gemm / 1e3, "kernels": kernels}
 
 
+def profile_schedules(out: str, schedules) -> None:
+    """One row per schedule: a whole 12-frame run without meshes.  A strict
+    run first builds the kernels and warms the card; then each schedule
+    runs unprofiled (wall time, fps), then each once more under the
+    profiler (device activity only: the host-side trace of ~400k operations
+    would slow the threads it measures)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.workloads import replica_synthetic_cfg
+
+    def fresh(sync):
+        cfg = replica_synthetic_cfg(os.path.join(out, sync), n_frames=12,
+                                    iters_first=300)
+        cfg.update(sync_method=sync, meshing=None)
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+        for i in range(slam.n_img):  # frame synthesis is not timed
+            slam.frame_reader[i]
+        torch.cuda.synchronize()
+        return slam
+
+    card = torch.cuda.get_device_name(0)
+    fresh("strict").run()  # warm-up
+    rows = {}
+    for sync in schedules:
+        slam = fresh(sync)
+        t0 = time.perf_counter()
+        slam.run()
+        wall = 1e3 * (time.perf_counter() - t0)
+        t = slam.timings
+        rows[sync] = (wall, {"what": f"loop_{sync}", "device": card,
+                             "frames": slam.n_img, **{k: t.get(k) for k in (
+                                 "fps", "tracking_ms_per_frame",
+                                 "mapping_ms_per_event",
+                                 "coarse_mapping_ms_per_event",
+                                 "mapping_events", "coarse_mapping_events")}})
+    for sync in schedules:
+        traced = fresh(sync)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            traced.run()
+            traced_wall = 1e3 * (time.perf_counter() - t0)
+        wall, row = rows[sync]
+        row["untraced_wall_ms"] = wall
+        row.update(_device_summary(prof, traced_wall))
+        row["traced_mapping_events"] = traced.timings["mapping_events"]
+        row["traced_coarse_mapping_events"] = traced.timings["coarse_mapping_events"]
+        print(json.dumps(row), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="output directory")
-    parser.add_argument("--imap", action="store_true",
-                        help="profile the iMAP* model")
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument("--imap", action="store_true",
+                       help="profile the iMAP* model")
+    group.add_argument("--schedules", nargs="?", const="strict,loose,free",
+                       help="profile whole runs of these schedules "
+                            "(comma-separated; default all three)")
     args = parser.parse_args()
 
     import torch
@@ -122,6 +187,9 @@ def main() -> None:
         raise SystemExit("profile_step needs a CUDA device")
     out = args.out or os.path.join(ROOT, "output",
                                    "profile_step_imap" if args.imap else "profile_step")
+    if args.schedules:
+        profile_schedules(out, args.schedules.split(","))
+        return
     make = replica_imap_cfg if args.imap else replica_synthetic_cfg
     cfg = make(out, n_frames=17, iters_first=300)
     slam = NiceSLAM(cfg, argparse.Namespace(nice=not args.imap, output=None), "cuda")

@@ -295,6 +295,117 @@ def test_tiny_strict_loop_launches_every_kernel(dev, tmp_path):
     assert torch.isfinite(slam.estimate_c2w_list).all()
 
 
+def test_kernels_follow_the_current_stream(dev):
+    """Each kernel launched on a side stream right after that stream writes
+    its inputs gives its plain version's result.  The side stream first
+    spins (``torch.cuda._sleep``), so a kernel launched on any other stream
+    would read its inputs before they are written."""
+    shape, n = (74, 56, 43, 32), 48000
+    host = [t.pin_memory() for t in _case(torch.device("cpu"), shape, n)]
+    side = torch.cuda.Stream()
+    interp.reset_launch_counts()
+    with torch.cuda.stream(side):
+        grid, p, cot = (torch.empty_like(t, device=dev) for t in host)
+        torch.cuda._sleep(100_000_000)
+        for dst, src in zip((grid, p, cot), host):
+            dst.copy_(src, non_blocking=True)
+        out = interp.trilinear_fwd(grid, p)
+        dp = interp.trilinear_bwd_dp(grid, p, cot)
+        dg = interp.trilinear_bwd_dgrid(p, cot, shape)
+    side.synchronize()
+    assert interp.launches_by_stream == {(k, side.cuda_stream): 1
+                                         for k in interp.launch_counts}
+    torch.testing.assert_close(out, interp.trilinear_fwd_plain(grid, p),
+                               atol=1e-5, rtol=0)
+    ref = interp.trilinear_bwd_dp_plain(grid, p, cot)
+    assert float((dp - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    ref = interp.trilinear_bwd_dgrid_plain(p, cot, shape)
+    scale = interp.trilinear_bwd_dgrid_plain(p, cot.abs(), shape)
+    tol = 32 * torch.finfo(torch.float32).eps * float(scale.max())
+    assert float((dg - ref).abs().max()) <= tol
+
+
+SPIN_CYCLES = 200_000_000  # ~0.1 s of device time: longer than any host step here
+
+
+def test_handoff_access_orders_a_read_after_a_write(dev):
+    """A write made on stream A inside ``Handoff.access`` is what stream B
+    reads inside its own later access, although A's write is still queued
+    behind a spin when B's read is issued."""
+    from nice_slam_torch.slam.handoff import Handoff
+
+    h = Handoff(dev)
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    x = torch.zeros(1 << 20, device=dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(a), h.access():
+        torch.cuda._sleep(SPIN_CYCLES)
+        x.fill_(1.0)
+    with torch.cuda.stream(b), h.access():
+        seen = x.clone()
+    torch.cuda.synchronize()
+    assert bool((seen == 1.0).all())
+
+
+def test_handoff_hold_keeps_a_read_block_from_reuse(dev):
+    """A tensor made on stream A and read on stream B after ``hold`` keeps
+    its memory until B's read has run: A drops it and allocates the same
+    size again at once, writes there, and B still reads the first values."""
+    from nice_slam_torch.slam.handoff import Handoff, hold
+
+    h = Handoff(dev)
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    n = 1 << 20
+    torch.cuda.synchronize()
+    with torch.cuda.stream(a), h.access():
+        state = torch.full((n,), 1.0, device=dev)
+    ptr = state.data_ptr()
+    with torch.cuda.stream(b), h.access():
+        hold([state])
+        torch.cuda._sleep(SPIN_CYCLES)
+        seen = state.clone()
+    with torch.cuda.stream(a):  # the producer's next allocation, no hand-off
+        del state
+        reused = torch.empty(n, device=dev)
+        reused.fill_(2.0)
+    torch.cuda.synchronize()
+    assert reused.data_ptr() != ptr
+    assert bool((seen == 1.0).all())
+
+
+def test_tiny_loose_loop_launches_on_the_threads_streams(dev, tmp_path):
+    """The loose schedule on the card: the warm-up launches on the default
+    stream, then K3 only on the tracker's stream and K2 only on the
+    mappers' streams."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.slam.slam import NiceSLAM
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    cfg.update(coarse=True, verbose=False, sync_method="loose", meshing=None)
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(
+            ROOT, cfg["pretrained_decoders"][k])
+    cfg["data"].update({"n_frames": 8, "output": str(tmp_path)})
+    cfg["mapping"].update({"iters_first": 30, "iters": 10})
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+    interp.reset_launch_counts()
+    slam.run()
+    assert torch.isfinite(slam.estimate_c2w_list).all()
+    assert slam.mapping_idx == 7 and slam.timings["tracked_frames"] == 7
+    by = dict(interp.launches_by_stream)
+    ids = {name: s.cuda_stream for name, s in slam.streams.items()}
+    assert sorted(ids) == ["coarse_mapper", "mapper", "tracker"]
+    default = torch.cuda.default_stream().cuda_stream
+    assert len({*ids.values(), default}) == 4
+    assert by[("trilinear_bwd_dp", ids["tracker"])] == 5 * slam.tcfg.iters
+    assert by[("trilinear_bwd_dp", default)] == 2 * slam.tcfg.iters
+    for name in ("mapper", "coarse_mapper"):
+        assert by[("trilinear_bwd_dgrid", ids[name])] > 0
+        assert ("trilinear_bwd_dp", ids[name]) not in by
+    assert ("trilinear_bwd_dgrid", ids["tracker"]) not in by
+
+
 def _lattice_points(res, n):
     """The first ``n`` points of a res^3 mesher lattice over [-1.05, 1.05]^3
     (x slowest, z fastest), normalized like the grid lookup's."""
