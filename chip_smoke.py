@@ -121,7 +121,35 @@ Phases, each printing one JSON line:
            accuracy and completion <= 1.5 cm, depth L1 <= 0.5 cm,
            completion ratio >= 98 %; K3 never launched, K1 and K2 launched;
   imap_tour  the same with ``--imap`` against :46-47: accuracy <= 10 cm,
-           depth L1 <= 6 cm; no K1-K3 launch.
+           depth L1 <= 6 cm; no K1-K3 launch;
+  pretrain the port's decoder pretrainer at the recipe's full width
+           (coarse, middle and fine decoders 32 wide; grids 6^3, 19^3 and
+           38^3 x 32 over +-3 m; 4096 points x 300 Adam steps per stage),
+           cut in depth to 2 scenes (the recipe: 40): every loss finite and
+           each stage's mean over its last 50 steps below its first 50's;
+           K1 and K2 once per step (1800 each), K3 never; K1 and K2 held
+           against their plain versions on the first coarse-stage and
+           fine-stage step's arguments (rows of the kernels line); the
+           export loaded back by the port's loader equal bit for bit to the
+           trained decoders, with the keys and shapes of pretrained/*.pt;
+           reports steps per second;
+  envelope the port's track_envelope at the box's full width (120x160, 20
+           frames, first mapping 400, coarse off) at 1.0 and 2.5 deg per
+           frame, default and coarse-to-fine (5 iterations at 5x): every
+           row finite, the 1.0 deg rows <= 20 cm, and the JAX gate's rule
+           (tests/test_quality_gates.py:148-154): the largest motion cf
+           tracks below 10 cm >= default's; K3 = tracking iterations, K2 =
+           mapping iterations;
+  landscape the port's loss_landscape on gt_tour's final checkpoint at
+           frames 30, 90 and 149, offsets -4..4 cm, 2000 pixels: finite
+           losses shaped as the JAX tool's, one K1 launch per evaluation,
+           no K2 or K3; reports each DOF's 'biased' flag;
+  viewer   ``nice_slam_torch.visualizer`` on the slice's output with
+           --save_rendering: vis.mp4 (Motion-JPEG) holds one frame per
+           frame 0..N, each read by the port's JPEG decoder; then
+           --frontend web on 127.0.0.1 at a free port, in its own process
+           with the same modules unimportable, serves the page, the last
+           frame's mesh and the run's poses; the process is stopped.
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -431,6 +459,55 @@ def case_tools(label, grids, p):
     return pts_b, gather_b, feat_b, lib, lib_pts, lib_fwd, timed, held
 
 
+def lib_bwd(lib, lib_pts, gs, mask):
+    """grid_sample's backward over each grid of a case (``mask``: which of
+    the grid and point gradients it computes), cotangents in its
+    [1, C, N, 1, 1] layout."""
+    import torch
+
+    lib_g = [g.t().reshape(1, g.shape[1], g.shape[0], 1, 1).contiguous() for g in gs]
+
+    def run():
+        for x, g in zip(lib, lib_g):
+            torch.ops.aten.grid_sampler_3d_backward(g, x, lib_pts, 0, 1, True, mask)
+    return run
+
+
+def k2_row(label, grids, p, gs):
+    """K2 over the grids of one case, one launch: held against its plain
+    version summed in float64 (``dgrid_f64``): a main-path coarse cell
+    takes ~10^4 contributions, and a float32 sum of that many in any order
+    (the plain version's index_add_ also sums with atomics) is off by
+    tens of ulps of the cell's sum of |w_k g| on its own.  The tolerance
+    is 32 ulps of the largest such sum.  Bytes: the points, the
+    cotangents, and the touched grid rows read and written in the zeroed
+    gradient (its wrapper fills it with a separate kernel that device_ms
+    leaves out)."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+
+    eps = torch.finfo(torch.float32).eps
+    shapes = [tuple(g.shape) for g in grids]
+    n, C = p.shape[0], shapes[0][3]
+    pts_b, gather_b, feat_b, lib, lib_pts, _, timed, held = case_tools(label, grids, p)
+    dgs = interp.trilinear_bwd_dgrid_multi(p, gs, shapes)
+    held_k2 = []  # (err, tol) per grid; the row keeps the grid nearest its limit
+    for dg, g, s in zip(dgs, gs, shapes):
+        ref, scale = dgrid_f64(p, g, s)
+        held_k2.append((float((dg.double() - ref).abs().max()),
+                        32 * eps * float(scale.max())))
+    del dgs
+    err, tol = max(held_k2, key=lambda et: et[0] - et[1])
+    return dict(held("trilinear_bwd_dgrid", err, tol),
+                bytes=pts_b + feat_b + 2 * gather_b, flops=n * 8 * C * 2 * len(grids),
+                **timed(lambda: interp.trilinear_bwd_dgrid_multi(p, gs, shapes),
+                        lambda: [interp.trilinear_bwd_dgrid_plain(p, g, s)
+                                 for g, s in zip(gs, shapes)],
+                        lib_bwd(lib, lib_pts, gs, [True, False]), "grid_sampler_3d",
+                        "trilinear_bwd_dgrid"))
+
+
 def kernel_rows(label, grids, p, gs):
     """K1, K2 and K3 over the grids of one case (one lookup Function of a
     decoder stage): error against the plain versions (raises above its
@@ -438,49 +515,15 @@ def kernel_rows(label, grids, p, gs):
     and the bytes and flops of the bound.  Bytes count what each kernel
     itself must move, each once: the points, the cotangents or features,
     the grid rows the points touch (K1, K3 read them; K2 reads and writes
-    them in the zeroed gradient, which its wrapper fills with a separate
-    kernel that device_ms leaves out) and dp.
-
-    K2 is held against its plain version summed in float64
-    (``dgrid_f64``): a main-path coarse cell takes ~10^4
-    contributions, and a float32 sum of that many in any order (the plain
-    version's index_add_ also sums with atomics) is off by tens of ulps of
-    the cell's sum of |w_k g| on its own."""
-    import torch
-
+    them) and dp."""
     from nice_slam_torch.ops import interp
 
-    eps = torch.finfo(torch.float32).eps
-    shapes = [tuple(g.shape) for g in grids]
     n = p.shape[0]
-    C = shapes[0][3]
+    C = grids[0].shape[3]
     pts_b, gather_b, feat_b, lib, lib_pts, lib_fwd, timed, held = case_tools(
         label, grids, p)
-    # grid_sample's layout of the cotangents: [1, C, N, 1, 1]
-    lib_g = [g.t().reshape(1, C, n, 1, 1).contiguous() for g in gs]
-
-    def lib_bwd(mask):
-        def run():
-            for x, g in zip(lib, lib_g):
-                torch.ops.aten.grid_sampler_3d_backward(g, x, lib_pts, 0, 1, True, mask)
-        return run
-
-    rows = [k1_row(label, grids, p, gather_b + pts_b + feat_b, timed, held, lib_fwd)]
-    # K2
-    dgs = interp.trilinear_bwd_dgrid_multi(p, gs, shapes)
-    held_k2 = []  # (err, tol) per grid; the row keeps the grid nearest its limit
-    for dg, g, s in zip(dgs, gs, shapes):
-        ref, scale = dgrid_f64(p, g, s)
-        held_k2.append((float((dg.double() - ref).abs().max()),
-                        32 * eps * float(scale.max())))
-    err, tol = max(held_k2, key=lambda et: et[0] - et[1])
-    rows.append(dict(held("trilinear_bwd_dgrid", err, tol),
-                     bytes=pts_b + feat_b + 2 * gather_b, flops=n * 8 * C * 2 * len(grids),
-                     **timed(lambda: interp.trilinear_bwd_dgrid_multi(p, gs, shapes),
-                             lambda: [interp.trilinear_bwd_dgrid_plain(p, g, s)
-                                      for g, s in zip(gs, shapes)],
-                             lib_bwd([True, False]), "grid_sampler_3d",
-                             "trilinear_bwd_dgrid")))
+    rows = [k1_row(label, grids, p, gather_b + pts_b + feat_b, timed, held, lib_fwd),
+            k2_row(label, grids, p, gs)]
     # K3
     dp = interp.trilinear_bwd_dp_multi(grids, p, gs)
     ref = sum(interp.trilinear_bwd_dp_plain(gr, p, g) for gr, g in zip(grids, gs))
@@ -491,8 +534,24 @@ def kernel_rows(label, grids, p, gs):
                      **timed(lambda: interp.trilinear_bwd_dp_multi(grids, p, gs),
                              lambda: sum(interp.trilinear_bwd_dp_plain(gr, p, g)
                                          for gr, g in zip(grids, gs)),
-                             lib_bwd([False, True]), "grid_sampler_3d",
+                             lib_bwd(lib, lib_pts, gs, [False, True]), "grid_sampler_3d",
                              "trilinear_bwd_dp")))
+    return rows
+
+
+def with_bounds(rows):
+    """Each row's bound_ms (the larger of its bytes over the HBM rate and
+    its float32 operations over the card's float32 rate) and bound_by;
+    fails if a row's device_ms is below its bound."""
+    for r in rows:
+        t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e3 * r["flops"] / F32_FLOPS_PER_S
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    under = [(r["case"], r["kernel"], r["device_ms"], r["bound_ms"])
+             for r in rows if r["device_ms"] < r["bound_ms"]]
+    if under:
+        raise AssertionError(f"device_ms below bound_ms (a wrong bound or timing): {under}")
     return rows
 
 
@@ -516,16 +575,8 @@ def phase_kernels(dev, cases, lookups):
             label, c["grids"], c["p"])
         rows.append(k1_row(label, c["grids"], c["p"], gather_b + pts_b + feat_b,
                            timed, held, lib_fwd))
-    for r in rows:
-        t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-        t_ops = 1e3 * r["flops"] / F32_FLOPS_PER_S
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     torch.cuda.synchronize()
-    under = [(r["case"], r["kernel"], r["device_ms"], r["bound_ms"])
-             for r in rows if r["device_ms"] < r["bound_ms"]]
-    if under:
-        raise AssertionError(f"device_ms below bound_ms (a wrong bound or timing): {under}")
+    with_bounds(rows)
     emit({"phase": "kernels", "ok": True, "rows": rows,
           "profiler_retries": PROFILER_RETRIES["windows"],
           "stack_max_abs_err": stack_check(dev)})
@@ -1481,6 +1532,366 @@ def phase_tour(dev, imap: bool):
         raise AssertionError(f"{name} failed its gates: {failed}")
 
 
+PRETRAIN_SCENES = 2            # the recipe's 40 scenes, cut for time
+PRETRAIN_STEPS = 300           # per stage: the recipe's
+PRETRAIN_SAMPLES = 4096        # per step: the recipe's
+PRETRAIN_WINDOW = 50           # the first and the last steps a stage's loss is averaged over
+ENVELOPE_FRAMES = 20           # tools/track_envelope.py's default
+ENVELOPE_DEGS = "1.0,2.5"      # per-frame orbit motion of the two sweep points
+ENVELOPE_CF = ("5", "5.0")     # --cf_iters, --cf_mult: the tool's defaults
+ENVELOPE_OK_CM = 10.0          # tests/test_quality_gates.py:148-154: max_ok's bound
+LANDSCAPE_FRAMES = ("30", "90", "149")
+LANDSCAPE_DELTAS_CM = ("-4", "-2", "-1", "0", "1", "2", "4")  # the tool's default
+LANDSCAPE_PIXELS = "2000"
+
+
+def pretrain_captures():
+    """Record the first K1 and K2 arguments of the pretrainer's coarse and
+    fine stages (told apart by the grid shapes) while the wrappers run."""
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.tools import pretrain_decoders as P
+
+    seen = {}
+    fwd, dgrid = interp.trilinear_fwd_multi, interp.trilinear_bwd_dgrid_multi
+    coarse = (*P.GRID_SHAPES["grid_coarse"], 32)
+    fine = (*P.GRID_SHAPES["grid_fine"], 32)
+
+    def stage_of(shape):
+        return {coarse: "pretrain_coarse", fine: "pretrain_fine"}.get(tuple(shape))
+
+    def rec_fwd(grids, p):
+        name = stage_of(grids[0].shape)
+        if name and "fwd_" + name not in seen:
+            seen["fwd_" + name] = {"p": p.detach().clone(),
+                                   "grids": [g.detach().clone() for g in grids]}
+        return fwd(grids, p)
+
+    def rec_dgrid(p, gs, shapes):
+        name = stage_of(shapes[0])
+        if name and "dgrid_" + name not in seen:
+            seen["dgrid_" + name] = {"p": p.detach().clone(),
+                                     "gs": [g.detach().clone() for g in gs]}
+        return dgrid(p, gs, shapes)
+
+    def restore():
+        interp.trilinear_fwd_multi, interp.trilinear_bwd_dgrid_multi = fwd, dgrid
+
+    interp.trilinear_fwd_multi, interp.trilinear_bwd_dgrid_multi = rec_fwd, rec_dgrid
+    return seen, restore
+
+
+def phase_pretrain(dev):
+    """The decoder pretrainer at the recipe's full width (coarse, middle and
+    fine decoders 32 wide, grids 6^3 / 19^3 / 38^3 x 32 over +-3 m, 4096
+    points x 300 Adam steps per stage), cut in depth to PRETRAIN_SCENES
+    scenes: every loss finite and each stage's mean over its last
+    PRETRAIN_WINDOW steps below its mean over its first; one K1 and one K2
+    launch per step, no K3; K1 and K2 held against their plain versions on
+    the first coarse-stage and fine-stage step's arguments (the fine
+    stage's K1 reads the fine and middle grids, its K2 writes the fine
+    grid's gradient only); the export loaded back through the port's
+    loader equal to the trained decoders bit for bit, with the key set
+    and shapes of the repo's pretrained/*.pt."""
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.models.pretrain import load_pretrain
+    from nice_slam_torch.models.scene import build_scene
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.tools import pretrain_decoders as P
+
+    out = os.path.join(HERE, "output", "chip_smoke", "pretrain")
+    shutil.rmtree(out, ignore_errors=True)
+    seen, restore = pretrain_captures()
+    torch.cuda.synchronize()
+    interp.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        dec, losses = P.pretrain(PRETRAIN_SCENES, PRETRAIN_STEPS, PRETRAIN_SAMPLES,
+                                 seed=0, device=dev, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    seconds = time.perf_counter() - t0
+    counts = dict(interp.launch_counts)
+    steps = PRETRAIN_SCENES * len(P.STAGES) * PRETRAIN_STEPS
+    failed = []
+    if counts != {"trilinear_fwd": steps, "trilinear_bwd_dgrid": steps,
+                  "trilinear_bwd_dp": 0}:
+        failed.append(f"launches {counts}, not K1 = K2 = {steps} and K3 = 0")
+    if not np.isfinite(losses).all():
+        failed.append("non-finite losses")
+    first = losses[..., :PRETRAIN_WINDOW].mean(axis=-1)
+    last = losses[..., -PRETRAIN_WINDOW:].mean(axis=-1)
+    if not (last < first).all():
+        failed.append(f"a stage's loss did not fall: first {first.tolist()}, "
+                      f"last {last.tolist()}")
+
+    P.export_torch(dec, out)
+    cfg = load_config(os.path.join(HERE, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(HERE, "configs", "nice_slam.yaml"))
+    cfg["coarse"] = True
+    cfg["pretrained_decoders"] = {"coarse": os.path.join(out, "coarse.pt"),
+                                  "middle_fine": os.path.join(out, "middle_fine.pt")}
+    spec, state = build_scene(cfg, device=dev)
+    state = load_pretrain(cfg, spec, state, verbose=False)
+    for name in P.STAGES:
+        got, want = leaves(state.decoders[name]), leaves(dec[name])
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            failed.append(f"the exported {name} decoder does not load back bit for bit")
+    for fname in ("coarse.pt", "middle_fine.pt"):
+        shapes = [{k: tuple(v.shape) for k, v in torch.load(
+            path, map_location="cpu", weights_only=False)["model"].items()}
+            for path in (os.path.join(out, fname),
+                         os.path.join(HERE, "pretrained", fname))]
+        if shapes[0] != shapes[1]:
+            failed.append(f"{fname}: keys or shapes differ from the repo's")
+
+    rows = []
+    for name in ("pretrain_coarse", "pretrain_fine"):
+        f, d = seen["fwd_" + name], seen["dgrid_" + name]
+        pts_b, gather_b, feat_b, _, _, lib_fwd, timed, held = case_tools(
+            name, f["grids"], f["p"])
+        rows.append(k1_row(name, f["grids"], f["p"], gather_b + pts_b + feat_b,
+                           timed, held, lib_fwd))
+        rows.append(k2_row(name, f["grids"][:1], d["p"], d["gs"]))
+    with_bounds(rows)
+    emit({"phase": "pretrain", "ok": not failed, "scenes": PRETRAIN_SCENES,
+          "recipe_scenes": 40, "steps_per_stage": PRETRAIN_STEPS,
+          "samples": PRETRAIN_SAMPLES, "grids": P.GRID_SHAPES, "steps": steps,
+          "seconds": seconds, "steps_per_s": steps / seconds,
+          "loss_first_mean": first.tolist(), "loss_last_mean": last.tolist(),
+          "final_losses": losses[:, :, -1].tolist(), "launches": counts,
+          "rows": rows, "failed": failed})
+    if failed:
+        raise AssertionError(f"pretrain failed: {failed}")
+    return rows, counts
+
+
+def phase_envelope(dev):
+    """The port's track_envelope at the box's full width (120x160, 20
+    frames, first mapping 400 iterations, coarse off) at 1.0 and 2.5 deg
+    per frame, each with the default tracking budget and with the
+    coarse-to-fine schedule (5 iterations at 5x): every row finite, the
+    1.0 deg rows within ATE_DIVERGED_CM, and the JAX quality gate's rule
+    (tests/test_quality_gates.py:148-154): the largest motion the cf mode
+    tracks below 10 cm is at least the default mode's.  K3 launches once
+    per tracking iteration and K2 once per mapping iteration; K1 once per
+    both, plus the final meshes' chunks."""
+    import math
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.tools import track_envelope as E
+
+    out = os.path.join(HERE, "output", "chip_smoke", "envelope")
+    shutil.rmtree(out, ignore_errors=True)
+    iters = {"mapping": 0}
+    inner = M.Mapper.optimize_map
+
+    def counted(self, *a, **k):
+        res = inner(self, *a, **k)
+        iters["mapping"] += int(res[2].shape[0])
+        return res
+
+    interp.reset_launch_counts()
+    M.Mapper.optimize_map = counted
+    t0 = time.perf_counter()
+    try:
+        rows = E.main(["--frames", str(ENVELOPE_FRAMES), "--deg", ENVELOPE_DEGS,
+                       "--cf_iters", ENVELOPE_CF[0], "--cf_mult", ENVELOPE_CF[1],
+                       "--out", out, "--device", "cuda"])
+    finally:
+        M.Mapper.optimize_map = inner
+    seconds = time.perf_counter() - t0
+    counts = dict(interp.launch_counts)
+    cfg = E.base_cfg()
+    track_iters = len(rows) * (ENVELOPE_FRAMES - 1) * cfg["tracking"]["iters"]
+    by = {}
+    for r in rows:
+        by.setdefault(r["mode"], {})[r["deg_per_frame"]] = r["ate_rmse_cm"]
+
+    def max_ok(curve):
+        ok = [d for d, a in curve.items() if a < ENVELOPE_OK_CM]
+        return max(ok) if ok else 0.0
+
+    failed = []
+    if not all(math.isfinite(r["ate_rmse_cm"]) for r in rows):
+        failed.append("non-finite ATE")
+    slow = [r for r in rows if r["deg_per_frame"] == 1.0]
+    if len(slow) != 2 or not all(r["ate_rmse_cm"] <= ATE_DIVERGED_CM for r in slow):
+        failed.append(f"1.0 deg/frame rows above {ATE_DIVERGED_CM} cm: {slow}")
+    if not max_ok(by["cf"]) >= max_ok(by["default"]):
+        failed.append(f"cf tracks below {ENVELOPE_OK_CM} cm up to {max_ok(by['cf'])} "
+                      f"deg/frame, default up to {max_ok(by['default'])}")
+    if counts["trilinear_bwd_dp"] != track_iters or \
+            counts["trilinear_bwd_dgrid"] != iters["mapping"] or \
+            counts["trilinear_fwd"] <= track_iters + iters["mapping"]:
+        failed.append(f"launches {counts} for {track_iters} tracking and "
+                      f"{iters['mapping']} mapping iterations")
+    emit({"phase": "envelope", "ok": not failed, "frames": ENVELOPE_FRAMES,
+          "H": cfg["cam"]["H"], "W": cfg["cam"]["W"],
+          "iters_first": cfg["mapping"]["iters_first"], "cf": ENVELOPE_CF, "rows": rows,
+          "max_ok_deg": {m: max_ok(c) for m, c in by.items()},
+          "tracking_iters": track_iters, "mapping_iters": iters["mapping"],
+          "launches": counts, "seconds": seconds, "failed": failed})
+    if failed:
+        raise AssertionError(f"envelope failed: {failed}")
+    return counts
+
+
+def phase_landscape(dev):
+    """The port's loss_landscape on the gt_tour phase's final checkpoint:
+    frames 30, 90 and 149 of the 150-frame orbit, offsets -4..4 cm (and
+    2.5x that in yaw radians), 2000 pixels drawn once per frame.  The
+    losses finite, the rows shaped as the JAX tool's, one K1 launch per
+    evaluation and no K2 or K3."""
+    import math
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.tools import loss_landscape as L
+
+    tour = os.path.join(HERE, "output", "chip_smoke", "gt_tour")
+    record = os.path.join(HERE, "output", "chip_smoke", "landscape.json")
+    interp.reset_launch_counts()
+    t0 = time.perf_counter()
+    book = L.main(["--out", tour, "--frames", *LANDSCAPE_FRAMES,
+                   "--deltas_cm", *LANDSCAPE_DELTAS_CM, "--pixels", LANDSCAPE_PIXELS,
+                   "--n_frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
+                   "--record", record, "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    counts = dict(interp.launch_counts)
+    evals = len(LANDSCAPE_FRAMES) * 3 * len(LANDSCAPE_DELTAS_CM)
+    failed = []
+    if sorted(book) != sorted(LANDSCAPE_FRAMES):
+        failed.append(f"frames {sorted(book)}")
+    for frame, rows in book.items():
+        if sorted(rows) != ["lateral-x", "vertical-y", "yaw"]:
+            failed.append(f"frame {frame}: DOFs {sorted(rows)}")
+        for dof, r in rows.items():
+            if len(r["losses"]) != len(LANDSCAPE_DELTAS_CM) or \
+                    not all(math.isfinite(v) for v in r["losses"]):
+                failed.append(f"frame {frame} {dof}: losses {r['losses']}")
+    if counts != {"trilinear_fwd": evals, "trilinear_bwd_dgrid": 0,
+                  "trilinear_bwd_dp": 0}:
+        failed.append(f"launches {counts}, not {evals} K1 only")
+    emit({"phase": "landscape", "ok": not failed, "checkpoint_of": "gt_tour",
+          "frames": list(LANDSCAPE_FRAMES), "deltas_cm": list(LANDSCAPE_DELTAS_CM),
+          "pixels": int(LANDSCAPE_PIXELS), "evaluations": evals,
+          "biased": {f: {d: r["biased"] for d, r in rows.items()} for f, rows in book.items()},
+          "argmin_cm": {f: {d: 100 * r["argmin_delta"] for d, r in rows.items()}
+                        for f, rows in book.items()},
+          "base": {f: {d: r["base"] for d, r in rows.items()} for f, rows in book.items()},
+          "book": book, "launches": counts, "seconds": seconds, "failed": failed})
+    if failed:
+        raise AssertionError(f"landscape failed: {failed}")
+    return counts
+
+
+VIEWER_WEB_TIMEOUT_S = 300
+
+
+def phase_viewer(dev):
+    """``python -m nice_slam_torch.visualizer`` on the slice phase's output:
+    offline with --save_rendering, vis.mp4 must hold one frame per frame
+    0..N of the checkpoint, each a JPEG the port's decoder reads at the
+    replay's size; then --frontend web on 127.0.0.1 at a free port, in its
+    own process with the same modules unimportable, must serve the page,
+    the mesh of the run's last frame and the run's poses; the process is
+    stopped after."""
+    import socket
+    import urllib.request
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from nice_slam_torch import visualizer
+    from nice_slam_torch.tools.webviz import mesh_blob
+    from nice_slam_torch.tools.workloads import replica_synthetic_cfg
+    from nice_slam_torch.utils.imageio import decode_jpeg
+    from nice_slam_torch.utils.meshlib import read_ply
+    from nice_slam_torch.utils.mjpeg_mp4 import read_mp4_jpegs
+
+    run = os.path.join(HERE, "output", "chip_smoke", "slice")
+    cfg_path = os.path.join(HERE, "output", "chip_smoke", "viewer.yaml")
+    cfg = replica_synthetic_cfg(run, n_frames=12, iters_first=SLICE_ITERS_FIRST)
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    ckpt = sorted(os.listdir(os.path.join(run, "ckpts")))[-1]
+    ckpt = torch.load(os.path.join(run, "ckpts", ckpt), map_location="cpu",
+                      weights_only=False)
+    n = int(ckpt["idx"]) + 1
+    t0 = time.perf_counter()
+    fe = visualizer.main([cfg_path, "--save_rendering", "--frontend", "offline"])
+    offline_s = time.perf_counter() - t0
+    jpegs = read_mp4_jpegs(os.path.join(run, "vis.mp4"))
+    failed = []
+    if len(jpegs) != n or len(fe.frames) != n:
+        failed.append(f"vis.mp4 holds {len(jpegs)} frames, not {n}")
+    shapes = {decode_jpeg(j).shape for j in jpegs}
+    if shapes != {(fe.H, fe.W, 3)}:
+        failed.append(f"decoded frame shapes {shapes}")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("import sys\n"
+            f"for m in {NOT_IMPORTED!r}:\n    sys.modules[m] = None\n"
+            "from nice_slam_torch.visualizer import main\n"
+            f"main([{cfg_path!r}, '--frontend', 'web', '--port', '{port}'])\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                            env=dict(os.environ, PYTHONPATH=HERE),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    t1 = time.perf_counter()
+    state, page, blob = None, b"", b""
+    try:
+        base = f"http://127.0.0.1:{port}"
+        while time.perf_counter() - t1 < VIEWER_WEB_TIMEOUT_S and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/state", timeout=30) as r:
+                    state = json.loads(r.read())
+                if state["done"]:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        if state is not None and state["done"]:
+            with urllib.request.urlopen(base + "/", timeout=30) as r:
+                page = r.read()
+            with urllib.request.urlopen(base + "/mesh.bin", timeout=120) as r:
+                blob = r.read()
+    finally:
+        proc.terminate()
+        try:
+            log = proc.communicate(timeout=60)[0].decode(errors="replace")
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log = proc.communicate()[0].decode(errors="replace")
+    web_s = time.perf_counter() - t1
+    if state is None or not state["done"]:
+        failed.append(f"the web viewer never finished its replay: {log[-2000:]}")
+    else:
+        est = np.asarray(ckpt["estimate_c2w_list"], np.float32)[:n, :3, 3] / cfg["scale"]
+        gt = np.asarray(ckpt["gt_c2w_list"], np.float32)[:n, :3, 3] / cfg["scale"]
+        if not (np.allclose(state["est"], est, atol=1e-6)
+                and np.allclose(state["gt"], gt, atol=1e-6)):
+            failed.append("the web viewer's poses are not the run's")
+        if b"webgl" not in page:
+            failed.append("the web viewer's page lacks its WebGL viewer")
+        last_mesh = os.path.join(run, "mesh", f"{n - 1:05d}_mesh.ply")
+        if blob != mesh_blob(*read_ply(last_mesh)):
+            failed.append(f"/mesh.bin is not {last_mesh}")
+    emit({"phase": "viewer", "ok": not failed, "run": "slice", "frames": n,
+          "render_hw": [fe.H, fe.W], "offline_s": offline_s,
+          "seconds_per_frame": offline_s / n, "video_bytes": sum(map(len, jpegs)),
+          "web_port": port, "web_s": web_s, "mesh_bytes": len(blob),
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"viewer failed: {failed}")
+
+
 # kernel -> (TPU-side code it replaces, the case its line reports: each
 # kernel at a captured main-path launch)
 KERNEL_META = {
@@ -1488,7 +1899,8 @@ KERNEL_META = {
     "trilinear_bwd_dgrid": ("nice_slam_tpu/ops/interp.py:186", "map_color"),
     "trilinear_bwd_dp": ("nice_slam_tpu/ops/interp.py:321", "track"),
 }
-NEW_PATH_CASES = ("mesh_fine", "render_color")  # K1 on the mesher's and renderer's paths
+# K1 on the mesher's and renderer's paths; K1 and K2 on the pretrainer's
+NEW_PATH_CASES = ("mesh_fine", "render_color", "pretrain_coarse", "pretrain_fine")
 
 
 def main() -> int:
@@ -1519,6 +1931,12 @@ def main() -> int:
         phase_readers(dev)
         phase_tour(dev, imap=False)
         phase_tour(dev, imap=True)
+        pretrain_rows, pretrain_counts = phase_pretrain(dev)
+        rows += pretrain_rows
+        phase_counts = {"slice": counts, "pretrain": pretrain_counts,
+                        "envelope": phase_envelope(dev),
+                        "landscape": phase_landscape(dev)}
+        phase_viewer(dev)
     except Exception:  # any phase failure fails the run, with its traceback
         traceback.print_exc()
         return 1
@@ -1535,7 +1953,8 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], **({"new_paths": other} if other else {})})
+            "library_ms": r["library_ms"], **({"new_paths": other} if other else {}),
+            "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})

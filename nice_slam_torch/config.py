@@ -53,3 +53,12 @@ def load_config(path: str, default_path: Optional[str] = None) -> Dict[str, Any]
 
     update_recursive(cfg, cfg_special)
     return cfg
+
+
+def get_model(cfg: Dict[str, Any], nice: bool = True, device="cuda"):
+    """The scene model's (SceneSpec, SceneState) on ``device`` (reference
+    src/config.py:63-79 -> src/conv_onet/config.py:16-33): parameter
+    trees and apply functions instead of an nn.Module."""
+    from nice_slam_torch.models import registry
+
+    return registry.get_model(cfg, nice=nice, device=device)

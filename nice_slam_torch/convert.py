@@ -3,7 +3,8 @@
 Both packages keep the same parameter tree (dense layers as ``{"w": (in,
 out), "b": (out,)}``) and channels-last grids, so a conversion copies leaf
 for leaf: the NICE stack with its grids, or the iMAP* single MLP (a flat
-tree) with an empty grid dict.  The JAX side is handed over as numpy: any
+tree) with an empty grid dict; or a decoder tree alone, such as the JAX
+pretrainer's ``{coarse, middle, fine}`` dict (``decoders_from_jax``).  The JAX side is handed over as numpy: any
 object with ``decoders``, ``grids``, ``bound`` and ``coarse_bound`` (a
 ``SceneState`` whose leaves are numpy arrays, or a dict with those keys).
 """
@@ -55,3 +56,14 @@ def scene_to_numpy(state: SceneState) -> dict:
             "grids": _to_numpy(state.grids),
             "bound": _to_numpy(state.bound),
             "coarse_bound": _to_numpy(state.coarse_bound)}
+
+
+def decoders_from_jax(numpy_tree: Any, device="cuda") -> Any:
+    """A decoder tree given as numpy leaves (the JAX pretrainer's
+    ``{coarse, middle, fine}`` dict, or any one MLP) as the port's tensors."""
+    return _to_torch(numpy_tree, torch.device(device))
+
+
+def decoders_to_numpy(tree: Any) -> Any:
+    """The port's decoder tree as numpy leaves (the JAX tree's layout)."""
+    return _to_numpy(tree)

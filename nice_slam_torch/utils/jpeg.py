@@ -210,6 +210,14 @@ def write_jpeg(path: str, rgb: np.ndarray, quality: int = 90,
     """Write an (H, W, 3) uint8 RGB image as a baseline JPEG file;
     ``libjpeg_defaults`` selects 4:2:0 chroma and the Annex K Huffman
     tables (see the module docstring)."""
+    data = encode_jpeg(rgb, quality, libjpeg_defaults)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90,
+                libjpeg_defaults: bool = False) -> bytes:
+    """The bytes of ``write_jpeg``'s file."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
@@ -254,5 +262,4 @@ def write_jpeg(path: str, rgb: np.ndarray, quality: int = 90,
            _segment(0xFFDA, bytes([3, 1, 0x00, 2, tables[1] * 0x11,
                                    3, tables[2] * 0x11, 0, 63, 0])),
            scan, b"\xff\xd9"]
-    with open(path, "wb") as f:
-        f.write(b"".join(out))
+    return b"".join(out)
