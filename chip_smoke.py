@@ -115,6 +115,29 @@ Phases, each printing one JSON line:
            a 120x160 Replica-layout export (K1-K3 launched, ATE within
            20 cm, the checkpoint's selected_keyframes recorded); reports the
            read ms per 680x1200 frame;
+  sharded  multi-device NICE-SLAM on this card, D logical devices on
+           cuda:0 (and, where the machine shows two or more cards, the
+           kernels' cases and the loop again over cuda:0 and cuda:1): K1,
+           K2 and K3 with slab windows on the fine_map, map_color and
+           track cases cut into 2 and 4 slabs, each slab's launch against
+           its plain version, the slabs' K1 summed against dense K1 bit for
+           bit, their K2 through fold_halo_grads and unshard_grid_grad
+           within K2's gate, their K3 summed within 1e-4, and the slab
+           owning the most points timed against its own bound; the
+           slice's 12-frame loop with the grids sharded over [cuda:0] x 4
+           (NICE_SLAM_TORCH_SPATIAL=1): every frame tracked, launches
+           exactly 4 x the slice's, the halo planes bitwise equal, both
+           meshes with faces, the dense final checkpoint restored by an
+           unsharded system bit for bit, per_device_bytes within 1 % of
+           13,110,272 B, fps and ms beside the slice's; the 30-frame box
+           run sharded over 2 slabs for seeds 42, 0, 1 (the quality
+           phase's gates); a Replica-room mapping call with its rays over
+           [cuda:0] x 2 against the one-device call on the same pixels
+           (losses within 1e-4 relative) and a resolution-256 lattice
+           chunk split over 2 replicas (1e-5); a coarse call pinned to an
+           explicit device against the unpinned one, and the strict loop
+           entering the coarse call while the main call's queued work
+           (a ~0.5 s spin and an event after it) is still pending;
   gt_tour  the port's ``selfcheck --gt_camera --frames 150 --orbit_radians
            6.283`` (resolution 128, iters 60, first 400, 200 depth-L1 views,
            pretrained decoders) against tests/test_quality_gates.py:42-45:
@@ -327,7 +350,8 @@ def phase_capture(dev):
     emit({"phase": "capture", "ok": True, "seconds": time.perf_counter() - t0,
           "cases": {k: {"n": v["p"].shape[0], "grids": [list(x.shape) for x in v["grids"]]}
                     for k, v in {**cases, **lookups}.items()}})
-    return cases, lookups
+    slam.cfg = dict(cfg, meshing=meshing)
+    return cases, lookups, slam
 
 
 def new_path_lookups(slam, cfg):
@@ -555,21 +579,25 @@ def with_bounds(rows):
     return rows
 
 
+RANDOM_CASES = (("fine_map", (74, 56, 43, 32), 1000),
+                ("fine_track", (74, 56, 43, 32), 200),
+                ("coarse_map", (11, 8, 7, 32), 1000))
+
+
 def phase_kernels(dev, cases, lookups):
     import torch
 
     gen = torch.Generator().manual_seed(0)
-    random_cases = [("fine_map", (74, 56, 43, 32), 1000),
-                    ("fine_track", (74, 56, 43, 32), 200),
-                    ("coarse_map", (11, 8, 7, 32), 1000)]
     rows = []
-    for label, shape, n_rays in random_cases:
+    for label, shape, n_rays in RANDOM_CASES:
         grid = torch.randn(shape, generator=gen).to(dev)
         p = ray_points(n_rays, gen, dev)
         g = torch.randn((p.shape[0], shape[3]), generator=gen).to(dev)
+        cases[label] = {"grids": [grid], "p": p, "gs": [g]}
         rows += kernel_rows(label, [grid], p, [g])
     for label, c in cases.items():
-        rows += kernel_rows(label, c["grids"], c["p"], c["gs"])
+        if label not in dict((r[0], r) for r in RANDOM_CASES):
+            rows += kernel_rows(label, c["grids"], c["p"], c["gs"])
     for label, c in lookups.items():  # K1 only: these paths take no gradient
         pts_b, gather_b, feat_b, _, _, lib_fwd, timed, held = case_tools(
             label, c["grids"], c["p"])
@@ -1503,7 +1531,7 @@ def phase_tour(dev, imap: bool):
     out = os.path.join(HERE, "output", "chip_smoke", name)
     shutil.rmtree(out, ignore_errors=True)
     flags = ["--frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
-             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--out", out, "--device", "cuda",
+             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--out", out, "--device", "cuda:0",
              "--gt_camera"] + (["--imap"] if imap else [])
     interp.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1701,7 +1729,7 @@ def phase_envelope(dev):
     try:
         rows = E.main(["--frames", str(ENVELOPE_FRAMES), "--deg", ENVELOPE_DEGS,
                        "--cf_iters", ENVELOPE_CF[0], "--cf_mult", ENVELOPE_CF[1],
-                       "--out", out, "--device", "cuda"])
+                       "--out", out, "--device", "cuda:0"])
     finally:
         M.Mapper.optimize_map = inner
     seconds = time.perf_counter() - t0
@@ -1759,7 +1787,7 @@ def phase_landscape(dev):
     book = L.main(["--out", tour, "--frames", *LANDSCAPE_FRAMES,
                    "--deltas_cm", *LANDSCAPE_DELTAS_CM, "--pixels", LANDSCAPE_PIXELS,
                    "--n_frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
-                   "--record", record, "--device", "cuda"])
+                   "--record", record, "--device", "cuda:0"])
     seconds = time.perf_counter() - t0
     counts = dict(interp.launch_counts)
     evals = len(LANDSCAPE_FRAMES) * 3 * len(LANDSCAPE_DELTAS_CM)
@@ -1892,12 +1920,483 @@ def phase_viewer(dev):
         raise AssertionError(f"viewer failed: {failed}")
 
 
-# kernel -> (TPU-side code it replaces, the case its line reports: each
-# kernel at a captured main-path launch)
+SHARD_DS = (2, 4)             # slabs per grid in the window kernels' cases
+SHARD_CASES = ("fine_map", "map_color", "track")  # kernels-phase cases cut into slabs
+SHARD_LOOP_D = 4              # the sharded 12-frame loop
+SHARD_BOX_D = 2               # the sharded box family
+SHARD_BOX_SEEDS = (42, 0, 1)
+PER_DEVICE_BYTES_D4 = 13_110_272  # fine, color 20 of 74 planes, middle 10 of 37, coarse 4 of 11
+DP_REPLICAS = 2
+DP_ITERS = 20                 # the ray-parallel mapping call: the Replica stage plan of 20
+# per-iteration losses of a call repeated with other atomics orders: the
+# card-against-CPU mapping test's rtol
+# (tests/test_torch_cuda.py::test_imap_mapping_iterations_on_cuda_match_cpu)
+DP_LOSS_RTOL = 1e-4
+LATTICE_DP_ATOL = 1e-5
+# the pinned coarse call against the unpinned one: K2's atomics order makes
+# their losses drift apart with the iterations (7.9e-5 relative after 30
+# on an H100), so the comparison stops at 10
+PIN_ITERS = 10
+
+
+def slab_f64(p, g, shape, window):
+    """``dgrid_f64`` for a slab: K2's plain version with the slab window,
+    summed in float64, and the same sum of |w_k g|."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+
+    i0, i1, frac, _, own = interp._slab_corners(shape, window, p)
+    weights, _ = interp._corner_weights(frac)
+    if own is not None:
+        g = g * own[:, None]
+    out = torch.zeros((2, shape[0] * shape[1] * shape[2], shape[3]),
+                      dtype=torch.float64, device=p.device)
+    for r, w in zip(interp._corner_rows(shape, i0, i1), weights):
+        c = (w[:, None] * g).double()
+        out[0].index_add_(0, r, c)
+        out[1].index_add_(0, r, c.abs())
+    return out[0].reshape(shape), out[1].reshape(shape)
+
+
+def slab_bytes(slabs, windows, p):
+    """Per grid of one slab launch: the points it owns and the slab rows
+    those points touch."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+
+    owned, touched = [], []
+    for s, w in zip(slabs, windows):
+        i0, i1, _, _, own = interp._slab_corners(s.shape, w, p)
+        keep = torch.ones(p.shape[0], dtype=torch.bool, device=p.device) if own is None else own
+        rows = torch.cat([r[keep] for r in interp._corner_rows(s.shape, i0, i1)])
+        owned.append(int(keep.sum()))
+        touched.append(int(torch.unique(rows).numel()))
+    return owned, touched
+
+
+def window_case(label, c, D, devices, dense_rows, timed_slab):
+    """K1, K2 and K3 with slab windows over one case's grids, each cut into
+    D slabs on ``devices``: every slab's launch against its plain version
+    (K1 1e-5, K2 32 ulps of its float64 sum, K3 1e-4 of max |dp|); the
+    slabs' K1 summed against dense K1 bit for bit, their K2 reassembled by
+    unshard_grid_grad against the dense float64 sum within K2's gate (and,
+    after fold_halo_grads, both copies of each shared plane equal), their
+    K3 summed against dense K3 within 1e-4.  With ``timed_slab`` the
+    launches of the slab owning the most points are timed and bounded by
+    that slab's own bytes.  Returns (checks, rows)."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    eps, tiny = torch.finfo(torch.float32).eps, torch.finfo(torch.float32).tiny
+    grids, p, cots = c["grids"], c["p"], c["gs"]
+    n, C = p.shape[0], grids[0].shape[3]
+    sharded = [gs.shard_grid(g, devices) for g in grids]
+    feats = dps = None
+    slab_grads = [[] for _ in grids]
+    worst = {"trilinear_fwd": 0.0, "trilinear_bwd_dgrid": 0.0, "trilinear_bwd_dp": 0.0}
+    owned_by_slab = []
+    for d, dev_d in enumerate(devices):
+        slabs = [sg.slabs[d] for sg in sharded]
+        ws = [sg.window(d) for sg in sharded]
+        pd, cd = p.to(dev_d), [g.to(dev_d) for g in cots]
+        f = interp.trilinear_fwd_multi(slabs, pd, ws)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(f, interp.trilinear_fwd_multi_plain(slabs, pd, ws)))
+        if not err <= 1e-5:
+            raise AssertionError(f"K1 {label} D={D} slab {d}: {err} > 1e-5")
+        worst["trilinear_fwd"] = max(worst["trilinear_fwd"], err)
+        shapes = [tuple(s.shape) for s in slabs]
+        dg = interp.trilinear_bwd_dgrid_multi(pd, cd, shapes, ws)
+        for g, cot, s, w in zip(dg, cd, shapes, ws):
+            ref, scale = slab_f64(pd, cot, s, w)
+            err = float((g.double() - ref).abs().max())
+            # float atomics flush subnormal results to zero (PTX
+            # atom.add.f32), so a slab whose few owned points add only
+            # subnormal values reads 0 there: the gate's floor is the
+            # smallest normal float
+            if not err <= max(32 * eps * float(scale.max()), tiny):
+                raise AssertionError(f"K2 {label} D={D} slab {d} {s}: {err}")
+            worst["trilinear_bwd_dgrid"] = max(worst["trilinear_bwd_dgrid"], err)
+        dp = interp.trilinear_bwd_dp_multi(slabs, pd, cd, ws)
+        ref = interp.trilinear_bwd_dp_multi_plain(slabs, pd, cd, ws)
+        err = float((dp - ref).abs().max())
+        if not err <= 1e-4 * float(ref.abs().max()):
+            raise AssertionError(f"K3 {label} D={D} slab {d}: {err}")
+        worst["trilinear_bwd_dp"] = max(worst["trilinear_bwd_dp"], err)
+        f = [x.to(p.device) for x in f]
+        feats = f if feats is None else [a + b for a, b in zip(feats, f)]
+        dps = dp.to(p.device) if dps is None else dps + dp.to(p.device)
+        for i, g in enumerate(dg):
+            slab_grads[i].append(g)
+        owned_by_slab.append(slab_bytes(slabs, ws, pd)[0][0])
+    dense_f = interp.trilinear_fwd_multi(grids, p)
+    if not all(torch.equal(a, b) for a, b in zip(feats, dense_f)):
+        raise AssertionError(f"K1 {label} D={D}: the slabs' sum differs from dense K1")
+    k2_sum_err = 0.0
+    for sg, grads, cot, g in zip(sharded, slab_grads, cots, grids):
+        dense = gs.unshard_grid_grad(grads, tuple(g.shape), sg.planes)
+        ref, scale = dgrid_f64(p, cot, tuple(g.shape))
+        err = float((dense.to(p.device).double() - ref).abs().max())
+        if not err <= 32 * eps * float(scale.max()):
+            raise AssertionError(f"K2 {label} D={D}: unshard_grid_grad {err}")
+        k2_sum_err = max(k2_sum_err, err)
+        folded = gs.fold_halo_grads(grads)
+        if not all(torch.equal(lo[-1].to(hi.device), hi[0])
+                   for lo, hi in zip(folded[:-1], folded[1:])):
+            raise AssertionError(f"K2 {label} D={D}: folded halo copies differ")
+    dense_dp = interp.trilinear_bwd_dp_multi(grids, p, cots)
+    k3_sum_err = float((dps - dense_dp).abs().max())
+    if not k3_sum_err <= 1e-4 * float(dense_dp.abs().max()):
+        raise AssertionError(f"K3 {label} D={D}: the slabs' sum is off by {k3_sum_err}")
+    checks = {"case": label, "D": D, "devices": [str(x) for x in devices],
+              "planes": [sg.planes for sg in sharded], "k1_sum_bitwise": True,
+              "k2_unshard_err": k2_sum_err, "k3_sum_err": k3_sum_err,
+              "max_abs_err": worst, "owned_by_slab": owned_by_slab}
+    rows = []
+    if timed_slab:
+        d = max(range(D), key=lambda i: owned_by_slab[i])
+        slabs = [sg.slabs[d] for sg in sharded]
+        ws = [sg.window(d) for sg in sharded]
+        owned, touched = slab_bytes(slabs, ws, p)
+        shapes = [tuple(s.shape) for s in slabs]
+        lib = {r["kernel"]: r for r in dense_rows if r["case"] == label}
+        base = dict(case=f"{label}_D{D}", window_of=label, D=D, slab=d, n=n,
+                    grids=len(grids), owned=owned, touched_rows=touched)
+        pts_b = n * 3 * 4
+        row_b = sum(touched) * C * 4
+        own_b = sum(owned) * C * 4
+        specs = [
+            ("trilinear_fwd", lambda: interp.trilinear_fwd_multi(slabs, p, ws),
+             lambda: interp.trilinear_fwd_multi_plain(slabs, p, ws),
+             pts_b + row_b + n * C * 4 * len(grids), sum(owned) * C * 21),
+            ("trilinear_bwd_dgrid", lambda: interp.trilinear_bwd_dgrid_multi(p, cots, shapes, ws),
+             lambda: interp.trilinear_bwd_dgrid_multi_plain(p, cots, shapes, ws),
+             pts_b + own_b + 2 * row_b, sum(owned) * 8 * C * 2),
+            ("trilinear_bwd_dp", lambda: interp.trilinear_bwd_dp_multi(slabs, p, cots, ws),
+             lambda: interp.trilinear_bwd_dp_multi_plain(slabs, p, cots, ws),
+             pts_b + row_b + own_b + pts_b, sum(owned) * 8 * C * 2)]
+        for kernel, fn, plain, bytes_, flops in specs:
+            rows.append(dict(base, kernel=kernel, max_abs_err=worst[kernel],
+                             bytes=bytes_, flops=flops, ms=cuda_time_ms(fn),
+                             device_ms=device_time_ms(fn, kernel),
+                             plain_ms=cuda_time_ms(plain, 5),
+                             # grid_sample over the whole dense lookup: the
+                             # yardstick of the D launches together
+                             library_ms=lib[kernel]["library_ms"],
+                             library_device_ms=lib[kernel]["library_device_ms"]))
+    return checks, rows
+
+
+def sharded_loop(dev, devices, strict, out_name):
+    """The slice's 12-frame strict loop with the grids spatially sharded
+    over ``devices`` (NICE_SLAM_TORCH_SPATIAL=1): every frame tracked with
+    finite poses, exact launch counts at one launch per slab per stage
+    call, the final meshes with faces, the halo planes bitwise equal at
+    the end, the final checkpoint dense and restored by an unsharded
+    system equal to the sharded state bit for bit."""
+    import math
+
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.parallel import grid_sharding as gs
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import replica_synthetic_cfg
+
+    out = os.path.join(HERE, "output", "chip_smoke", out_name)
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_synthetic_cfg(out, n_frames=12, iters_first=SLICE_ITERS_FIRST)
+    D = len(devices)
+    os.environ["NICE_SLAM_TORCH_SPATIAL"] = "1"
+    try:
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=devices)
+    finally:
+        del os.environ["NICE_SLAM_TORCH_SPATIAL"]
+    if slam.spatial_devices != list(devices) or slam.mapper.devices is not None:
+        raise AssertionError(f"sharding not engaged over {devices}")
+    sharded0 = {k: v for k, v in slam.state.grids.items()}
+    per_dev = gs.per_device_bytes(sharded0)
+    dense_b = sum(math.prod(g.shape) * 4 for g in sharded0.values())
+    for i in range(slam.n_img):
+        slam.frame_reader[i]
+    iters = {"mapping": 0, "coarse_mapping": 0}
+    count_iterations(slam.mapper, iters, "mapping")
+    count_iterations(slam.coarse_mapper, iters, "coarse_mapping")
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    interp.reset_launch_counts()
+    slam.run()
+    counts = dict(interp.launch_counts)
+    if not torch.isfinite(slam.estimate_c2w_list).all() or \
+            slam.timings["tracked_frames"] != slam.n_img - 1:
+        raise AssertionError("sharded loop: a frame untracked or a pose not finite")
+    t = slam.timings
+    track_iters = t["tracked_frames"] * slam.tcfg.iters
+    map_iters = iters["mapping"] + iters["coarse_mapping"]
+    chunk = slam.rcfg.points_batch_size
+    lattice = slam.mesher.resolution ** 3
+    mesh_chunks = 0
+    for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
+        verts, _ = mesh_stats(os.path.join(out, "mesh", name))
+        mesh_chunks += math.ceil(lattice / chunk) + math.ceil(len(verts) / chunk)
+    want = {"trilinear_fwd": D * (track_iters + map_iters + mesh_chunks),
+            "trilinear_bwd_dp": D * track_iters, "trilinear_bwd_dgrid": D * map_iters}
+    if counts != want:
+        raise AssertionError(f"sharded loop launches {counts}, expected {want} "
+                             f"(D = {D} per stage call)")
+    for k, sg in slam.state.grids.items():
+        if not isinstance(sg, gs.ShardedGrid) or sg.D != D:
+            raise AssertionError(f"{k} lost its sharded representation")
+        for lo, hi in zip(sg.slabs[:-1], sg.slabs[1:]):
+            if not torch.equal(lo[-1].to(hi.device), hi[0]):
+                raise AssertionError(f"{k}: halo planes diverged")
+    # the dense checkpoint, restored by an unsharded system
+    fresh = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+    if fresh.spatial_devices is not None or fresh.resume() != slam.n_img:
+        raise AssertionError("the unsharded system did not resume at the end")
+    diff = [k for k, sg in slam.state.grids.items()
+            if not torch.equal(gs.unshard_grid(sg).to(fresh.device), fresh.state.grids[k])]
+    if not all(torch.equal(a.to(fresh.device), b) for a, b in
+               zip(leaves(slam.state.decoders), leaves(fresh.state.decoders))):
+        diff.append("decoders")
+    if not torch.equal(fresh.estimate_c2w_list, slam.estimate_c2w_list.to(fresh.device)):
+        diff.append("estimate_c2w_list")
+    if diff:
+        raise AssertionError(f"checkpoint of the sharded loop restored differently: {diff}")
+    return {"devices": [str(x) for x in devices], "D": D, "frames": slam.n_img,
+            "planes": {k: v.planes for k, v in slam.state.grids.items()},
+            "per_device_bytes": per_dev, "dense_bytes": dense_b,
+            "per_device_share": per_dev / dense_b,
+            "fps": t.get("fps"), "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+            "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+            "coarse_mapping_ms_per_event": t.get("coarse_mapping_ms_per_event"),
+            "mapping_ms_per_iter": 1e3 * t["mapping_s"] / iters["mapping"],
+            "meshing_s": t["meshing_s"], "total_s": t.get("total_s"),
+            "ate_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+            "launches": counts, "mesher_k1_launches": D * mesh_chunks,
+            "strict": {k: strict[k] for k in ("fps", "tracking_ms_per_frame",
+                                              "mapping_ms_per_event", "mapping_ms_per_iter",
+                                              "meshing_s")},
+            "resumed_bitwise": True, "halo_bitwise": True}
+
+
+def sharded_box_family(devices):
+    """The quality phase's 30-frame box run (no mesh) sharded over
+    ``devices`` for SHARD_BOX_SEEDS: every draw within ATE_DIVERGED_CM, the
+    median within ATE_GATE_CM (the strict family's gates)."""
+    import numpy as np
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import box_quality_cfg
+
+    draws = []
+    os.environ["NICE_SLAM_TORCH_SPATIAL"] = "1"
+    try:
+        for seed in SHARD_BOX_SEEDS:
+            out = os.path.join(HERE, "output", "chip_smoke", f"sharded_box_s{seed}")
+            cfg = box_quality_cfg(out)
+            cfg.update(seed=seed, meshing=None)
+            slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=devices)
+            slam.run()
+            draws.append({"seed": seed, "fps": slam.timings.get("fps"),
+                          "ate_rmse_cm": 100 * ate_rmse(
+                              slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list)})
+    finally:
+        del os.environ["NICE_SLAM_TORCH_SPATIAL"]
+    ates = [d["ate_rmse_cm"] for d in draws]
+    median = float(np.median(ates))
+    if not (median <= ATE_GATE_CM and max(ates) <= ATE_DIVERGED_CM):
+        raise AssertionError(f"sharded box ATE {ates} cm: median {median} (gate "
+                             f"{ATE_GATE_CM}), each within {ATE_DIVERGED_CM}")
+    return {"D": len(devices), "draws": draws, "median_ate_cm": median}
+
+
+def data_parallel_checks(dev, cap):
+    """One mapping call of the Replica room from the captured state with
+    its rays split over DP_REPLICAS replicas, against the one-device call
+    on the same host-drawn pixels (per-iteration losses within
+    DP_LOSS_RTOL); one resolution-256 lattice chunk split over the
+    replicas against the one-device chunk (LATTICE_DP_ATOL)."""
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.ops.geometry import tensor_from_pose
+    from nice_slam_torch.slam.mapper import optimize_map_core, stage_plan_for
+    from nice_slam_torch.utils.mesher import Mesher, _eval_chunk
+
+    slam = cap
+    frames = [slam.frame_reader[i] for i in (0, 1)]
+    colors = torch.tensor(np.stack([f[1] for f in frames]), device=dev)
+    depths = torch.tensor(np.stack([f[2] for f in frames]), device=dev)
+    c2w = torch.tensor(np.stack([f[3] for f in frames]), device=dev)
+    F = 2
+    n = slam.mcfg.pixels // F
+    gen = torch.Generator().manual_seed(9)
+    pix = torch.randint(0, slam.H * slam.W, (DP_ITERS, F, n), generator=gen).to(dev)
+    plan = stage_plan_for(slam.mcfg, DP_ITERS)
+    devices = [dev] * DP_REPLICAS
+    out = {}
+    for name, devs in (("dp", devices), ("one", None)):
+        interp.reset_launch_counts()
+        _, _, losses = optimize_map_core(
+            slam.spec, slam.state, colors, depths, c2w, tensor_from_pose(c2w),
+            torch.zeros(F, device=dev), torch.ones(F, dtype=torch.bool, device=dev), 1.0,
+            slam.mcfg, slam.rcfg, plan, False, n, pix_idx=pix, devices=devs)
+        out[name] = (losses.cpu().numpy(), dict(interp.launch_counts))
+    rel = float(np.max(np.abs(out["dp"][0] - out["one"][0]) / np.abs(out["one"][0])))
+    if not rel <= DP_LOSS_RTOL:
+        raise AssertionError(f"ray-parallel mapping losses off by {rel} (rtol {DP_LOSS_RTOL})")
+    if out["dp"][1]["trilinear_fwd"] != DP_REPLICAS * DP_ITERS:
+        raise AssertionError(f"ray-parallel K1 launches {out['dp'][1]}")
+    mesher = Mesher(slam.cfg, slam.cam, slam.spec, slam.rcfg)
+    lattice, _ = mesher.get_grid_uniform(slam.cfg["meshing"]["resolution"])
+    pts = torch.from_numpy(lattice[:mesher.points_batch_size]).to(dev)
+    with torch.no_grad():
+        one = _eval_chunk(slam.spec, slam.state, pts, "fine", None)
+        split = _eval_chunk(slam.spec, slam.state, pts, "fine", devices)
+    lat_err = float((one - split).abs().max())
+    if not lat_err <= LATTICE_DP_ATOL:
+        raise AssertionError(f"lattice data parallelism off by {lat_err}")
+    return {"replicas": DP_REPLICAS, "iters": DP_ITERS, "rays_per_iter": F * n,
+            "loss_max_rel_diff": rel, "loss_rtol": DP_LOSS_RTOL,
+            "loss_rtol_from": "tests/test_torch_cuda.py::"
+                              "test_imap_mapping_iterations_on_cuda_match_cpu",
+            "dp_launches": out["dp"][1], "one_launches": out["one"][1],
+            "lattice_points": int(pts.shape[0]), "lattice_max_abs_diff": lat_err,
+            "lattice_atol": LATTICE_DP_ATOL}
+
+
+def coarse_pin_checks(dev, cap):
+    """A coarse call pinned to an explicit device against the unpinned call
+    (losses within DP_LOSS_RTOL; the coarse grid's entries within the
+    step budget), and the strict loop's no-host-sync rule: after the main
+    mapper's call the spy queues a ~0.5 s spin and an event; the event is
+    still pending when the coarse call is entered."""
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.slam.keyframes import KeyframeStore
+    from nice_slam_torch.slam.mapper import Mapper
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.workloads import box_quality_cfg
+
+    slam = cap
+    _, c0, d0, p0 = slam.frame_reader[0]
+    _, color, depth, c2w = slam.frame_reader[1]
+    res = {}
+    for name in ("default", "pinned"):
+        m = Mapper(slam.spec, slam.coarse_mapper.mcfg, slam.rcfg, dev, seed=7)
+        if name == "pinned":
+            m.pin(torch.device("cuda", torch.cuda.device_count() - 1))
+        store = KeyframeStore(4, slam.H, slam.W, dev)
+        store.add(0, c0, d0, p0, p0)
+        new_state, _, losses = m.optimize_map(
+            slam.state, PIN_ITERS, 1.0, torch.tensor(color, device=dev),
+            torch.tensor(depth, device=dev), store, torch.tensor(c2w, device=dev), False)
+        res[name] = (losses.cpu().numpy(), new_state.grids["grid_coarse"].to(dev))
+    rel = float(np.max(np.abs(res["pinned"][0] - res["default"][0])
+                       / np.abs(res["default"][0])))
+    lr = max(x[1] for x in slam.coarse_mapper.mcfg.stage_lr)
+    grid_diff = float((res["pinned"][1] - res["default"][1]).abs().max())
+    if not (rel <= DP_LOSS_RTOL and grid_diff <= 2 * PIN_ITERS * lr):
+        raise AssertionError(f"pinned coarse call: losses off by {rel}, grid by {grid_diff}")
+
+    out = os.path.join(HERE, "output", "chip_smoke", "coarse_pin")
+    cfg = box_quality_cfg(out)
+    big = 10 ** 6
+    cfg.update(coarse=True, meshing=None)
+    cfg["data"]["n_frames"] = 7
+    cfg["tracking"].update(gt_camera=True, vis_freq=big, vis_inside_freq=big)
+    cfg["mapping"].update(iters_first=30, iters=10, color_refine=False, ckpt_freq=big,
+                          mesh_freq=big, vis_freq=big, vis_inside_freq=big)
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    box = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=[dev, last])
+    if box.coarse_mapper.device != last:
+        raise AssertionError("the coarse mapper was not pinned to the last device")
+    events, pending = [], []
+    main, coarse = box.mapper.optimize_map, box.coarse_mapper.optimize_map
+
+    def spy_main(*a, **k):
+        o = main(*a, **k)
+        torch.cuda._sleep(1_000_000_000)
+        ev = torch.cuda.Event()
+        ev.record()
+        events.append(ev)
+        return o
+
+    def spy_coarse(*a, **k):
+        pending.append(not events[-1].query())
+        return coarse(*a, **k)
+
+    box.mapper.optimize_map = spy_main
+    box.coarse_mapper.optimize_map = spy_coarse
+    box.run()
+    if pending != [True, True]:
+        raise AssertionError(f"main mapper's event done at the coarse call: {pending}")
+    return {"pinned_loss_max_rel_diff": rel, "pinned_grid_max_abs_diff": grid_diff,
+            "pin_device": str(last), "coarse_entered_with_main_pending": pending}
+
+
+def phase_sharded(dev, cases, dense_rows, cap, strict):
+    """Multi-device NiceSLAM on this machine's cards: D logical devices on
+    one card, and over distinct cards where there are two or more."""
+    import torch
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    checks, rows = [], []
+    for label in SHARD_CASES:
+        for D in SHARD_DS:
+            ck, rw = window_case(label, cases[label], D, [dev] * D, dense_rows, True)
+            checks.append(ck)
+            rows += rw
+    with_bounds(rows)
+    t_kernels = time.perf_counter() - t0
+    loop = sharded_loop(dev, [dev] * SHARD_LOOP_D, strict, "sharded")
+    if abs(loop["per_device_bytes"] - PER_DEVICE_BYTES_D4) > 0.01 * PER_DEVICE_BYTES_D4:
+        raise AssertionError(f"per_device_bytes {loop['per_device_bytes']} at D = 4, "
+                             f"not within 1 % of {PER_DEVICE_BYTES_D4}")
+    t_loop = time.perf_counter() - t0 - t_kernels
+    box = sharded_box_family([dev] * SHARD_BOX_D)
+    dp = data_parallel_checks(dev, cap)
+    pin = coarse_pin_checks(dev, cap)
+    distinct = None
+    if n_cards >= 2:  # the same kernels' cases and the loop over two cards
+        cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        distinct = {"window_cases": [window_case(label, cases[label], 2, cards,
+                                                 dense_rows, False)[0]
+                                     for label in SHARD_CASES],
+                    "loop": sharded_loop(dev, cards, loop, "sharded_cards")}
+    emit({"phase": "sharded", "ok": True, "device_count": n_cards,
+          "devices_used": {"window_cases": [f"{dev} x {D}" for D in SHARD_DS],
+                           "loop": f"{dev} x {SHARD_LOOP_D}", "box": f"{dev} x {SHARD_BOX_D}",
+                           "ray_dp": f"{dev} x {DP_REPLICAS}",
+                           "coarse_pin": pin["pin_device"]},
+          "distinct_cards": distinct is not None,
+          "window_checks": checks, "rows": rows, "loop": loop, "box": box,
+          "data_parallel": dp, "coarse_pin": pin, "over_distinct_cards": distinct,
+          "kernels_s": t_kernels, "loop_s": t_loop,
+          "seconds": time.perf_counter() - t0})
+    return rows, loop["launches"]
+
+
+# kernel -> (TPU-side code it replaces: the Pallas kernel first where there
+# is one, then the JAX device code; the case its line reports: each kernel
+# at a captured main-path launch)
 KERNEL_META = {
-    "trilinear_fwd": ("nice_slam_tpu/ops/interp.py:141", "map_color"),
-    "trilinear_bwd_dgrid": ("nice_slam_tpu/ops/interp.py:186", "map_color"),
-    "trilinear_bwd_dp": ("nice_slam_tpu/ops/interp.py:321", "track"),
+    "trilinear_fwd": ("nice_slam_tpu/ops/interp.py:141, "
+                      "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color"),
+    "trilinear_bwd_dgrid": ("scripts/exp_scatter.py:177, nice_slam_tpu/ops/interp.py:186, "
+                            "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color"),
+    "trilinear_bwd_dp": ("nice_slam_tpu/ops/interp.py:321, "
+                         "nice_slam_tpu/parallel/grid_sharding.py:108", "track"),
 }
 # K1 on the mesher's and renderer's paths; K1 and K2 on the pretrainer's
 NEW_PATH_CASES = ("mesh_fine", "render_color", "pretrain_coarse", "pretrain_fine")
@@ -1910,12 +2409,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)  # one card; the sharded phase adds logical devices
     card = smi()
     t0 = time.perf_counter()
     try:
         phase_build()
-        cases, lookups = phase_capture(dev)
+        cases, lookups, cap = phase_capture(dev)
         rows = phase_kernels(dev, cases, lookups)
         counts, done, cfg, strict = phase_slice(dev)
         phase_resume(dev, done, cfg)
@@ -1929,11 +2428,14 @@ def main() -> int:
         del done
         phase_imap_quality(dev)
         phase_readers(dev)
+        window_rows, sharded_counts = phase_sharded(dev, cases, rows, cap, strict)
+        del cap
         phase_tour(dev, imap=False)
         phase_tour(dev, imap=True)
         pretrain_rows, pretrain_counts = phase_pretrain(dev)
         rows += pretrain_rows
         phase_counts = {"slice": counts, "pretrain": pretrain_counts,
+                        "sharded": sharded_counts,
                         "envelope": phase_envelope(dev),
                         "landscape": phase_landscape(dev)}
         phase_viewer(dev)
@@ -1946,14 +2448,20 @@ def main() -> int:
         other = {x["case"]: {k: x[k] for k in ("n", "grids", "ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms", "max_abs_err")}
                  for x in rows if x["kernel"] == name and x["case"] in NEW_PATH_CASES}
+        windows = {x["case"]: {k: x[k] for k in ("n", "D", "slab", "owned", "grids", "ms",
+                                                 "device_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "max_abs_err")}
+                   for x in window_rows if x["kernel"] == name}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "nice_slam_torch/csrc/trilinear.cu", "replaces": replaces,
             "case": case, "launches": counts[name],
-            "max_abs_err": max(x["max_abs_err"] for x in rows if x["kernel"] == name),
+            "max_abs_err": max(x["max_abs_err"] for x in rows + window_rows
+                               if x["kernel"] == name),
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **({"new_paths": other} if other else {}),
+            "window_cases": windows,
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     print(card, flush=True)

@@ -18,6 +18,25 @@
 // looked up at the same points) in ONE launch: one stage's lookup is one
 // K1, and its backward one K2 and/or one K3.
 //
+// The slab window.  Each grid of a launch may be one x-slab of a grid that
+// is spatially sharded over D devices (nice_slam_torch/parallel/
+// grid_sharding.py; the JAX function it replaces is _local_interp,
+// nice_slam_tpu/parallel/grid_sharding.py:108): the slab stores the full
+// grid's x-planes [x_lo, x_lo + planes] (one halo plane past its own
+// `planes`), and answers only the points whose base x-plane it owns,
+// owner = min(i0x / planes, D - 1).  Every launch runs the window: a dense
+// grid is the slab x_lo = 0, planes = nx - 1, D = 1, which owns every
+// point and shifts nothing, so the dense path and the slab path are one
+// code path.  The corners and weights are computed on the FULL grid (its
+// nx, its border clamp of i1 at nx - 1), and only the integer x indices are
+// then shifted by x_lo and clipped to [0, planes]: renormalising a point
+// into the slab's box would round differently, and an owned point's
+// lookup would no longer equal the dense one bit for bit.  A point the
+// slab does not own reads nothing: K1 writes its feature as 0 (so the D
+// slabs' features sum to the dense feature exactly), K2 adds nothing and
+// K3 adds nothing to its dp.  The per-slab bound is the slab's own bytes:
+// the points, the rows the owned points touch, and the outputs.
+//
 // K1, the lookup.  Bound by bytes: it gathers 8 corner rows per point and
 // grid, mostly from L1 and L2 (the 22.8 MB fine grid fits the 50 MB L2),
 // and writes an (n, C) feature per grid.  One thread per (grid, point,
@@ -129,6 +148,15 @@ __device__ __forceinline__ int corner_row(const Cell& c, int k, int ny, int nz) 
   return (ix * ny + iy) * nz + iz;
 }
 
+// Keep a located point in the slab window (x_lo, planes, D), shifting its
+// x indices into the slab; false when another slab owns it.
+__device__ __forceinline__ bool in_window(Cell& c, int x_lo, int planes, int D) {
+  if (D > 1 && min(c.i0[0] / planes, D - 1) * planes != x_lo) return false;
+  c.i0[0] = min(max(c.i0[0] - x_lo, 0), planes);
+  c.i1[0] = min(max(c.i1[0] - x_lo, 0), planes);
+  return true;
+}
+
 __device__ __forceinline__ float corner_weight(float fx, float fy, float fz,
                                                int k) {
   const float wx = (k & 1) ? fx : 1.0f - fx;
@@ -157,9 +185,10 @@ __device__ __forceinline__ bool nonzero4(float4 v) {
 // ---------------------------------------------------------------------------
 
 struct FwdGrids {
-  const float4* grid[kMaxGrids];  // (V, L) feature grid
+  const float4* grid[kMaxGrids];  // (planes + 1, ny, nz, L) slab of a grid
   float4* out[kMaxGrids];         // (n, L) its features
-  int dims[kMaxGrids][3];
+  int dims[kMaxGrids][3];         // the full grid's nx, ny, nz
+  int win[kMaxGrids][3];          // its window: x_lo, planes, D
 };
 
 template <int L>
@@ -177,12 +206,16 @@ trilinear_fwd_kernel(FwdGrids s, const float* __restrict__ p, int n) {
   const float4* grid = s.grid[0];
   float4* out = s.out[0];
   int nx = s.dims[0][0], ny = s.dims[0][1], nz = s.dims[0][2];
+  int x_lo = s.win[0][0], planes = s.win[0][1], D = s.win[0][2];
   if (blockIdx.y == 1) {
     grid = s.grid[1];
     out = s.out[1];
     nx = s.dims[1][0];
     ny = s.dims[1][1];
     nz = s.dims[1][2];
+    x_lo = s.win[1][0];
+    planes = s.win[1][1];
+    D = s.win[1][2];
   }
   if (blockIdx.y == 2) {
     grid = s.grid[2];
@@ -190,8 +223,15 @@ trilinear_fwd_kernel(FwdGrids s, const float* __restrict__ p, int n) {
     nx = s.dims[2][0];
     ny = s.dims[2][1];
     nz = s.dims[2][2];
+    x_lo = s.win[2][0];
+    planes = s.win[2][1];
+    D = s.win[2][2];
   }
-  const Cell c = locate(p, pt, nx, ny, nz);
+  Cell c = locate(p, pt, nx, ny, nz);
+  if (!in_window(c, x_lo, planes, D)) {
+    out[(long)pt * L + q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
   float4 v[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) v[k] = __ldg(&grid[(long)corner_row(c, k, ny, nz) * L + q]);
@@ -210,9 +250,10 @@ trilinear_fwd_kernel(FwdGrids s, const float* __restrict__ p, int n) {
 // ---------------------------------------------------------------------------
 
 struct DpGrids {
-  const float4* grid[kMaxGrids];  // (V, L) feature grid
+  const float4* grid[kMaxGrids];  // (planes + 1, ny, nz, L) slab of a grid
   const float4* g[kMaxGrids];     // (n, L) cotangent of its lookup
-  int dims[kMaxGrids][3];
+  int dims[kMaxGrids][3];         // the full grid's nx, ny, nz
+  int win[kMaxGrids][3];          // its window: x_lo, planes, D
   int count;
 };
 
@@ -232,7 +273,8 @@ trilinear_bwd_dp_kernel(DpGrids s, const float* __restrict__ p,
   for (int m = 0; m < kMaxGrids; ++m) {
     if (m >= s.count) break;
     const int ny = s.dims[m][1], nz = s.dims[m][2];
-    const Cell c = locate(p, pt, s.dims[m][0], ny, nz);
+    Cell c = locate(p, pt, s.dims[m][0], ny, nz);
+    if (!in_window(c, s.win[m][0], s.win[m][1], s.win[m][2])) continue;
     const float4 gv = __ldg(&s.g[m][(long)pt * L + q]);
     float4 v[8];
 #pragma unroll
@@ -273,8 +315,9 @@ trilinear_bwd_dp_kernel(DpGrids s, const float* __restrict__ p,
 
 struct DgridGrid {
   const float4* g;  // (n, L) cotangent of this grid's lookup
-  float4* dgrid;    // (V, L) zeroed f32 gradient
-  int nx, ny, nz;
+  float4* dgrid;    // (planes + 1, ny, nz, L) zeroed f32 gradient of the slab
+  int nx, ny, nz;   // the full grid's
+  int x_lo, planes, D;  // the slab window
   int shared;       // 1: accumulate in a block-private shared-memory copy
                     //    (set here from the grid's size)
   int first_block;  // this grid's first block in the launch
@@ -309,14 +352,14 @@ __device__ __forceinline__ void add4_shared(float4* dst, float4 v) {
 template <int L, bool kShared>
 __device__ __forceinline__ void flush(float4* dst, int cur,
                                       const float4 (&acc)[Team<L>::NK], int q,
-                                      int kb, int nx, int ny, int nz) {
+                                      int kb, int nx, int ny, int nz, int x_lo) {
   const int iz = cur % nz;
   const int rest = cur / nz;
   const int iy = rest % ny;
-  const int ix = rest / ny;
-  // a clamped +1 corner (i0 on the last node) reuses the i0 row; its
-  // weight, and so its accumulator, is exactly 0 and is skipped
-  const int dx = ix < nx - 1 ? ny * nz : 0;
+  const int ix = rest / ny;  // in the slab; x_lo + ix on the full grid
+  // a clamped +1 corner (i0 on the full grid's last node) reuses the i0
+  // row; its weight, and so its accumulator, is exactly 0 and is skipped
+  const int dx = x_lo + ix < nx - 1 ? ny * nz : 0;
   const int dy = iy < ny - 1 ? nz : 0;
   const int dz = iz < nz - 1 ? 1 : 0;
 #pragma unroll
@@ -346,11 +389,13 @@ __device__ __forceinline__ void dgrid_run(const float* __restrict__ p,
   int key = -1;
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
   if (start + lane < end) {
-    const Cell c = locate(p, start + lane, d.nx, d.ny, d.nz);
-    key = (c.i0[0] * d.ny + c.i0[1]) * d.nz + c.i0[2];
-    fx = c.f[0];
-    fy = c.f[1];
-    fz = c.f[2];
+    Cell c = locate(p, start + lane, d.nx, d.ny, d.nz);
+    if (in_window(c, d.x_lo, d.planes, d.D)) {  // else key -1: adds nothing
+      key = (c.i0[0] * d.ny + c.i0[1]) * d.nz + c.i0[2];
+      fx = c.f[0];
+      fy = c.f[1];
+      fz = c.f[2];
+    }
   }
 
   float4 acc[T::NK];
@@ -376,7 +421,7 @@ __device__ __forceinline__ void dgrid_run(const float* __restrict__ p,
       const float az = __shfl_sync(0xffffffffu, fz, src, T::P);
       if (kj < 0) continue;  // past the end of the run
       if (kj != cur) {
-        if (cur >= 0) flush<L, kShared>(dst, cur, acc, q, kb, d.nx, d.ny, d.nz);
+        if (cur >= 0) flush<L, kShared>(dst, cur, acc, q, kb, d.nx, d.ny, d.nz, d.x_lo);
         cur = kj;
 #pragma unroll
         for (int j = 0; j < T::NK; ++j) acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -386,7 +431,7 @@ __device__ __forceinline__ void dgrid_run(const float* __restrict__ p,
         acc[j] = fma4(corner_weight(ax, ay, az, kb + j * T::KS), gv[u], acc[j]);
     }
   }
-  if (cur >= 0) flush<L, kShared>(dst, cur, acc, q, kb, d.nx, d.ny, d.nz);
+  if (cur >= 0) flush<L, kShared>(dst, cur, acc, q, kb, d.nx, d.ny, d.nz, d.x_lo);
 }
 
 template <int L>
@@ -406,7 +451,7 @@ trilinear_bwd_dgrid_kernel(DgridGrids s, const float* __restrict__ p, int n) {
       dgrid_run<L, false>(p, d, d.dgrid, s0, min(hi, s0 + kRun), lane);
     return;
   }
-  const int cells = d.nx * d.ny * d.nz * L;  // float4s of the private copy
+  const int cells = (d.planes + 1) * d.ny * d.nz * L;  // float4s of the slab's copy
   for (int i = threadIdx.x; i < cells; i += kThreads)
     priv[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   __syncthreads();
@@ -417,6 +462,17 @@ trilinear_bwd_dgrid_kernel(DgridGrids s, const float* __restrict__ p, int n) {
     const float4 v = priv[i];
     if (nonzero4(v)) add4_global(d.dgrid + i, v);
   }
+}
+
+constexpr int kDesc = 8;  // descriptor values per grid
+
+// A window the kernels can run: D >= 1 slabs of planes >= 1 owned planes
+// each (a dense grid of one plane: planes 0, D 1), x_lo on a slab start.
+bool window_ok(const long long* e) {
+  const long long nx = e[2], x_lo = e[5], planes = e[6], D = e[7];
+  if (D < 1 || planes < 0 || x_lo < 0 || (D > 1 && planes < 1)) return false;
+  if (D == 1) return x_lo == 0 && planes == nx - 1;
+  return x_lo % planes == 0 && x_lo / planes < D && planes * D + 1 >= nx;
 }
 
 int device_attribute(cudaDeviceAttr attr) {
@@ -458,18 +514,22 @@ int launch_dp(const DpGrids& s, const float* p, float* dp, int n,
 
 extern "C" {
 
-// desc: per grid 5 values -- grid ptr, output ptr, nx, ny, nz.
+// desc: per grid kDesc values -- grid (slab) ptr, output ptr, then the
+// full grid's nx, ny, nz and the slab window x_lo, planes, D (a dense grid:
+// 0, nx - 1, 1).
 int trilinear_fwd(const long long* desc, int count, const float* p, int n, int c,
                   void* stream) {
   if (count < 1 || count > kMaxGrids || n < 1) return (int)cudaErrorInvalidValue;
   FwdGrids s = {};
   for (int m = 0; m < count; ++m) {
-    const long long* e = desc + 5 * m;
+    const long long* e = desc + kDesc * m;
+    if (!window_ok(e)) return (int)cudaErrorInvalidValue;
     s.grid[m] = (const float4*)e[0];
     s.out[m] = (float4*)e[1];
-    s.dims[m][0] = (int)e[2];
-    s.dims[m][1] = (int)e[3];
-    s.dims[m][2] = (int)e[4];
+    for (int a = 0; a < 3; ++a) {
+      s.dims[m][a] = (int)e[2 + a];
+      s.win[m][a] = (int)e[5 + a];
+    }
   }
   const cudaStream_t st = (cudaStream_t)stream;
   switch (c / 4) {
@@ -483,8 +543,8 @@ int trilinear_fwd(const long long* desc, int count, const float* p, int n, int c
   }
 }
 
-// desc: per grid 5 values -- cotangent ptr, zeroed gradient ptr, nx, ny,
-// nz.
+// desc: per grid kDesc values -- cotangent ptr, zeroed slab gradient ptr,
+// the full grid's nx, ny, nz, and the slab window x_lo, planes, D.
 int trilinear_bwd_dgrid(const long long* desc, int count, const float* p, int n,
                         int c, void* stream) {
   if (count < 1 || count > kMaxGrids || n < 1) return (int)cudaErrorInvalidValue;
@@ -494,14 +554,19 @@ int trilinear_bwd_dgrid(const long long* desc, int count, const float* p, int n,
   s.count = count;
   int blocks = 0, smem = 0;
   for (int m = 0; m < count; ++m) {
-    const long long* e = desc + 5 * m;
+    const long long* e = desc + kDesc * m;
+    if (!window_ok(e)) return (int)cudaErrorInvalidValue;
     DgridGrid& d = s.grid[m];
     d.g = (const float4*)e[0];
     d.dgrid = (float4*)e[1];
     d.nx = (int)e[2];
     d.ny = (int)e[3];
     d.nz = (int)e[4];
-    const long bytes = (long)d.nx * d.ny * d.nz * c * 4;
+    d.x_lo = (int)e[5];
+    d.planes = (int)e[6];
+    d.D = (int)e[7];
+    // the slab's rows: a coarse slab of 3-4 planes, not the whole grid
+    const long bytes = (long)(d.planes + 1) * d.ny * d.nz * c * 4;
     d.shared = bytes <= smem_max;
     d.first_block = blocks;
     int nb;
@@ -530,20 +595,24 @@ int trilinear_bwd_dgrid(const long long* desc, int count, const float* p, int n,
   }
 }
 
-// desc: per grid 5 values -- grid ptr, cotangent ptr, nx, ny, nz.  dp is
-// written (not accumulated): the sum over the grids of each one's dp.
+// desc: per grid kDesc values -- grid (slab) ptr, cotangent ptr, the full
+// grid's nx, ny, nz, and the slab window x_lo, planes, D.  dp is written
+// (not accumulated): the sum over the grids of each one's dp from the
+// points the slab owns.
 int trilinear_bwd_dp(const long long* desc, int count, const float* p, float* dp,
                      int n, int c, void* stream) {
   if (count < 1 || count > kMaxGrids || n < 1) return (int)cudaErrorInvalidValue;
   DpGrids s = {};
   s.count = count;
   for (int m = 0; m < count; ++m) {
-    const long long* e = desc + 5 * m;
+    const long long* e = desc + kDesc * m;
+    if (!window_ok(e)) return (int)cudaErrorInvalidValue;
     s.grid[m] = (const float4*)e[0];
     s.g[m] = (const float4*)e[1];
-    s.dims[m][0] = (int)e[2];
-    s.dims[m][1] = (int)e[3];
-    s.dims[m][2] = (int)e[4];
+    for (int a = 0; a < 3; ++a) {
+      s.dims[m][a] = (int)e[2 + a];
+      s.win[m][a] = (int)e[5 + a];
+    }
   }
   const cudaStream_t st = (cudaStream_t)stream;
   switch (c / 4) {

@@ -79,9 +79,13 @@ def render_batch_ray(spec: SceneSpec, state: SceneState, rays_o: torch.Tensor,
                      gt_depth: Optional[torch.Tensor] = None,
                      rcfg: RenderConfig = RenderConfig(),
                      gen: Optional[torch.Generator] = None,
+                     depth_max: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render (depth (N,), uncertainty (N,), color (N, 3)) for N rays.  The
-    coarse stage always renders without sensor depth."""
+    coarse stage always renders without sensor depth.  ``depth_max`` is the
+    largest sensor depth of the batch (computed from ``gt_depth`` when
+    None): a block of a larger batch, as ray data parallelism renders it,
+    passes the whole batch's, so each ray renders as in the whole batch."""
     N_samples, N_surface = rcfg.N_samples, rcfg.N_surface
     if stage == "coarse":
         gt_depth = None
@@ -94,15 +98,16 @@ def render_batch_ray(spec: SceneSpec, state: SceneState, rays_o: torch.Tensor,
 
     far = ray_aabb_far(rays_o, rays_d, state.bound).detach()[:, None] + 0.01
     if gt_depth is not None:
-        far = torch.minimum(torch.clamp(far, min=0.0),
-                            torch.max(gt_depth * 1.2))
+        if depth_max is None:
+            depth_max = torch.max(gt_depth)
+        far = torch.minimum(torch.clamp(far, min=0.0), depth_max * 1.2)
 
     z_vals = _stratified_z(near, far, N_samples, rcfg.lindisp, rcfg.perturb, gen)
     if N_surface > 0:
         t_surf = linspace(0.0, 1.0, N_surface, device=rays_o.device)
         d = gt_depth
         z_surf_depth = 0.95 * d * (1.0 - t_surf) + 1.05 * d * t_surf
-        z_surf_zero = 0.001 * (1.0 - t_surf) + torch.max(gt_depth) * t_surf
+        z_surf_zero = 0.001 * (1.0 - t_surf) + depth_max * t_surf
         z_vals_surface = torch.where(d > 0.0, z_surf_depth, z_surf_zero[None, :])
         z_vals = torch.sort(torch.cat([z_vals, z_vals_surface], dim=-1),
                             dim=-1).values

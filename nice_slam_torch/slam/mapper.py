@@ -24,6 +24,15 @@ over a call's iterations), every iteration is a color-stage iteration
 with every ray kept, the camera learning rate is always on under BA, and
 the loss adds the free-space regulariser ``5e-4 * sum |sigma|`` whenever
 the model renders volume density (``occupancy`` false).
+
+Over several devices (``parallel/``): with ``Mapper.devices`` set, the
+ray batch of each iteration is split over them when it divides evenly
+(ray data parallelism: the scene replicated, the partial losses summed on
+the first device); a spatially sharded scene (``ShardedGrid`` grids)
+turns that off, and its slab gradients get the halo fold and the
+frustum masks sliced into slabs.  ``Mapper.pin(device)`` runs the whole
+call on one device of its own (the coarse mapper's card), its inputs
+copied there.
 """
 
 from __future__ import annotations
@@ -47,6 +56,13 @@ from nice_slam_torch.ops.geometry import (
 )
 from nice_slam_torch.ops.interp import bilinear_sample_2d
 from nice_slam_torch.ops.render import RenderConfig, regulation, render_batch_ray
+from nice_slam_torch.parallel.grid_sharding import ShardedGrid, fold_and_mask, mask_to_slabs
+from nice_slam_torch.parallel.sharding import (
+    data_parallel,
+    over_blocks,
+    replicate_state,
+    sum_on,
+)
 from nice_slam_torch.slam.optim import GroupAdam, tree_leaves, tree_map
 
 STAGE_INDEX = {"coarse": 0, "middle": 1, "fine": 2, "color": 3}
@@ -320,11 +336,13 @@ def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
                  stage: str, mcfg: MapperConfig, rcfg: RenderConfig,
                  pixs_per_image: int, pix_idx: Optional[torch.Tensor] = None,
                  gen: Optional[torch.Generator] = None,
-                 reg_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 reg_t: Optional[torch.Tensor] = None,
+                 devices=None) -> torch.Tensor:
     """One mapping iteration's loss over the window.  ``pix_idx`` (F, n)
     gives the flat pixel indices per window frame and ``reg_t`` (F * n,
     N_samples) the regulariser's stratum jitter; when None they are drawn
-    from ``gen``."""
+    from ``gen``.  Over ``devices`` the rays are split when they divide
+    evenly (the grids then must be dense)."""
     state = _merge_scene(base_state, groups)
     F = colors.shape[0]
     if "cams" in groups:
@@ -348,24 +366,43 @@ def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
     else:
         inside = torch.ones_like(gt_d, dtype=torch.bool)
     inside = inside & torch.repeat_interleave(frame_valid, pixs_per_image)
-    depth, _, color = render_batch_ray(
-        spec, state, rays_o, rays_d, stage,
-        gt_depth=None if mcfg.coarse_mapper else gt_d, rcfg=rcfg, gen=gen)
-    ddiff = torch.abs(gt_d - depth)
-    loss = torch.sum(torch.where((gt_d > 0) & inside, ddiff,
-                                 torch.zeros_like(ddiff)))
-    if not spec.nice or stage == "color":
-        cdiff = torch.abs(gt_c - color)
-        loss = loss + mcfg.w_color_loss * torch.sum(
-            torch.where(inside[:, None], cdiff, torch.zeros_like(cdiff)))
-    if not mcfg.occupancy:
-        # the free-space regulariser, with rays_d and rays_o in the order
-        # the JAX mapper passes them (nice_slam_tpu/slam/mapper.py:553-554:
-        # its samples lie at rays_d + rays_o * z; ROADMAP C)
-        sigma = regulation(spec, state, rays_d, rays_o, gt_d, rcfg.N_samples,
-                           stage, gen=gen, t_rand=reg_t)
-        loss = loss + 0.0005 * torch.sum(torch.abs(sigma))
-    return loss
+
+    def ray_loss(st, ro, rd, gd, gc, ins, rt=None, depth_max=None):
+        depth, _, color = render_batch_ray(
+            spec, st, ro, rd, stage, gt_depth=None if mcfg.coarse_mapper else gd,
+            rcfg=rcfg, gen=gen, depth_max=depth_max)
+        ddiff = torch.abs(gd - depth)
+        loss = torch.sum(torch.where((gd > 0) & ins, ddiff, torch.zeros_like(ddiff)))
+        if not spec.nice or stage == "color":
+            cdiff = torch.abs(gc - color)
+            loss = loss + mcfg.w_color_loss * torch.sum(
+                torch.where(ins[:, None], cdiff, torch.zeros_like(cdiff)))
+        if not mcfg.occupancy:
+            # the free-space regulariser, with rays_d and rays_o in the order
+            # the JAX mapper passes them (nice_slam_tpu/slam/mapper.py:553-554:
+            # its samples lie at rays_d + rays_o * z; ROADMAP C)
+            sigma = regulation(spec, st, rd, ro, gd, rcfg.N_samples, stage,
+                               gen=gen, t_rand=rt)
+            loss = loss + 0.0005 * torch.sum(torch.abs(sigma))
+        return loss
+
+    if not data_parallel(devices, rays_o.shape[0]):
+        return ray_loss(state, rays_o, rays_d, gt_d, gt_c, inside, reg_t)
+    # ray data parallelism: what the whole batch shares is drawn or
+    # reduced before the split (the regulariser's jitter, drawn as
+    # ``regulation`` would draw it; the largest depth)
+    if not mcfg.occupancy and reg_t is None:
+        reg_t = torch.rand((rays_o.shape[0], rcfg.N_samples), generator=gen,
+                           device=rays_o.device)
+    arrays = [rays_o, rays_d, gt_d, gt_c, inside]
+    if reg_t is not None:
+        arrays.append(reg_t)
+    depth_max = torch.max(gt_d)
+
+    def block(st, *xs):
+        return ray_loss(st, *xs[:5], xs[5] if len(xs) > 5 else None,
+                        depth_max.to(xs[0].device))
+    return sum_on(over_blocks(devices, block, state, *arrays), rays_o.device)
 
 
 def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
@@ -374,15 +411,19 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                       stage_plan: Tuple[Tuple[str, int], ...], BA: bool,
                       pixs_per_image: int, gen: Optional[torch.Generator] = None,
                       pix_idx: Optional[torch.Tensor] = None, vis_hook=None,
-                      vis_every: int = 0, reg_t: Optional[torch.Tensor] = None):
+                      vis_every: int = 0, reg_t: Optional[torch.Tensor] = None,
+                      devices=None):
     """One optimize_map call: a fresh group Adam, then the stages in order.
     ``pix_idx`` (num_iters, F, n) fixes every iteration's pixels and
     ``reg_t`` (num_iters, F * n, N_samples) the regulariser's jitter;
     otherwise they are drawn from ``gen``.  ``vis_hook(it, state)``, when given, is
     called with the pre-iteration scene state at every ``vis_every``-th
-    iteration.  Returns (new state, new cam tensors, losses (num_iters,)),
-    all on the device."""
-    masks: Dict[str, torch.Tensor] = {}
+    iteration.  ``devices``: split each iteration's rays over them (dense
+    grids only).  A spatially sharded grid's slab gradients are folded
+    (``fold_halo_grads``) and then masked with the frustum mask cut into
+    slabs, so its duplicated planes stay bitwise equal.  Returns (new
+    state, new cam tensors, losses (num_iters,)), all on the device."""
+    masks: Dict[str, Any] = {}
     if mcfg.frustum_feature_selection:
         shapes = dict(spec.grid_shapes)
         for name in ("grid_middle", "grid_fine", "grid_color"):
@@ -391,6 +432,10 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                     fixed_c2w[-1], depths[-1], state.bound, shapes[name],
                     mcfg.H, mcfg.W, mcfg.fx, mcfg.fy, mcfg.cx, mcfg.cy
                 )[..., None].to(torch.float32)
+                grid = state.grids[name]
+                if isinstance(grid, ShardedGrid):
+                    masks[name] = mask_to_slabs(masks[name], grid.planes, grid.D,
+                                                grid.devices)
     groups = _opt_param_groups(spec, state, mcfg, cam_tensors, BA)
     adam = GroupAdam(groups)
     losses = []
@@ -408,14 +453,16 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                 spec, groups, state, colors, depths, fixed_c2w, opt_cam_mask,
                 frame_valid, stage, mcfg, rcfg, pixs_per_image,
                 None if pix_idx is None else pix_idx[it], gen,
-                None if reg_t is None else reg_t[it])
+                None if reg_t is None else reg_t[it], devices)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads, pos = {}, 0
             for k in names:
                 n = len(adam.params[k])
                 grads[k] = list(flat[pos:pos + n])
                 pos += n
-                if k in masks and grads[k][0] is not None:
+                if isinstance(groups[k], ShardedGrid):
+                    grads[k] = fold_and_mask(grads[k], adam.params[k], masks.get(k))
+                elif k in masks and grads[k][0] is not None:
                     grads[k][0] = grads[k][0] * masks[k]
             if "dec" in groups:
                 lrs["dec"] = imap_lr(mcfg, it)
@@ -457,8 +504,14 @@ class Mapper:
         self.spec = spec
         self.mcfg = mcfg
         self.rcfg = rcfg
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.gen = make_generator(seed + 1000, torch.device(device))
+        # ray data parallelism over these devices (None: one device); a
+        # spatially sharded scene turns it off
+        self.devices = None
+        # when set (``pin``), the whole optimize call runs on this device
+        self.device = None
         # runtime-adjustable copies (the final color refinement rewrites them)
         self.mapping_window_size = mcfg.mapping_window_size
         self.middle_iter_ratio = mcfg.middle_iter_ratio
@@ -469,6 +522,21 @@ class Mapper:
         # est_c2w} per window keyframe, then the current frame], host arrays
         # taken before the call (a host sync per call, so only on request)
         self.selected_keyframes = {} if save_selected_keyframes_info else None
+
+    def pin(self, device) -> None:
+        """Run every later optimize call on ``device`` alone (no ray data
+        parallelism): the coarse mapper on its own card, so the strict
+        loop's main and coarse calls run concurrently.  The generator is
+        made again on that device from the same seed (a CUDA generator's
+        draws do not depend on its device), so call this before the first
+        call.  The window is then selected on the host ('global'), as the
+        coarse mapper's is, and its inputs are copied to ``device``."""
+        if self.mcfg.keyframe_selection_method == "overlap":
+            raise ValueError("a pinned mapper selects its window on the host "
+                             "('global'); 'overlap' draws on the main device")
+        self.device = torch.device(device)
+        self.devices = None
+        self.gen = make_generator(self.seed + 1000, self.device)
 
     def optimize_map(self, state: SceneState, num_joint_iters: int,
                      lr_factor: float, cur_color: torch.Tensor,
@@ -503,8 +571,12 @@ class Mapper:
             if n_kf > 0:
                 positions.append(n_kf - 1)
             oldest = positions.index(min(positions)) if positions else None
-            pos_t = torch.as_tensor(positions, dtype=torch.int64,
-                                    device=cur_depth.device)
+            pos_t = torch.as_tensor(positions, dtype=torch.int64)
+            if cur_depth.is_cuda:
+                # from pinned memory: an upload from pageable memory would
+                # wait for the device's queued work (the main mapper's,
+                # when this is the coarse mapper on its own card)
+                pos_t = pos_t.pin_memory().to(cur_depth.device, non_blocking=True)
             colors = torch.cat([a.colors[pos_t], cur_color[None]])
             depths = torch.cat([a.depths[pos_t], cur_depth[None]])
             fixed_c2w = torch.cat([a.est_c2w[pos_t], cur_c2w[None]])
@@ -528,10 +600,21 @@ class Mapper:
             self.selected_keyframes[idx] = infos
         F = colors.shape[0]
         plan = stage_plan_for(mcfg, num_joint_iters)
+        devices = self.devices
+        if any(isinstance(g, ShardedGrid) for g in state.grids.values()):
+            devices = None  # the grids own the devices themselves
+        if self.device is not None:
+            # the whole call on the pinned device: device-to-device copies
+            # that do not wait for the host
+            dev = self.device
+            state = replicate_state(state, dev)
+            colors, depths, fixed_c2w, cam_tensors, opt_mask, frame_valid = (
+                x.to(dev, non_blocking=True) for x in (
+                    colors, depths, fixed_c2w, cam_tensors, opt_mask, frame_valid))
         new_state, new_cams, losses = optimize_map_core(
             self.spec, state, colors, depths, fixed_c2w, cam_tensors, opt_mask,
             frame_valid, lr_factor, mcfg, self.rcfg, plan, BA, mcfg.pixels // F,
-            gen=self.gen, vis_hook=vis_hook, vis_every=vis_every)
+            gen=self.gen, vis_hook=vis_hook, vis_every=vis_every, devices=devices)
         cur_out = None
         if BA:
             # write the refined window poses back (host bookkeeping: syncs)

@@ -21,7 +21,19 @@ streams through ``Handoff``s (``slam/handoff.py``).
 
 Stage times are host clocks around work that ends in a synchronize of
 the calling thread's stream, so they are device-true for that thread.
-Spatial grid sharding is not ported yet.
+
+Over several devices (``devices``: a list, which may repeat one device),
+as the JAX package over several chips: the main mapper splits its rays
+over them (ray data parallelism), the mesher its lattice chunks, and the
+coarse mapper runs on the last device (``NICE_SLAM_TORCH_COARSE_DEVICE``,
+default 1), its grid merged back to the main state's device; the strict
+loop then issues the main and the coarse mapping calls with no host sync
+between them, so the main call's stage time is its issue time and the
+coarse call's ends when both devices are done.  With
+``NICE_SLAM_TORCH_SPATIAL`` (``parallel/grid_sharding.py``) the grids are
+spatially sharded over the devices instead, which turns the ray data
+parallelism, the lattice split and the coarse device off.  The threaded
+schedules run over one physical device only.
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ from nice_slam_torch.ops.geometry import (
     tensor_from_pose,
 )
 from nice_slam_torch.ops.render import RenderConfig
+from nice_slam_torch.parallel.grid_sharding import maybe_shard_state, shard_scene_grids
+from nice_slam_torch.parallel.sharding import make_mesh
 from nice_slam_torch.slam.handoff import Handoff, hold
 from nice_slam_torch.slam.keyframes import KeyframeStore
 from nice_slam_torch.slam.mapper import Mapper, MapperConfig
@@ -82,14 +96,31 @@ def update_cam(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return cam
 
 
-class NiceSLAM:
-    """The NICE-SLAM system on one device (``cuda`` unless asked);
-    ``args.nice`` false selects the iMAP* model."""
+def resolve_devices(device="cuda", devices=None) -> List[torch.device]:
+    """The devices a system runs on: ``devices`` when given (a list, which
+    may repeat one device); else ``cuda`` means every visible CUDA device
+    and any other device (``cuda:i``, ``cpu``) that device alone."""
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("an empty device list")
+        return devs
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        return make_mesh()
+    return [device]
 
-    def __init__(self, cfg: Dict[str, Any], args, device="cuda"):
+
+class NiceSLAM:
+    """The NICE-SLAM system on ``device`` (every visible CUDA device unless
+    asked) or the explicit ``devices`` list, the scene and the poses on the
+    first; ``args.nice`` false selects the iMAP* model."""
+
+    def __init__(self, cfg: Dict[str, Any], args, device="cuda", devices=None):
         self.cfg = cfg
         self.sync_method = cfg["sync_method"]
-        self.device = torch.device(device)
+        self.devices = resolve_devices(device, devices)
+        self.device = self.devices[0]
         self.verbose = cfg["verbose"]
         self.nice = bool(getattr(args, "nice", True))
         self.coarse = bool(cfg["coarse"]) and self.nice
@@ -103,6 +134,11 @@ class NiceSLAM:
                                             device=self.device)
         if self.nice:
             self.state = load_pretrain(cfg, self.spec, self.state, self.verbose)
+        # spatial grid sharding: forced by NICE_SLAM_TORCH_SPATIAL=1, or
+        # engaged when the dense grids exceed the device memory budget
+        self.state, self.spatial_devices = maybe_shard_state(
+            self.state, self.devices, self.verbose)
+        multi = len(self.devices) > 1
 
         self.frame_reader = get_dataset(cfg, args, self.scale)
         self.n_img = len(self.frame_reader)
@@ -125,6 +161,15 @@ class NiceSLAM:
             self.coarse_mapper = Mapper(
                 self.spec, MapperConfig.from_cfg(cfg, self.cam, True, True),
                 self.rcfg, self.device, seed=7)
+        if multi and self.spatial_devices is None:
+            # ray data parallelism (off by itself over sharded grids)
+            self.mapper.devices = self.devices
+            if self.coarse_mapper is not None:
+                self.coarse_mapper.devices = self.devices
+                # the coarse mapper on its own device: main and coarse
+                # mapping share no grid, so their calls run concurrently
+                if os.environ.get("NICE_SLAM_TORCH_COARSE_DEVICE", "1") == "1":
+                    self.coarse_mapper.pin(self.devices[-1])
         self.seed = int(cfg.get("seed", 42))
         self.logger = Logger(self.output, self.spec, self.verbose)
         in_demo = "Demo" in self.output
@@ -141,6 +186,8 @@ class NiceSLAM:
         self.mesher = None
         if cfg.get("meshing") is not None:
             self.mesher = Mesher(cfg, self.cam, self.spec, self.rcfg)
+            if multi:
+                self.mesher.devices = self.devices  # lattice data parallelism
         # one record per mesh written: path, seconds, vertices, faces, the
         # mesher's device chunks and per-step host seconds
         self.meshes: List[Dict[str, Any]] = []
@@ -160,10 +207,11 @@ class NiceSLAM:
                         "coarse_mapping_events": 0}
 
     def _sync(self) -> None:
-        """Wait for the calling thread's stream (the other threads' streams
-        run on)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        """Wait for the calling thread's stream on every device in use (the
+        other threads' streams run on)."""
+        for dev in set(self.devices):  # the coarse mapper's is the last
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def _snapshot(self):
         """The current scene state, ready to read on this thread's stream."""
@@ -180,7 +228,12 @@ class NiceSLAM:
         with self._state_handoff.access():
             if coarse:
                 grids = dict(self.state.grids)
-                grids["grid_coarse"] = new_state.grids["grid_coarse"]
+                gc = new_state.grids["grid_coarse"]
+                if self.coarse_mapper.device is not None:
+                    # from the coarse mapper's device back to the main
+                    # state's (ordered on both devices' streams)
+                    gc = gc.to(self.device, non_blocking=True)
+                grids["grid_coarse"] = gc
                 self.state = self.state._replace(grids=grids)
             else:
                 grids = dict(new_state.grids)
@@ -245,9 +298,11 @@ class NiceSLAM:
         self.timings["tracked_frames"] += 1
 
     def map_one(self, idx: int, color: torch.Tensor, depth: torch.Tensor,
-                gt_c2w, init: bool, coarse: bool = False) -> None:
+                gt_c2w, init: bool, coarse: bool = False,
+                sync: bool = True) -> None:
         """One mapping event of the main (or coarse) mapper on frame
-        ``idx`` (color and depth on the device)."""
+        ``idx`` (color and depth on the device).  ``sync`` false leaves its
+        device work queued (the coarse call on its own device follows)."""
         t0 = time.perf_counter()
         mapper = self.coarse_mapper if coarse else self.mapper
         cfg_m = self.cfg["mapping"]
@@ -273,6 +328,12 @@ class NiceSLAM:
         (cur_c2w,) = self._poses(idx)
         # the coarse mapper reads the keyframes the main mapper writes
         keyframes = self.keyframes.snapshot() if coarse else self.keyframes
+        add_kf = (not coarse and (idx % self.mcfg.keyframe_every == 0
+                                  or idx == self.n_img - 2)
+                  and idx not in self.keyframes.frame_ids)
+        # uploaded before the mapping work is queued: an upload after it
+        # would wait for that work
+        gt_kf = self._to_dev(gt_c2w) if add_kf else None
         vis_hook, vis_every = None, 0
         vis = self.mapping_visualizer
         if (not coarse and vis is not None and idx % vis.freq == 0
@@ -292,16 +353,14 @@ class NiceSLAM:
             if BA and cur_out is not None:
                 cur_c2w = cur_out
                 self._set_pose(idx, cur_c2w)
-            if (outer == outer_joint_iters - 1 and not coarse
-                    and (idx % self.mcfg.keyframe_every == 0
-                         or idx == self.n_img - 2)
-                    and idx not in self.keyframes.frame_ids):
-                self.keyframes.add(idx, color, depth, cur_c2w, gt_c2w)
+            if outer == outer_joint_iters - 1 and add_kf:
+                self.keyframes.add(idx, color, depth, cur_c2w, gt_kf)
         if self.verbose:
             l = losses.cpu().numpy()
             print(f"{'Coarse ' if coarse else ''}Mapping Frame {idx}  loss: "
                   f"{l[0]:.2f}->{l[-1]:.2f}")
-        self._sync()
+        if sync:
+            self._sync()
         if not coarse:
             self.mapping_idx = idx
             self.mapping_cnt += 1
@@ -355,6 +414,9 @@ class NiceSLAM:
             return 0
         self.state, est, gt, kf_list, idx = load_checkpoint(
             ckpts[-1], self.spec, self.state, self.device)
+        if self.spatial_devices is not None:  # checkpoints are dense
+            self.state = self.state._replace(grids=shard_scene_grids(
+                self.state.grids, self.spatial_devices))
         n = min(len(est), self.n_img)
         self.estimate_c2w_list[:n] = self._to_dev(est[:n])
         self.gt_c2w_list[:n] = gt[:n]
@@ -385,9 +447,14 @@ class NiceSLAM:
         what is due, then map it with the coarse mapper unless it is the
         last frame."""
         color_d, depth_d = self._to_dev(color), self._to_dev(depth)
-        self.map_one(idx, color_d, depth_d, gt_c2w, init=init)
+        coarse = self.coarse_mapper is not None and idx != self.n_img - 1
+        # the coarse mapper on its own device: no host sync between the two
+        # calls, so they run concurrently (the coarse call's sync waits
+        # for both)
+        pinned = coarse and self.coarse_mapper.device is not None
+        self.map_one(idx, color_d, depth_d, gt_c2w, init=init, sync=not pinned)
         self.log_and_mesh(idx)
-        if self.coarse_mapper is not None and idx != self.n_img - 1:
+        if coarse:
             self.map_one(idx, color_d, depth_d, gt_c2w, init=init, coarse=True)
 
     def run(self) -> None:
@@ -434,6 +501,13 @@ class NiceSLAM:
         to a small cache the mappers read (each uploads on its own
         stream).  A thread failure is recorded and trips a shared abort
         that every poll loop watches; ``run`` then raises."""
+        cards = {d for d in self.devices if d.type == "cuda"}
+        if len(cards) > 1:
+            raise NotImplementedError(
+                f"the {self.sync_method} schedule over {len(cards)} distinct CUDA "
+                "devices: slam/handoff.py records one event per stream of one "
+                "device, and each thread would need a stream per (thread, "
+                "device); run it on one card (a device list may repeat it)")
         n, every = self.n_img, self.mcfg.every_frame
         loose = self.sync_method == "loose"
         frame_cache: Dict[int, tuple] = {}

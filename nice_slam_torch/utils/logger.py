@@ -11,7 +11,8 @@ grids).  The port's parameter tree is
 the JAX package's (dense layers ``{"w": (in, out), "b"}``, channels-last
 grids), so a checkpoint from either package loads in the other.
 ``load_checkpoint`` restores a runnable ``SceneState`` on the caller's
-device.
+device.  A spatially sharded state is written dense (each grid's slabs
+joined once at this boundary), so its checkpoint is the same file.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from nice_slam_torch.models.scene import SceneSpec, SceneState
+from nice_slam_torch.parallel.grid_sharding import dense_grids
 
 
 def grid_to_torch_layout(grid: torch.Tensor) -> torch.Tensor:
@@ -114,7 +116,8 @@ class Logger:
             gt_c2w_list, keyframe_list, selected_keyframes=None) -> str:
         path = os.path.join(self.ckptsdir, f"{idx:05d}.tar")
         payload = {
-            "c": {name: grid_to_torch_layout(g) for name, g in state.grids.items()},
+            "c": {name: grid_to_torch_layout(g)
+                  for name, g in dense_grids(state.grids).items()},
             "decoder_state_dict": decoders_to_state_dict(self.spec, state.decoders),
             "gt_c2w_list": _as_cpu(gt_c2w_list),
             "estimate_c2w_list": _as_cpu(estimate_c2w_list),

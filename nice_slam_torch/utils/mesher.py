@@ -23,6 +23,11 @@ Extract a culled, coloured triangle mesh from the scene:
      depth 0.1, in chunks of ``ray_batch_size`` rays;
   6. vertices / scale, written as a binary PLY.
 
+Over several devices (``Mesher.devices``) each lattice and colour chunk
+is split over them when it divides evenly (lattice data parallelism: the
+scene replicated, the blocks' answers joined on the first device); not
+over a spatially sharded scene, whose grids own the devices themselves.
+
 Everything runs without a gradient.
 """
 
@@ -38,34 +43,60 @@ from nice_slam_torch.models.scene import SceneSpec, SceneState, eval_points
 from nice_slam_torch.ops.geometry import invert
 from nice_slam_torch.ops.interp import bilinear_sample_2d
 from nice_slam_torch.ops.render import RenderConfig, render_batch_ray
+from nice_slam_torch.parallel.grid_sharding import ShardedGrid
+from nice_slam_torch.parallel.sharding import data_parallel, over_blocks
 from nice_slam_torch.utils import meshlib
 
 
 @torch.no_grad()
+def _eval_chunk(spec: SceneSpec, state: SceneState, pts: torch.Tensor,
+                stage: str, devices=None) -> torch.Tensor:
+    """raw of one chunk of points, split over ``devices`` when they divide
+    it evenly, joined on the points' device."""
+    if not data_parallel(devices, pts.shape[0]):
+        return eval_points(spec, state, pts, stage)
+    parts = over_blocks(devices, lambda st, p: eval_points(spec, st, p, stage),
+                        state, pts)
+    return torch.cat([x.to(pts.device) for x in parts])
+
+
+def _query_devices(state: SceneState, devices=None):
+    """The devices for lattice queries (None: one device).  A spatially
+    sharded scene's grids own the devices themselves, so its lattice
+    points are not split."""
+    if any(isinstance(g, ShardedGrid) for g in state.grids.values()):
+        return None
+    return devices if devices is not None and len(devices) > 1 else None
+
+
+@torch.no_grad()
 def _chunked(spec: SceneSpec, state: SceneState, points: np.ndarray,
-             stage: str, chunk: int, take) -> np.ndarray:
+             stage: str, chunk: int, take, devices=None) -> np.ndarray:
     """``take(raw)`` of host points through ``stage``, ``chunk`` points per
     device call, back on the host."""
     dev = state.bound.device
+    devices = _query_devices(state, devices)
     outs = [take(torch.zeros((0, 4)))]
     for i in range(0, len(points), chunk):
         p = torch.from_numpy(np.ascontiguousarray(points[i:i + chunk],
                                                   np.float32)).to(dev)
-        outs.append(take(eval_points(spec, state, p, stage)).cpu())
+        outs.append(take(_eval_chunk(spec, state, p, stage, devices)).cpu())
     return torch.cat(outs).numpy()
 
 
 def chunked_eval(spec: SceneSpec, state: SceneState, points: np.ndarray,
-                 stage: str, chunk: int) -> np.ndarray:
+                 stage: str, chunk: int, devices=None) -> np.ndarray:
     """Occupancy (raw[:, 3]) of a host point set, ``chunk`` points per
     device call."""
-    return _chunked(spec, state, points, stage, chunk, lambda raw: raw[:, 3])
+    return _chunked(spec, state, points, stage, chunk, lambda raw: raw[:, 3],
+                    devices)
 
 
 def chunked_color(spec: SceneSpec, state: SceneState, points: np.ndarray,
-                  chunk: int) -> np.ndarray:
+                  chunk: int, devices=None) -> np.ndarray:
     """'color'-stage rgb of a host point set, ``chunk`` points per call."""
-    return _chunked(spec, state, points, "color", chunk, lambda raw: raw[:, :3])
+    return _chunked(spec, state, points, "color", chunk, lambda raw: raw[:, :3],
+                    devices)
 
 
 @torch.no_grad()
@@ -157,6 +188,8 @@ class Mesher:
         # what the last get_mesh did: vertex and face counts, device chunks
         # per query, and host seconds per step
         self.last: Dict[str, float] = {}
+        # lattice data parallelism over these devices (None: one device)
+        self.devices = None
 
     # ------------------------------------------------------------------
     def get_grid_uniform(self, resolution: int):
@@ -262,17 +295,18 @@ class Mesher:
             occ = np.full((len(points),), -100.0, np.float32)
             if seen_mask.any():
                 occ[seen_mask] = chunked_eval(self.spec, state, points[seen_mask],
-                                              "fine", chunk)
+                                              "fine", chunk, self.devices)
             if forecast_mask.any():
                 occ[forecast_mask] = chunked_eval(
-                    self.spec, state, points[forecast_mask], "coarse", chunk) + 0.2
+                    self.spec, state, points[forecast_mask], "coarse", chunk,
+                    self.devices) + 0.2
             n_eval = -(-int(seen_mask.sum()) // chunk) + -(-int(forecast_mask.sum()) // chunk)
             lap("eval_s")
         else:
             hull = self.get_bound_from_frames(keyframes)
             inside = hull.find_simplex(points) >= 0
             lap("hull_s")
-            occ = chunked_eval(self.spec, state, points, "fine", chunk)
+            occ = chunked_eval(self.spec, state, points, "fine", chunk, self.devices)
             occ[~inside] = 100.0
             n_eval = -(-len(points) // chunk)
             lap("eval_s")
@@ -317,7 +351,7 @@ class Mesher:
         vertex_colors = None
         if color:
             if self.color_mesh_extraction_method == "direct_point_query":
-                rgb = chunked_color(self.spec, state, verts, chunk)
+                rgb = chunked_color(self.spec, state, verts, chunk, self.devices)
                 last["color_chunks"] = -(-len(verts) // chunk)
             else:
                 rgb = render_along_normals(self.spec, state, verts, faces,

@@ -663,3 +663,164 @@ def test_pretrain_fit_step_on_the_card_matches_the_cpu(dev, stage):
     assert n_dev == {"trilinear_fwd": 3, "trilinear_bwd_dgrid": 3, "trilinear_bwd_dp": 0}
     np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-4)
     assert float(((p_dev - p_cpu).abs() <= 1e-4).float().mean()) >= 0.999
+
+
+def _slab_err_tol(dg, p, cot, shape, window):
+    """``_dgrid_err_tol`` for a slab: the plain version with the slab
+    window, summed in float64, and 32 ulps of its largest sum of |w_k g|,
+    at least the smallest normal float: float atomics flush subnormal
+    results to zero (PTX atom.add.f32), and a slab that owns a few points
+    may get nothing but subnormal contributions."""
+    i0, i1, frac, _, own = interp._slab_corners(shape, window, p)
+    weights, _ = interp._corner_weights(frac)
+    if own is not None:
+        cot = cot * own[:, None]
+    ref = torch.zeros((2, shape[0] * shape[1] * shape[2], shape[3]),
+                      dtype=torch.float64, device=p.device)
+    for r, w in zip(interp._corner_rows(shape, i0, i1), weights):
+        c = (w[:, None] * cot).double()
+        ref[0].index_add_(0, r, c)
+        ref[1].index_add_(0, r, c.abs())
+    f32 = torch.finfo(torch.float32)
+    return (float((dg.double().reshape(ref[0].shape) - ref[0]).abs().max()),
+            max(32 * f32.eps * float(ref[1].max()), f32.tiny))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("shapes", [
+    [(74, 56, 43, 32)],
+    [(37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32)],
+    [(11, 8, 7, 32)],  # at D = 4: slabs of 3 owned planes (+ the halo)
+], ids=["fine", "color_stage", "coarse"])
+def test_slab_window_kernels_match_plain(dev, shapes, D):
+    """K1-K3 with slab windows (each grid cut into D slabs, one launch per
+    slab over the stage's grids) against their plain versions, and summed
+    over the slabs against the dense launches: K1 bit for bit, K2 after
+    the halo fold and unshard_grid_grad within its gate, K3 within 1e-4
+    of max |dp|."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    p = _ray_samples(1000).to(dev)
+    gen = torch.Generator().manual_seed(2)
+    grids = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    cots = [torch.randn((p.shape[0], s[3]), generator=gen).to(dev) for s in shapes]
+    sharded = [gs.shard_grid(g, [dev] * D) for g in grids]
+    feats = dps = None
+    slab_grads = [[] for _ in grids]
+    for d in range(D):
+        slabs = [sg.slabs[d] for sg in sharded]
+        ws = [sg.window(d) for sg in sharded]
+        interp.reset_launch_counts()
+        f = interp.trilinear_fwd_multi(slabs, p, ws)
+        dg = interp.trilinear_bwd_dgrid_multi(p, cots, [tuple(s.shape) for s in slabs], ws)
+        dp = interp.trilinear_bwd_dp_multi(slabs, p, cots, ws)
+        torch.cuda.synchronize()
+        assert interp.launch_counts == {k: 1 for k in interp.launch_counts}
+        for a, b in zip(f, interp.trilinear_fwd_multi_plain(slabs, p, ws)):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        for g, cot, s, w in zip(dg, cots, slabs, ws):
+            err, tol = _slab_err_tol(g, p, cot, tuple(s.shape), w)
+            assert err <= tol, (d, tuple(s.shape), err, tol)
+        ref = interp.trilinear_bwd_dp_multi_plain(slabs, p, cots, ws)
+        assert float((dp - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1e-30)
+        feats = f if feats is None else [a + b for a, b in zip(feats, f)]
+        dps = dp if dps is None else dps + dp
+        for i, g in enumerate(dg):
+            slab_grads[i].append(g)
+    for a, b in zip(feats, interp.trilinear_fwd_multi(grids, p)):
+        assert torch.equal(a, b)
+    for i, (sg, cot, s) in enumerate(zip(sharded, cots, shapes)):
+        dense = gs.unshard_grid_grad(slab_grads[i], s, sg.planes)
+        err, tol = _dgrid_err_tol(dense, p, cot, s)
+        assert err <= tol, (s, err, tol)
+        # the fold writes each shared plane's total into both copies, so
+        # the slabs then read back as the dense gradient
+        folded = gs.fold_halo_grads(slab_grads[i])
+        for lo, hi in zip(folded[:-1], folded[1:]):
+            assert torch.equal(lo[-1], hi[0])
+        torch.testing.assert_close(gs.unshard_grid(sg._replace(folded)), dense,
+                                   atol=0, rtol=0)
+    ref = interp.trilinear_bwd_dp_multi(grids, p, cots)
+    assert float((dps - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_slab_launches_on_its_own_device(dev):
+    """A slab on the last visible card, launched while card 0 is current,
+    runs on its own card and stream (a launch on the current card would
+    read foreign pointers) and is counted there."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    gen = torch.Generator().manual_seed(3)
+    grid = torch.randn((11, 8, 7, 32), generator=gen)
+    p_cpu = _ray_samples(200)
+    cot_cpu = torch.randn((p_cpu.shape[0], 32), generator=gen)
+    sharded = gs.shard_grid(grid.to(last), [last, last])
+    p, cot = p_cpu.to(last), cot_cpu.to(last)
+    interp.reset_launch_counts()
+    with torch.cuda.device(0):
+        f = interp.trilinear_fwd_multi([sharded.slabs[1]], p, [sharded.window(1)])
+        dg = interp.trilinear_bwd_dgrid_multi(p, [cot], [tuple(sharded.slabs[1].shape)],
+                                              [sharded.window(1)])
+        dp = interp.trilinear_bwd_dp_multi([sharded.slabs[1]], p, [cot], [sharded.window(1)])
+    torch.cuda.synchronize(last)
+    stream = torch.cuda.current_stream(last).cuda_stream
+    assert interp.launches_by_device == {(k, last.index, stream): 1
+                                         for k in interp.launch_counts}
+    slab_cpu = sharded.slabs[1].cpu()
+    w = sharded.window(1)
+    torch.testing.assert_close(f[0].cpu(), interp.trilinear_fwd_plain(slab_cpu, p_cpu, w),
+                               atol=1e-5, rtol=0)
+    err, tol = _slab_err_tol(dg[0].cpu(), p_cpu, cot_cpu, tuple(slab_cpu.shape), w)
+    assert err <= tol
+    ref = interp.trilinear_bwd_dp_plain(slab_cpu, p_cpu, cot_cpu, w)
+    assert float((dp.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_coarse_pin_issues_without_host_sync(dev, tmp_path):
+    """The coarse mapper pinned to the last device (here over two entries
+    of the device list): when the coarse call is entered, work queued on
+    the card after the main mapper's call is still running, so nothing on
+    the host between the two calls waited for the card.  The spy queues a
+    ~0.5 s spin after the main call and an event after it; a host sync
+    before the coarse call would find that event complete."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.slam.slam import NiceSLAM
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    big = 10 ** 6
+    cfg["coarse"] = True
+    cfg["verbose"] = False
+    cfg["meshing"] = None
+    cfg["data"].update({"n_frames": 7, "output": str(tmp_path)})
+    cfg["tracking"].update({"gt_camera": True, "vis_freq": big, "vis_inside_freq": big})
+    cfg["mapping"].update({"iters_first": 30, "iters": 10, "color_refine": False,
+                           "mesh_freq": big, "ckpt_freq": big, "vis_freq": big,
+                           "vis_inside_freq": big})
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(ROOT, cfg["pretrained_decoders"][k])
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None),
+                    devices=[dev, last])
+    assert slam.coarse_mapper.device == last
+    events, pending = [], []
+    real_main, real_coarse = slam.mapper.optimize_map, slam.coarse_mapper.optimize_map
+
+    def spy_main(*a, **k):
+        out = real_main(*a, **k)
+        torch.cuda._sleep(1_000_000_000)
+        ev = torch.cuda.Event()
+        ev.record()
+        events.append(ev)
+        return out
+
+    def spy_coarse(*a, **k):
+        pending.append(not events[-1].query())
+        return real_coarse(*a, **k)
+
+    slam.mapper.optimize_map = spy_main
+    slam.coarse_mapper.optimize_map = spy_coarse
+    slam.run()
+    assert pending == [True, True], pending  # frames 0 and 5
+    assert torch.isfinite(slam.estimate_c2w_list).all() and slam.mapping_idx == 6
