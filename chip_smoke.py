@@ -138,6 +138,25 @@ Phases, each printing one JSON line:
            explicit device against the unpinned one, and the strict loop
            entering the coarse call while the main call's queued work
            (a ~0.5 s spin and an event after it) is still pending;
+  threaded_sharded  the loose and free schedules over several devices,
+           the slice's 12 frames each: (a) loose with the grids sharded
+           over [cuda:0] x 4, beside the sharded phase's strict loop on the
+           same list; (b) free with ray DP over [cuda:0] x 2 and the coarse
+           mapper pinned to the last device, beside a strict run on the
+           same list.  Each run: every frame tracked with finite poses,
+           the last mapped; K1-K3 launches exactly as the run's recorded
+           calls give them per (kernel, device, stream) (a thread's on its
+           own stream of each card, once per slab or replica; the
+           warm-up's on the default streams); each thread with a stream of
+           its own on every card; loose lag <= 7; the halo planes bitwise
+           equal (a); the dense final checkpoint restored by a fresh
+           one-device system bit for bit; the final meshes with faces;
+           fps, ms per frame and event and each card's peak memory
+           reported.  Then the loose box family over 2 slabs against
+           threaded_quality's gates.  Where two or more cards are visible,
+           (a) again over cuda:0 and cuda:1 and (b) over every card, each
+           beside strict over the same list; with one card a line says
+           that they did not run;
   gt_tour  the port's ``selfcheck --gt_camera --frames 150 --orbit_radians
            6.283`` (resolution 128, iters 60, first 400, 200 depth-L1 views,
            pretrained decoders) against tests/test_quality_gates.py:42-45:
@@ -181,6 +200,7 @@ Then the card's name and power limit, the kernels line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -957,8 +977,8 @@ def threaded_run(dev, sync):
     if set(slam.streams) != expected:
         raise AssertionError(f"{sync}: thread streams {sorted(slam.streams)}, "
                              f"expected {sorted(expected)}")
-    ids = {"MainThread": torch.cuda.default_stream().cuda_stream,
-           **{k: v.cuda_stream for k, v in slam.streams.items()}}
+    ids = {"MainThread": torch.cuda.default_stream(dev).cuda_stream,
+           **{k: v[dev].cuda_stream for k, v in slam.streams.items()}}
     if len(set(ids.values())) != 4:
         raise AssertionError(f"{sync}: the threads do not have streams of "
                              f"their own: {ids}")
@@ -1025,23 +1045,25 @@ def phase_threaded(dev, strict):
           "seconds": time.perf_counter() - t0})
 
 
-def phase_threaded_quality(dev, strict_median_cm):
-    """The quality phase's box run under loose for THREADED_SEEDS: every
+def loose_box_family(strict_median_cm, label, device=None, devices=None):
+    """The quality phase's box run under loose for THREADED_SEEDS, on
+    ``device`` or over ``devices`` (with the knobs the caller set): every
     draw against ATE_DIVERGED_CM, the median against max(3 x the strict
-    family's median, LOOSE_ATE_FLOOR_CM)."""
+    family's median, LOOSE_ATE_FLOOR_CM).  Returns the record and whether
+    both gates held."""
     import numpy as np
 
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import box_quality_cfg
 
-    t0 = time.perf_counter()
     draws = []
     for seed in THREADED_SEEDS:
-        out = os.path.join(HERE, "output", "chip_smoke", f"threaded_quality_s{seed}")
+        out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
         cfg = box_quality_cfg(out)
         cfg.update(seed=seed, sync_method="loose")
-        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None),
+                        device, devices=devices)
         slam.run()
         t = slam.timings
         draws.append({"seed": seed, "fps": t.get("fps"),
@@ -1052,13 +1074,26 @@ def phase_threaded_quality(dev, strict_median_cm):
     median = float(np.median(ates))
     gate = max(3 * strict_median_cm, LOOSE_ATE_FLOOR_CM)
     ok = median <= gate and max(ates) <= ATE_DIVERGED_CM
-    emit({"phase": "threaded_quality", "ok": ok, "frames": 30, "draws": draws,
-          "median_ate_cm": median, "gate_cm": gate, "strict_median_cm": strict_median_cm,
-          "draw_gate_cm": ATE_DIVERGED_CM, "seconds": time.perf_counter() - t0})
+    return {"frames": 30, "draws": draws, "median_ate_cm": median, "gate_cm": gate,
+            "strict_median_cm": strict_median_cm,
+            "draw_gate_cm": ATE_DIVERGED_CM}, ok
+
+
+def box_family_failure(rec) -> AssertionError:
+    ates = [d["ate_rmse_cm"] for d in rec["draws"]]
+    return AssertionError(f"loose ATE over seeds {THREADED_SEEDS}: {ates} cm; median "
+                          f"{rec['median_ate_cm']:.3f} (gate {rec['gate_cm']:.3f}), "
+                          f"worst draw gate {ATE_DIVERGED_CM}")
+
+
+def phase_threaded_quality(dev, strict_median_cm):
+    """The loose box family on one card (``loose_box_family``)."""
+    t0 = time.perf_counter()
+    rec, ok = loose_box_family(strict_median_cm, "threaded_quality", dev)
+    emit({"phase": "threaded_quality", "ok": ok, **rec,
+          "seconds": time.perf_counter() - t0})
     if not ok:
-        raise AssertionError(f"loose ATE over seeds {THREADED_SEEDS}: {ates} cm; median "
-                             f"{median:.3f} (gate {gate:.3f}), worst draw gate "
-                             f"{ATE_DIVERGED_CM}")
+        raise box_family_failure(rec)
 
 
 def record_calls(mapper, sink) -> None:
@@ -2129,9 +2164,12 @@ def sharded_loop(dev, devices, strict, out_name):
     count_iterations(slam.coarse_mapper, iters, "coarse_mapping")
     for d in set(devices):
         torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
     interp.reset_launch_counts()
     slam.run()
     counts = dict(interp.launch_counts)
+    peak = {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30
+            for d in sorted(set(devices), key=str)}
     if not torch.isfinite(slam.estimate_c2w_list).all() or \
             slam.timings["tracked_frames"] != slam.n_img - 1:
         raise AssertionError("sharded loop: a frame untracked or a pose not finite")
@@ -2179,6 +2217,7 @@ def sharded_loop(dev, devices, strict, out_name):
             "meshing_s": t["meshing_s"], "total_s": t.get("total_s"),
             "ate_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
             "launches": counts, "mesher_k1_launches": D * mesh_chunks,
+            "peak_mem_gib": peak,
             "strict": {k: strict[k] for k in ("fps", "tracking_ms_per_frame",
                                               "mapping_ms_per_event", "mapping_ms_per_iter",
                                               "meshing_s")},
@@ -2384,7 +2423,315 @@ def phase_sharded(dev, cases, dense_rows, cap, strict):
           "data_parallel": dp, "coarse_pin": pin, "over_distinct_cards": distinct,
           "kernels_s": t_kernels, "loop_s": t_loop,
           "seconds": time.perf_counter() - t0})
-    return rows, loop["launches"]
+    return rows, loop["launches"], loop
+
+
+TS_SHARDED_D = 4   # threaded_sharded (a): loose with the grids over [cuda:0] x 4
+TS_DP_D = 2        # (b): free with ray DP over [cuda:0] x 2, the coarse mapper pinned
+TS_BOX_D = 2       # the loose box family with the grids over [cuda:0] x 2
+
+
+@contextlib.contextmanager
+def knobs(spatial: bool):
+    """The multi-device knobs for a system built inside: the grids sharded
+    (``spatial``) or ray DP with the coarse mapper pinned to the last
+    device; the environment is restored on exit."""
+    env = {"NICE_SLAM_TORCH_SPATIAL": "1" if spatial else "0",
+           "NICE_SLAM_TORCH_COARSE_DEVICE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def chunk_sizes(n: int, chunk: int):
+    return [min(chunk, n - i) for i in range(0, n, chunk)]
+
+
+def expected_launches(slam, devices, sharded, tracks, calls, meshes):
+    """The K1-K3 launches a run's recorded calls make, per (kernel, device
+    index, thread): ``tracks`` (thread, lag) per tracked frame, ``calls``
+    (thread, coarse, iterations, rays) per mapping call, ``meshes``
+    (thread, path) per mesh written.  Returns them and each mesh's faces."""
+    import collections
+
+    D = len(devices)
+    k1, k2, k3 = "trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp"
+    want = collections.Counter()
+
+    def add(kernels, th, devs, times):
+        for d in devs:
+            for k in kernels:
+                want[(k, d.index, th)] += times
+
+    first = [devices[0]]
+    for th, _ in tracks:
+        add((k1, k3), th, devices if sharded else first, slam.tcfg.iters)
+    for th, coarse, iters, rays in calls:
+        if sharded or (not coarse and rays % D == 0):
+            devs = devices
+        else:
+            devs = [devices[-1]] if coarse else first
+        add((k1, k2), th, devs, iters)
+    lattice = slam.mesher.resolution ** 3
+    chunk = min(slam.rcfg.points_batch_size, lattice)
+    faces = {}
+    for th, path in meshes:
+        verts, f = mesh_stats(path)
+        faces[os.path.basename(path)] = len(f)
+        for size in chunk_sizes(lattice, chunk) + chunk_sizes(len(verts), chunk):
+            add((k1,), th, devices if sharded or size % D == 0 else first, 1)
+    if "final_mesh.ply" not in faces:
+        raise AssertionError("no final mesh")
+    return want, faces
+
+
+def check_launches(slam, devices, sharded, tracks, calls, meshes, tag):
+    """``interp.launches_by_device`` against ``expected_launches``: a
+    thread's launches on its own stream of each card, the calling thread's
+    on the card's default stream, and nothing else.  Returns each mesh's
+    faces."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+
+    want, faces = expected_launches(slam, devices, sharded, tracks, calls, meshes)
+
+    def sid(th, idx):
+        c = torch.device("cuda", idx)
+        if th == "MainThread":
+            return torch.cuda.default_stream(c).cuda_stream
+        return slam.streams[th][c].cuda_stream
+
+    by = dict(interp.launches_by_device)
+    want_by = {(k, idx, sid(th, idx)): v for (k, idx, th), v in want.items()}
+    if by != want_by:
+        diff = {key: (by.get(key, 0), want_by.get(key, 0))
+                for key in set(by) | set(want_by) if by.get(key, 0) != want_by.get(key, 0)}
+        raise AssertionError(f"{tag}: launches per (kernel, device, stream) "
+                             f"(got, expected): {diff}")
+    return faces
+
+
+def check_streams(slam, cards, tag):
+    """Each thread of a threaded run has a stream of its own on every card."""
+    import torch
+
+    expected = {"tracker", "mapper", "coarse_mapper"}
+    if set(slam.streams) != expected:
+        raise AssertionError(f"{tag}: thread streams {sorted(slam.streams)}")
+    for c in cards:
+        sids = {torch.cuda.default_stream(c).cuda_stream}
+        for name in expected:
+            if set(slam.streams[name]) != set(cards):
+                raise AssertionError(f"{tag}: {name} streams on "
+                                     f"{sorted(map(str, slam.streams[name]))}")
+            sids.add(slam.streams[name][c].cuda_stream)
+        if len(sids) != 4:
+            raise AssertionError(f"{tag}: the threads share a stream on {c}")
+
+
+def devices_run(devices, sync, mode, out_name):
+    """The slice's 12 frames under ``sync`` over ``devices``, with the grids
+    sharded (``mode`` 'sharded': K1-K3 once per slab) or with ray data
+    parallelism and the coarse mapper pinned to the last device ('ray_dp':
+    a main mapping iteration on every device when its rays divide evenly,
+    a mesher chunk likewise, a coarse iteration on the pinned device, a
+    tracking iteration on the first).  Every frame tracked with finite
+    poses and the last one mapped; K1-K3 launched exactly as the run's own
+    calls, recorded per thread, give per (kernel, device, stream): a
+    thread's launches on its stream of that card, the warm-up's (and the
+    strict loop's) on the card's default stream; each thread with a
+    stream of its own on every card; the loose lag at most every + every
+    // 2; the halo planes bitwise equal (sharded); the dense final
+    checkpoint restored by a fresh one-device system bit for bit; the
+    final meshes with faces.  Returns the record, with each card's peak
+    memory."""
+    import collections
+    import inspect
+    import threading
+
+    import torch
+
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.parallel import grid_sharding as gs
+    from nice_slam_torch.slam import mapper as mapper_mod
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import replica_synthetic_cfg
+
+    sharded = mode == "sharded"
+    tag = f"{sync} {mode} over {[str(d) for d in devices]}"
+    out = os.path.join(HERE, "output", "chip_smoke", out_name)
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_synthetic_cfg(out, n_frames=12, iters_first=SLICE_ITERS_FIRST)
+    cfg["sync_method"] = sync
+    with knobs(sharded):
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=devices)
+    D = len(devices)
+    if sharded:
+        engaged = slam.spatial_devices == list(devices) and slam.mapper.devices is None
+    else:
+        engaged = (slam.spatial_devices is None and slam.mapper.devices == list(devices)
+                   and slam.coarse_mapper.device == devices[-1])
+    if not engaged:
+        raise AssertionError(f"{tag}: the mode did not engage")
+    for i in range(slam.n_img):  # frame synthesis is not part of the timing
+        slam.frame_reader[i]
+
+    def thread() -> str:
+        return threading.current_thread().name
+
+    tracks, calls, meshes = [], [], []
+    inner_track, inner_mesh = slam.track_one, slam._mesh
+
+    def tracked(idx, *a, **k):
+        tracks.append((thread(), idx - slam.mapping_idx))
+        return inner_track(idx, *a, **k)
+
+    def meshed(path, *a, **k):
+        meshes.append((thread(), path))
+        return inner_mesh(path, *a, **k)
+
+    inner_core = mapper_mod.optimize_map_core
+    sig = inspect.signature(inner_core)
+
+    def core(*a, **k):
+        b = sig.bind(*a, **k).arguments
+        res = inner_core(*a, **k)
+        rays = b["colors"].shape[0] * b["pixs_per_image"]
+        calls.append((thread(), b["mcfg"].coarse_mapper, int(res[2].shape[0]), rays))
+        return res
+
+    slam.track_one, slam._mesh = tracked, meshed
+    cards = sorted(set(devices), key=str)
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    interp.reset_launch_counts()
+    mapper_mod.optimize_map_core = core
+    try:
+        slam.run()
+    finally:
+        mapper_mod.optimize_map_core = inner_core
+    counts = dict(interp.launch_counts)
+    peak = {str(c): torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
+
+    n, t = slam.n_img, slam.timings
+    if not torch.isfinite(slam.estimate_c2w_list).all():
+        raise AssertionError(f"{tag}: non-finite poses")
+    if t["tracked_frames"] != n - 1 or slam.mapping_idx != n - 1:
+        raise AssertionError(f"{tag}: tracked {t['tracked_frames']} frames, mapping_idx "
+                             f"{slam.mapping_idx}; expected {n - 1} each")
+
+    mesh_faces = check_launches(slam, devices, sharded, tracks, calls, meshes, tag)
+    if sync != "strict":
+        check_streams(slam, cards, tag)
+    every = slam.mcfg.every_frame
+    worst = max(lag for _, lag in tracks)
+    if sync == "loose" and worst > every + every // 2:
+        raise AssertionError(f"{tag}: lag {worst} frames > {every + every // 2}")
+    if sharded:
+        for k, sg in slam.state.grids.items():
+            if not isinstance(sg, gs.ShardedGrid) or sg.D != D:
+                raise AssertionError(f"{tag}: {k} lost its sharded representation")
+            for lo, hi in zip(sg.slabs[:-1], sg.slabs[1:]):
+                if not torch.equal(lo[-1].to(hi.device), hi[0]):
+                    raise AssertionError(f"{tag}: {k}: halo planes diverged")
+
+    # the dense checkpoint, restored by a fresh one-device system
+    with knobs(False):
+        fresh = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices[0])
+    if fresh.spatial_devices is not None or fresh.resume() != n:
+        raise AssertionError(f"{tag}: the fresh system did not resume at the end")
+    diff = [k for k, g in slam.state.grids.items()
+            if not torch.equal((gs.unshard_grid(g) if sharded else g).to(fresh.device),
+                               fresh.state.grids[k])]
+    if not all(torch.equal(a.to(fresh.device), b) for a, b in
+               zip(leaves(slam.state.decoders), leaves(fresh.state.decoders))):
+        diff.append("decoders")
+    if not torch.equal(fresh.estimate_c2w_list, slam.estimate_c2w_list.to(fresh.device)):
+        diff.append("estimate_c2w_list")
+    if diff:
+        raise AssertionError(f"{tag}: the checkpoint restored differently: {diff}")
+    iters = collections.Counter()
+    for th, coarse, it, _ in calls:
+        iters[f"{'coarse_' if coarse else ''}mapping@{th}"] += it
+    for th, _ in tracks:
+        iters[f"tracking@{th}"] += slam.tcfg.iters
+    est = slam.estimate_c2w_list.cpu().numpy()
+    return {"sync": sync, "mode": mode, "devices": [str(d) for d in devices],
+            "fps": t.get("fps"), "total_s": t["total_s"], "meshing_s": t["meshing_s"],
+            "fps_without_meshing": t["frames"] / (t["total_s"] - t["meshing_s"]),
+            "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+            "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+            "coarse_mapping_ms_per_event": t.get("coarse_mapping_ms_per_event"),
+            "tracked_frames": t["tracked_frames"], "mapping_events": t["mapping_events"],
+            "coarse_mapping_events": t["coarse_mapping_events"],
+            "max_lag": worst, "peak_mem_gib": peak,
+            "ate_cm": 100 * ate_rmse(est, slam.gt_c2w_list),
+            "iters": dict(iters), "launches": counts,
+            "launches_by_device_stream": {f"{k}@cuda:{i}/{s}": v for (k, i, s), v
+                                          in sorted(interp.launches_by_device.items())},
+            "streams": {name: {str(c): s.cuda_stream for c, s in st.items()}
+                        for name, st in slam.streams.items()},
+            "meshes": mesh_faces, "resumed_bitwise": True, "halo_bitwise": sharded}
+
+
+SCHEDULE_KEYS = ("fps", "tracking_ms_per_frame", "mapping_ms_per_event",
+                 "coarse_mapping_ms_per_event", "mapping_events", "coarse_mapping_events",
+                 "peak_mem_gib")
+
+
+def phase_threaded_sharded(dev, sharded_loop_rec, strict_median_cm):
+    """The loose and free schedules over several devices: (a) loose with
+    the grids sharded over [cuda:0] x TS_SHARDED_D, beside the sharded
+    phase's strict loop on the same list; (b) free with ray DP over
+    [cuda:0] x TS_DP_D and the coarse mapper pinned to the last device,
+    beside a strict run on the same list (``devices_run`` checks each);
+    the loose box family with the grids over TS_BOX_D slabs, held to
+    threaded_quality's gates.  Where the machine shows two or more cards,
+    (a) again over cuda:0 and cuda:1 and (b) over every card, each beside
+    strict over the same list; with one card a line says so.  Each run is
+    the slice's 12 frames."""
+    import torch
+
+    t0 = time.perf_counter()
+    a = devices_run([dev] * TS_SHARDED_D, "loose", "sharded", "ts_loose_sharded")
+    b = devices_run([dev] * TS_DP_D, "free", "ray_dp", "ts_free_dp")
+    b_strict = devices_run([dev] * TS_DP_D, "strict", "ray_dp", "ts_strict_dp")
+    t_runs = time.perf_counter() - t0
+    with knobs(True):
+        box, box_ok = loose_box_family(strict_median_cm, "ts_box",
+                                       devices=[dev] * TS_BOX_D)
+    n_cards = torch.cuda.device_count()
+    distinct = None
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        distinct = {
+            "loose_sharded": devices_run(cards[:2], "loose", "sharded", "ts_loose_cards"),
+            "strict_sharded": devices_run(cards[:2], "strict", "sharded", "ts_strict_cards"),
+            "free_dp": devices_run(cards, "free", "ray_dp", "ts_free_cards"),
+            "strict_dp": devices_run(cards, "strict", "ray_dp", "ts_strict_dp_cards")}
+    else:
+        print(f"threaded_sharded: the distinct-card runs did not run: "
+              f"torch.cuda.device_count() is {n_cards}, they need two cards", flush=True)
+    emit({"phase": "threaded_sharded", "ok": box_ok, "device_count": n_cards,
+          "loose_sharded": a,
+          "strict_sharded": {k: sharded_loop_rec.get(k) for k in SCHEDULE_KEYS},
+          "free_dp": b, "strict_dp": {k: b_strict[k] for k in SCHEDULE_KEYS},
+          "box": {**box, "devices": f"{dev} x {TS_BOX_D}", "sharded": True},
+          "distinct_cards": distinct is not None, "over_distinct_cards": distinct,
+          "runs_s": t_runs, "seconds": time.perf_counter() - t0})
+    if not box_ok:
+        raise box_family_failure(box)
+    return {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
 
 
 # kernel -> (TPU-side code it replaces: the Pallas kernel first where there
@@ -2428,14 +2775,16 @@ def main() -> int:
         del done
         phase_imap_quality(dev)
         phase_readers(dev)
-        window_rows, sharded_counts = phase_sharded(dev, cases, rows, cap, strict)
+        window_rows, sharded_counts, sharded_loop_rec = phase_sharded(
+            dev, cases, rows, cap, strict)
         del cap
+        ts_counts = phase_threaded_sharded(dev, sharded_loop_rec, strict_median)
         phase_tour(dev, imap=False)
         phase_tour(dev, imap=True)
         pretrain_rows, pretrain_counts = phase_pretrain(dev)
         rows += pretrain_rows
         phase_counts = {"slice": counts, "pretrain": pretrain_counts,
-                        "sharded": sharded_counts,
+                        "sharded": sharded_counts, "threaded_sharded": ts_counts,
                         "envelope": phase_envelope(dev),
                         "landscape": phase_landscape(dev)}
         phase_viewer(dev)

@@ -33,7 +33,9 @@ coarse call's ends when both devices are done.  With
 ``NICE_SLAM_TORCH_SPATIAL`` (``parallel/grid_sharding.py``) the grids are
 spatially sharded over the devices instead, which turns the ray data
 parallelism, the lattice split and the coarse device off.  The threaded
-schedules run over one physical device only.
+schedules run over the same list: each thread has a CUDA stream of its
+own on every card in use, current on all of them, so its kernels, its
+peer copies and its hand-offs stay on its streams wherever they run.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import os
 import shutil
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import ExitStack
 from typing import Any, Dict, List
 
 import numpy as np
@@ -60,7 +62,7 @@ from nice_slam_torch.ops.geometry import (
 from nice_slam_torch.ops.render import RenderConfig
 from nice_slam_torch.parallel.grid_sharding import maybe_shard_state, shard_scene_grids
 from nice_slam_torch.parallel.sharding import make_mesh
-from nice_slam_torch.slam.handoff import Handoff, hold
+from nice_slam_torch.slam.handoff import Handoff, cuda_cards, hold
 from nice_slam_torch.slam.keyframes import KeyframeStore
 from nice_slam_torch.slam.mapper import Mapper, MapperConfig
 from nice_slam_torch.slam.optim import tree_leaves
@@ -197,10 +199,11 @@ class NiceSLAM:
         self.mapping_cnt = 0
         # the scene state and the pose list, shared by the threads of the
         # loose and free schedules (keyframes carry their own Handoff)
-        self._state_handoff = Handoff(self.device)
-        self._est_handoff = Handoff(self.device)
-        # the CUDA stream of each thread of the last threaded run
-        self.streams: Dict[str, torch.cuda.Stream] = {}
+        self._state_handoff = Handoff(self.devices)
+        self._est_handoff = Handoff(self.devices)
+        # the CUDA streams of each thread of the last threaded run, one per
+        # card in use
+        self.streams: Dict[str, Dict[torch.device, torch.cuda.Stream]] = {}
         self.timings = {"tracking_s": 0.0, "mapping_s": 0.0,
                         "coarse_mapping_s": 0.0, "meshing_s": 0.0, "frames": 0,
                         "tracked_frames": 0, "mapping_events": 0,
@@ -500,14 +503,11 @@ class NiceSLAM:
         reads frames from a Prefetcher and publishes them, as host arrays,
         to a small cache the mappers read (each uploads on its own
         stream).  A thread failure is recorded and trips a shared abort
-        that every poll loop watches; ``run`` then raises."""
-        cards = {d for d in self.devices if d.type == "cuda"}
-        if len(cards) > 1:
-            raise NotImplementedError(
-                f"the {self.sync_method} schedule over {len(cards)} distinct CUDA "
-                "devices: slam/handoff.py records one event per stream of one "
-                "device, and each thread would need a stream per (thread, "
-                "device); run it on one card (a device list may repeat it)")
+        that every poll loop watches; ``run`` then raises.  Over several
+        cards each thread has a stream on every one of them (its kernels,
+        its peer copies and its hand-offs order themselves on the current
+        streams of the cards they touch), and the coarse mapper's card is
+        its current device."""
         n, every = self.n_img, self.mcfg.every_frame
         loose = self.sync_method == "loose"
         frame_cache: Dict[int, tuple] = {}
@@ -584,15 +584,18 @@ class NiceSLAM:
                 if not coarse:
                     self.log_and_mesh(idx)
 
-        def guarded(name: str, fn, *args):
-            stream = None
-            if self.device.type == "cuda":
-                stream = self.streams[name] = torch.cuda.Stream(self.device)
+        cards = cuda_cards(self.devices)
+
+        def guarded(name: str, home: torch.device, fn, *args):
+            streams = self.streams[name] = {c: torch.cuda.Stream(c) for c in cards}
+            # the home card's stream entered last: its card stays current
+            order = sorted(streams, key=lambda c: c == home)
 
             def body() -> None:
                 try:
-                    with (nullcontext() if stream is None
-                          else torch.cuda.stream(stream)):
+                    with ExitStack() as stack:
+                        for c in order:
+                            stack.enter_context(torch.cuda.stream(streams[c]))
                         fn(*args)
                 except Exception as e:  # noqa: BLE001 -- reported by run()
                     errors.append(e)
@@ -600,16 +603,18 @@ class NiceSLAM:
             return threading.Thread(target=body, name=name, daemon=True)
 
         self.streams = {}
-        threads = [guarded("mapper", mapper, False)]
+        threads = [guarded("mapper", self.device, mapper, False)]
         if self.coarse_mapper is not None:
-            threads.append(guarded("coarse_mapper", mapper, True))
-        threads.append(guarded("tracker", tracker))
+            threads.append(guarded("coarse_mapper",
+                                   self.coarse_mapper.device or self.device,
+                                   mapper, True))
+        threads.append(guarded("tracker", self.device, tracker))
         for th in threads:
             th.start()
         for th in threads:
             th.join()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for c in cards:
+            torch.cuda.synchronize(c)
         if errors:
             raise RuntimeError(f"SLAM thread failed: {errors[0]!r}") from errors[0]
 

@@ -1,7 +1,7 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
     python -m nice_slam_torch.tools.profile_step [--out DIR]
-        [--imap | --schedules [strict,loose,free]]
+        [--imap | --schedules [strict,loose,free] [--devices LIST]]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
 17 frames of the strict loop, so the map and a full 5-frame keyframe
@@ -33,7 +33,15 @@ time, fps, tracking ms per frame, mapping and coarse-mapping ms per event
 and events of an unprofiled run, and the wall, device busy time and idle
 share of a second run traced for device activity only (the threads'
 streams together; the threaded schedules' event counts vary from run to
-run, so both runs' are given).
+run, so both runs' are given).  ``--devices`` runs them over a device list
+(comma-separated, it may repeat a card, e.g. ``cuda:0,cuda:1``; by default
+every visible card), with the multi-device knobs of the environment
+(``NICE_SLAM_TORCH_SPATIAL=1`` shards the grids, else ray data parallelism
+with the coarse mapper on the last device).  Where the list spans two or
+more cards each row also gives, per card, the device busy time and idle
+share of the traced run and ``torch.cuda.max_memory_allocated`` of the
+untraced one, and the peer copies' time (the ``Memcpy PtoP`` spans) and
+its share of the traced run's wall.
 
 Run as a file with another checkout first on ``PYTHONPATH`` to measure
 that checkout's port with this instrumentation.
@@ -73,11 +81,8 @@ def imap_iteration_flops(rays: int, samples: int, importance: int,
     return float(rays) * per_ray * f
 
 
-def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
-    import torch
-
-    evts = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+def _busy_us(evts) -> float:
+    """The union of the events' device intervals, in microseconds."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in evts)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -89,6 +94,19 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
+    return busy
+
+
+def _cuda_events(prof):
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
+    evts = _cuda_events(prof)
+    busy = _busy_us(evts)
     by_name: dict = {}
     for e in evts:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -108,10 +126,26 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
             "gemm_ms": gemm / 1e3, "kernels": kernels}
 
 
-def profile_schedules(out: str, schedules) -> None:
-    """One row per schedule: a whole 12-frame run without meshes.  A strict
-    run first builds the kernels and warms the card; then each schedule
-    runs unprofiled (wall time, fps), then each once more under the
+def _per_card(prof, wall_ms: float) -> dict:
+    """Each card's device busy time and idle share, and the peer copies'
+    time and share of the wall, from a trace of several cards."""
+    evts = _cuda_events(prof)
+    cards = {}
+    for i in sorted({e.device_index for e in evts}):
+        busy = _busy_us([e for e in evts if e.device_index == i]) / 1e3
+        cards[f"cuda:{i}"] = {"device_busy_ms": busy,
+                              "device_idle_share": 1.0 - busy / wall_ms}
+    peer = [e for e in evts if "PtoP" in e.name]
+    peer_ms = sum(e.time_range.elapsed_us() for e in peer) / 1e3
+    return {"cards": cards, "peer_copies": len(peer), "peer_copy_ms": peer_ms,
+            "peer_copy_share": peer_ms / wall_ms}
+
+
+def profile_schedules(out: str, schedules, devices=None) -> None:
+    """One row per schedule: a whole 12-frame run without meshes over
+    ``devices`` (None: every visible card).  A strict run first builds the
+    kernels and warms the cards; then each schedule runs unprofiled (wall
+    time, fps, each card's peak memory), then each once more under the
     profiler (device activity only: the host-side trace of ~400k operations
     would slow the threads it measures)."""
     import torch
@@ -124,27 +158,41 @@ def profile_schedules(out: str, schedules) -> None:
         cfg = replica_synthetic_cfg(os.path.join(out, sync), n_frames=12,
                                     iters_first=300)
         cfg.update(sync_method=sync, meshing=None)
-        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda",
+                        devices=devices)
         for i in range(slam.n_img):  # frame synthesis is not timed
             slam.frame_reader[i]
-        torch.cuda.synchronize()
+        for c in cards:
+            torch.cuda.synchronize(c)
         return slam
 
     card = torch.cuda.get_device_name(0)
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    cards = sorted({torch.device(d) for d in devices}, key=lambda d: d.index)
+    several = len(cards) > 1
     fresh("strict").run()  # warm-up
     rows = {}
     for sync in schedules:
         slam = fresh(sync)
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
         t0 = time.perf_counter()
         slam.run()
         wall = 1e3 * (time.perf_counter() - t0)
         t = slam.timings
         rows[sync] = (wall, {"what": f"loop_{sync}", "device": card,
+                             "devices": [str(d) for d in devices],
+                             "spatial": slam.spatial_devices is not None,
+                             "coarse_device": str(getattr(slam.coarse_mapper, "device", None)),
                              "frames": slam.n_img, **{k: t.get(k) for k in (
                                  "fps", "tracking_ms_per_frame",
                                  "mapping_ms_per_event",
                                  "coarse_mapping_ms_per_event",
                                  "mapping_events", "coarse_mapping_events")}})
+        if several:
+            rows[sync][1]["peak_mem_gib"] = {
+                str(c): torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
     for sync in schedules:
         traced = fresh(sync)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -154,6 +202,8 @@ def profile_schedules(out: str, schedules) -> None:
         wall, row = rows[sync]
         row["untraced_wall_ms"] = wall
         row.update(_device_summary(prof, traced_wall))
+        if several:
+            row.update(_per_card(prof, traced_wall))
         row["traced_mapping_events"] = traced.timings["mapping_events"]
         row["traced_coarse_mapping_events"] = traced.timings["coarse_mapping_events"]
         print(json.dumps(row), flush=True)
@@ -168,6 +218,9 @@ def main() -> None:
     group.add_argument("--schedules", nargs="?", const="strict,loose,free",
                        help="profile whole runs of these schedules "
                             "(comma-separated; default all three)")
+    parser.add_argument("--devices", default=None,
+                        help="--schedules over this comma-separated device "
+                             "list (default: every visible card)")
     args = parser.parse_args()
 
     import torch
@@ -188,7 +241,8 @@ def main() -> None:
     out = args.out or os.path.join(ROOT, "output",
                                    "profile_step_imap" if args.imap else "profile_step")
     if args.schedules:
-        profile_schedules(out, args.schedules.split(","))
+        profile_schedules(out, args.schedules.split(","),
+                          args.devices and args.devices.split(","))
         return
     make = replica_imap_cfg if args.imap else replica_synthetic_cfg
     cfg = make(out, n_frames=17, iters_first=300)

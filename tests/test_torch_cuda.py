@@ -15,7 +15,9 @@ rounding).
 """
 
 import argparse
+import contextlib
 import os
+import time
 
 import pytest
 import torch
@@ -373,6 +375,89 @@ def test_handoff_hold_keeps_a_read_block_from_reuse(dev):
     assert bool((seen == 1.0).all())
 
 
+@pytest.fixture(params=["one_card", "two_cards"])
+def card_pair(request, dev):
+    """Two entries of a device list: cuda:0 twice, or cuda:0 and cuda:1."""
+    if request.param == "one_card":
+        return [torch.device("cuda", 0)] * 2
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def _thread_streams(cards):
+    """A thread's streams as the threaded schedules make them: one per
+    distinct card."""
+    return {c: torch.cuda.Stream(c) for c in set(cards)}
+
+
+@contextlib.contextmanager
+def _on(streams, home):
+    """``streams`` current on their cards, ``home``'s card current."""
+    with contextlib.ExitStack() as stack:
+        for c in sorted(streams, key=lambda c: c == home):
+            stack.enter_context(torch.cuda.stream(streams[c]))
+        yield
+
+
+def test_handoff_orders_a_read_after_a_write_across_cards(card_pair):
+    """A thread at home on the first card writes there (behind a spin)
+    inside ``Handoff.access``; a thread at home on the second card reads
+    the value on the first card inside its own later access and copies it
+    home.  The read runs on the reader's stream of the first card, which
+    the access must order after the writer's event: an access that waited
+    on its current card only would read zeros."""
+    from nice_slam_torch.slam.handoff import Handoff
+
+    c0, c1 = card_pair
+    h = Handoff(card_pair)
+    writer, reader = _thread_streams(card_pair), _thread_streams(card_pair)
+    x = torch.zeros(1 << 20, device=c0)
+    torch.cuda.synchronize(c0)
+    with _on(writer, c0), h.access():
+        torch.cuda._sleep(SPIN_CYCLES)
+        x.fill_(1.0)
+    with _on(reader, c1), h.access():
+        seen = x.clone().to(c1)
+    for c in set(card_pair):
+        torch.cuda.synchronize(c)
+    assert bool((seen == 1.0).all())
+
+
+def test_handoff_hold_keeps_a_block_read_from_another_card(card_pair):
+    """A block made on the second card by a thread at home there, read by a
+    thread at home on the first card after ``hold``, keeps its memory until
+    that read has run on the reader's stream of the second card: the
+    producer drops it and allocates the same size again at once.  A
+    ``hold`` that recorded the reader's current card's stream would free
+    the block while the read still waits behind its spin."""
+    from nice_slam_torch.slam.handoff import Handoff, hold
+
+    c0, c1 = card_pair
+    h = Handoff(card_pair)
+    producer, reader = _thread_streams(card_pair), _thread_streams(card_pair)
+    n = 1 << 20
+    for c in set(card_pair):
+        torch.cuda.synchronize(c)
+    with _on(producer, c1), h.access():
+        state = torch.full((n,), 1.0, device=c1)
+    ptr = state.data_ptr()
+    with _on(reader, c0), h.access():
+        hold([state])
+        with torch.cuda.device(c1):
+            torch.cuda._sleep(SPIN_CYCLES)
+        seen = state.clone()
+    time.sleep(0.01)  # a wrongly recorded stream's event has completed by now
+    with _on(producer, c1):  # the producer's next allocation, no hand-off
+        del state
+        reused = torch.empty(n, device=c1)
+        reused.fill_(2.0)
+    for c in set(card_pair):
+        torch.cuda.synchronize(c)
+    assert reused.data_ptr() != ptr
+    assert bool((seen == 1.0).all())
+
+
 def test_tiny_loose_loop_launches_on_the_threads_streams(dev, tmp_path):
     """The loose schedule on the card: the warm-up launches on the default
     stream, then K3 only on the tracker's stream and K2 only on the
@@ -388,13 +473,14 @@ def test_tiny_loose_loop_launches_on_the_threads_streams(dev, tmp_path):
             ROOT, cfg["pretrained_decoders"][k])
     cfg["data"].update({"n_frames": 8, "output": str(tmp_path)})
     cfg["mapping"].update({"iters_first": 30, "iters": 10})
-    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+    card = torch.device("cuda", 0)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), card)
     interp.reset_launch_counts()
     slam.run()
     assert torch.isfinite(slam.estimate_c2w_list).all()
     assert slam.mapping_idx == 7 and slam.timings["tracked_frames"] == 7
     by = dict(interp.launches_by_stream)
-    ids = {name: s.cuda_stream for name, s in slam.streams.items()}
+    ids = {name: s[card].cuda_stream for name, s in slam.streams.items()}
     assert sorted(ids) == ["coarse_mapper", "mapper", "tracker"]
     default = torch.cuda.default_stream().cuda_stream
     assert len({*ids.values(), default}) == 4
@@ -404,6 +490,59 @@ def test_tiny_loose_loop_launches_on_the_threads_streams(dev, tmp_path):
         assert by[("trilinear_bwd_dgrid", ids[name])] > 0
         assert ("trilinear_bwd_dp", ids[name]) not in by
     assert ("trilinear_bwd_dgrid", ids["tracker"]) not in by
+
+
+@pytest.mark.parametrize("spatial", ["1", "0"], ids=["sharded", "ray_dp"])
+def test_tiny_loose_loop_over_a_card_pair(card_pair, spatial, tmp_path, monkeypatch):
+    """loose over a card pair, the grids sharded or with ray data
+    parallelism and the coarse mapper pinned to the second entry: every
+    frame tracked, the last mapped; each thread has a stream on every card
+    and launches only there (the warm-up on the default streams); K3 only
+    on the tracker's and the warm-up's streams, K2 only on the mappers'
+    and the warm-up's; sharded, the tracker launches K3 on every card;
+    pinned, the coarse mapper launches K2 on the second card only."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.slam.slam import NiceSLAM
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    cfg.update(coarse=True, verbose=False, sync_method="loose", meshing=None)
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(
+            ROOT, cfg["pretrained_decoders"][k])
+    cfg["data"].update({"n_frames": 8, "output": str(tmp_path)})
+    cfg["mapping"].update({"iters_first": 30, "iters": 10})
+    monkeypatch.setenv("NICE_SLAM_TORCH_SPATIAL", spatial)
+    monkeypatch.setenv("NICE_SLAM_TORCH_COARSE_DEVICE", "1")
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=card_pair)
+    assert (slam.spatial_devices is not None) == (spatial == "1")
+    interp.reset_launch_counts()
+    slam.run()
+    assert torch.isfinite(slam.estimate_c2w_list).all()
+    assert slam.mapping_idx == 7 and slam.timings["tracked_frames"] == 7
+    cards = set(card_pair)
+    owner = {}  # (device index, stream handle) -> thread
+    for c in cards:
+        owner[(c.index, torch.cuda.default_stream(c).cuda_stream)] = "MainThread"
+    for name, streams in slam.streams.items():
+        assert set(streams) == cards, name
+        for c, st in streams.items():
+            owner[(c.index, st.cuda_stream)] = name
+    assert len(owner) == 4 * len(cards)  # no stream shared
+    by = {}
+    for (k, i, sid), v in interp.launches_by_device.items():
+        th = owner[(i, sid)]  # a launch on a stream of no thread fails here
+        by[(k, i, th)] = by.get((k, i, th), 0) + v
+    assert all(th in ("tracker", "MainThread") for k, _, th in by if k == "trilinear_bwd_dp")
+    assert all(th != "tracker" for k, _, th in by if k == "trilinear_bwd_dgrid")
+    c0, c1 = card_pair
+    if spatial == "1":
+        for c in cards:
+            assert by[("trilinear_bwd_dp", c.index, "tracker")] > 0
+    else:
+        assert slam.coarse_mapper.device == c1
+        coarse = {i for k, i, th in by if th == "coarse_mapper" and k == "trilinear_bwd_dgrid"}
+        assert coarse == {c1.index}
 
 
 def _lattice_points(res, n):
