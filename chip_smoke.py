@@ -6,15 +6,28 @@
 Phases, each printing one JSON line:
 
   build    compile every source of the port, one process per source, all
-           started together: the CUDA kernels with nvcc (sm_90a), the host
+           started together: the CUDA kernels with nvcc (sm_90a: the
+           trilinear lookup K1-K3 and the decoder stage K4-K6), the host
            mesh kernels with g++;
   capture  a 2-frame run of the slice's own workload (Replica-scale room,
            first mapping 60 iterations) that records the backward kernels'
            arguments on the main path: one tracking iteration's lookups
            (K3 over the middle, fine and color grids), one color-stage
            mapping iteration's (K2 over the same three grids) and one
-           coarse-mapping iteration's (K2 over the coarse grid);
-  kernels  hold K1 trilinear_fwd, K2 trilinear_bwd_dgrid and K3
+           coarse-mapping iteration's (K2 over the coarse grid); and the
+           decoder stage's arguments as they reach K5: tracking (color
+           stage, 9.6k points, dp), mapping's middle, fine and color
+           stages (48k points; the color stage trains the color decoder,
+           so K6 runs) and the coarse mapper (48k points);
+  kernels  K4 decoder_fwd, K5 decoder_bwd and K6 decoder_wgrad_sum on each
+           captured decoder-stage call against their plain versions (the
+           output within 1e-3, the feature and weight gradients within
+           1e-3 of the plain gradient's largest entry, dp within 1e-2, a
+           point's gradient at a relu kink excepted for at most 0.1 % of
+           the points, K6 within sqrt(rows) x eps), timed as below with
+           library_ms the device
+           time of the plain cuBLAS bmm chain (its autograd backward for
+           K5, torch.sum for K6); then K1 trilinear_fwd, K2 trilinear_bwd_dgrid and K3
            trilinear_bwd_dp against their plain PyTorch versions on random
            ray points at the main path's shapes (fine grid 74x56x43x32 at
            48k mapping / 9.6k tracking points, coarse grid 11x8x7x32 at
@@ -36,14 +49,19 @@ Phases, each printing one JSON line:
            at full width on the Replica-scale synthetic room, 12 frames of
            680x1200, with every kernel's launches counted over the run
            (K1 once per iteration and once per mesher chunk, K3 once per
-           tracking iteration, K2 once per mapping iteration); it writes
+           tracking iteration, K2 once per mapping iteration; K4 once per
+           K1, K5 once per iteration, K6 once per iteration and decoder
+           that trains: the color decoder's color-stage iterations); it writes
            the final checkpoint, final_mesh.ply and final_mesh_eval_rec.ply
            at resolution 256, and each mesh must have faces;
   resume   a fresh system on the slice's config resumes from its final
            checkpoint: every grid, decoder tensor and pose equal to the
            slice's final state bit for bit, the start index n_frames;
   vis      one 680x1200 residual panel of the slice's final state
-           (render_img: nine 100k-ray chunks, one K1 launch each);
+           (render_img: nine 100k-ray chunks, one K1 and one K4 launch
+           each);
+  profile  ``nice_slam_torch.run --profile`` on three box frames: the
+           trace under <output>/torch_trace/ holds K1 and K4 events;
   quality  the 30-frame tracked box run (0.25 rad orbit, mapping iters 60,
            first 400, coarse off) for five pixel seeds: the median ATE
            against the 9.5 cm gate, every draw against 20 cm; each draw's
@@ -56,8 +74,9 @@ Phases, each printing one JSON line:
            coarse mapper run as threads, each on its own CUDA stream.  Each
            run must track frames 1-11 with finite poses, map frame 11,
            write the final checkpoint and a final mesh with faces, and
-           launch K1-K3 with exact counts (K3 = tracking iterations, K2 =
-           mapping + coarse-mapping iterations, K1 = both + mesher chunks)
+           launch K1-K6 with exact counts (K3 = tracking iterations, K2 =
+           mapping + coarse-mapping iterations, K1 = both + mesher chunks,
+           K4 = K1, K5 = all iterations, K6 = training decoder-iterations)
            on the streams they belong to: per stream, K3 = the tracker
            thread's tracking iterations, K2 = each mapper thread's mapping
            iterations, the warm-up's on the default stream; a stream that
@@ -112,7 +131,7 @@ Phases, each printing one JSON line:
            fixtures of tests/data/imageio decode to OpenCV's pixels, and
            undistort at freiburg1_desk's camera gives OpenCV's; then
            ``nice_slam_torch.run`` runs the strict loop for ten frames from
-           a 120x160 Replica-layout export (K1-K3 launched, ATE within
+           a 120x160 Replica-layout export (K1-K6 launched, ATE within
            20 cm, the checkpoint's selected_keyframes recorded); reports the
            read ms per 680x1200 frame;
   sharded  multi-device NICE-SLAM on this card, D logical devices on
@@ -125,8 +144,9 @@ Phases, each printing one JSON line:
            within K2's gate, their K3 summed within 1e-4, and the slab
            owning the most points timed against its own bound; the
            slice's 12-frame loop with the grids sharded over [cuda:0] x 4
-           (NICE_SLAM_TORCH_SPATIAL=1): every frame tracked, launches
-           exactly 4 x the slice's, the halo planes bitwise equal, both
+           (NICE_SLAM_TORCH_SPATIAL=1): every frame tracked, K1-K3
+           launches exactly 4 x the slice's and K4-K6 the slice's, the
+           halo planes bitwise equal, both
            meshes with faces, the dense final checkpoint restored by an
            unsharded system bit for bit, per_device_bytes within 1 % of
            13,110,272 B, fps and ms beside the slice's; the 30-frame box
@@ -144,9 +164,10 @@ Phases, each printing one JSON line:
            same list; (b) free with ray DP over [cuda:0] x 2 and the coarse
            mapper pinned to the last device, beside a strict run on the
            same list.  Each run: every frame tracked with finite poses,
-           the last mapped; K1-K3 launches exactly as the run's recorded
+           the last mapped; K1-K6 launches exactly as the run's recorded
            calls give them per (kernel, device, stream) (a thread's on its
-           own stream of each card, once per slab or replica; the
+           own stream of each card, K1-K3 once per slab or replica, K4-K6
+           once per replica, on the points' card when sharded; the
            warm-up's on the default streams); each thread with a stream of
            its own on every card; loose lag <= 7; the halo planes bitwise
            equal (a); the dense final checkpoint restored by a fresh
@@ -325,7 +346,9 @@ def phase_build():
 
 def phase_capture(dev):
     """Cases of the main path: (points, grids, cotangents) as the slice's
-    backward passes hand them to K2 and K3."""
+    backward passes hand them to K2 and K3, and the decoder stage's
+    arguments as they reach K5 (DEC_CASES)."""
+    from nice_slam_torch.ops import decoder_stage as DS
     from nice_slam_torch.ops import interp
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.workloads import replica_synthetic_cfg
@@ -354,13 +377,32 @@ def phase_capture(dev):
         seen["track"] = dict(keep(p, gs), grids=[g.detach().clone() for g in grids])
         return dp_multi(grids, p, gs)
 
+    dec_bwd = DS.decoder_bwd
+    dec_seen = {}
+
+    def rec_dec(p, feats, weights, decs, g, need_p, need_f, need_w):
+        label = dec_case_of(decs, need_p, need_w)
+        if label and label not in dec_seen:
+            dec_seen[label] = {
+                "p": p.detach().clone(), "feats": [f.detach().clone() for f in feats],
+                "weights": [w.detach().clone() for w in weights], "decs": decs,
+                "g": g.detach().clone(), "need_p": bool(need_p),
+                "need_f": tuple(bool(x) for x in need_f),
+                "need_w": tuple(bool(x) for x in need_w)}
+        return dec_bwd(p, feats, weights, decs, g, need_p, need_f, need_w)
+
     interp.trilinear_bwd_dgrid_multi = rec_dgrid
     interp.trilinear_bwd_dp_multi = rec_dp
+    DS.decoder_bwd = rec_dec
     try:
         slam.run()
     finally:
         interp.trilinear_bwd_dgrid_multi = dgrid_multi
         interp.trilinear_bwd_dp_multi = dp_multi
+        DS.decoder_bwd = dec_bwd
+    missing = [k for k in DEC_CASES if k not in dec_seen]
+    if missing:
+        raise AssertionError(f"no decoder-stage backward captured for {missing}")
     g = slam.state.grids
     # the color stage looks up middle, fine, color in that order
     seen["map_color"]["grids"] = [g["grid_middle"], g["grid_fine"], g["grid_color"]]
@@ -369,8 +411,12 @@ def phase_capture(dev):
     lookups = new_path_lookups(slam, dict(cfg, meshing=meshing))
     emit({"phase": "capture", "ok": True, "seconds": time.perf_counter() - t0,
           "cases": {k: {"n": v["p"].shape[0], "grids": [list(x.shape) for x in v["grids"]]}
-                    for k, v in {**cases, **lookups}.items()}})
+                    for k, v in {**cases, **lookups}.items()},
+          "decoder_cases": {k: {"n": v["p"].shape[0], "decoders": len(v["decs"]),
+                                "need_p": v["need_p"], "need_w": v["need_w"]}
+                            for k, v in dec_seen.items()}})
     slam.cfg = dict(cfg, meshing=meshing)
+    cases["decoder"] = dec_seen
     return cases, lookups, slam
 
 
@@ -599,6 +645,265 @@ def with_bounds(rows):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The decoder stage: K4 decoder_fwd, K5 decoder_bwd, K6 decoder_wgrad_sum
+# ---------------------------------------------------------------------------
+
+DEC_CASES = ("track", "map_middle", "map_fine", "map_color", "map_coarse")
+DEC_OUT_ATOL = 1e-3   # K4's (N, 4) output against its plain version (read <= 1e-5)
+DEC_GRAD_RTOL = 1e-3  # K5's feature and weight gradients, of the plain one's max abs
+DEC_DP_RTOL = 1e-2    # K5's point gradient (its factor B ~ 25-75 enters twice)
+DEC_KINK_SHARE = 1e-3  # of the points, those whose gradient may jump at a relu kink
+
+
+def reset_counts() -> None:
+    """Zero the launch counts of K1-K3 and K4-K6."""
+    from nice_slam_torch.ops import decoder_stage as DS
+    from nice_slam_torch.ops import interp
+
+    interp.reset_launch_counts()
+    DS.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    """The launches of K1-K6 since the last ``reset_counts``."""
+    from nice_slam_torch.ops import decoder_stage as DS
+    from nice_slam_torch.ops import interp
+
+    return {**interp.launch_counts, **DS.launch_counts}
+
+
+def all_by_device() -> dict:
+    """The launches of K1-K6 per (kernel, device index, stream)."""
+    from nice_slam_torch.ops import decoder_stage as DS
+    from nice_slam_torch.ops import interp
+
+    return {**interp.launches_by_device, **DS.launches_by_device}
+
+
+def k6_per_call(mcfg, plan) -> int:
+    """K6 launches of a mapping call: one per iteration and decoder that
+    trains (the fine decoder in the fine and color stages unless
+    fix_fine, the color decoder in the color stage unless fix_color)."""
+    if mcfg.coarse_mapper or not mcfg.nice:
+        return 0
+    per = {"middle": 0, "fine": int(not mcfg.fix_fine),
+           "color": int(not mcfg.fix_fine) + int(not mcfg.fix_color)}
+    return sum(per[stage] * n for stage, n in plan)
+
+
+@contextlib.contextmanager
+def recorded_core(sink):
+    """Append each optimize_map_core call to ``sink`` as (thread, coarse,
+    iterations, rays, K6 launches per device it runs on)."""
+    import inspect
+    import threading
+
+    from nice_slam_torch.slam import mapper as mapper_mod
+
+    inner = mapper_mod.optimize_map_core
+    sig = inspect.signature(inner)
+
+    def core(*a, **k):
+        b = sig.bind(*a, **k).arguments
+        res = inner(*a, **k)
+        sink.append((threading.current_thread().name, b["mcfg"].coarse_mapper,
+                     int(res[2].shape[0]), b["colors"].shape[0] * b["pixs_per_image"],
+                     k6_per_call(b["mcfg"], b["stage_plan"])))
+        return res
+
+    mapper_mod.optimize_map_core = core
+    try:
+        yield
+    finally:
+        mapper_mod.optimize_map_core = inner
+
+
+def device_total_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+    """Per-call device time of every kernel ``fn`` launches (torch.profiler),
+    for a yardstick made of many kernels: the plain decoder chain."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not us:
+        raise RuntimeError("torch.profiler recorded no kernel of the yardstick")
+    return sum(us) / 1e3 / reps
+
+
+def dec_case_of(decs, need_p, need_w):
+    """The main-path row a decoder-stage backward belongs to."""
+    if len(decs) == 3:
+        return "map_color" if any(need_w) else ("track" if need_p else None)
+    if len(decs) == 2:
+        return "map_fine"
+    return "map_middle" if decs[0].emb else "map_coarse"
+
+
+def dec_work(c, decs, need_p, need_f, need_w):
+    """Multiply-adds per point of K4 and of K5 at the true widths (the
+    93-wide embedding, 125 after the skip, 32- or 64-wide features; no
+    padding): K5 recomputes the forward, walks the blocks back (dh through
+    every hidden input, the lead's gradient where the points or B need
+    it, the primary feature's through fc_c), and forms every weight's
+    gradient once for the decoders that train."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    H = DS.HIDDEN
+    fwd = bwd = 0
+    for i, d in enumerate(decs):
+        L, f = DS.lead_width(d, c), DS.fw(d, c)
+        emb = 3 * DS.EMBED if d.emb else 0
+        one = L * H + 3 * H * H + (L + H) * H + 5 * f * H + H * d.out + emb
+        fwd += one
+        lead = (need_p or need_w[i]) if d.emb else need_f[d.feat]
+        feat = d.fc and need_f[d.feat]
+        if need_w[i] or lead or feat:
+            bwd += (one + H * d.out + 4 * H * H + (2 * L * H + emb if lead else 0)
+                    + (5 * c * H if feat else 0) + (one if need_w[i] else 0))
+    return fwd, bwd
+
+
+def held_per_point(what, got, ref, rtol):
+    """A per-point gradient (N, k) against the plain one: every point within
+    rtol x the plain gradient's largest entry, but for at most
+    DEC_KINK_SHARE of the points, and the whole within rtol in L2.  A
+    pre-activation within rounding of relu's kink can take the other
+    branch in one of two float32 evaluations and move its point's gradient
+    by that unit's whole term (at random weights and 48k points about a
+    dozen units do); the weight gradients, sums over the points, feel such
+    a point only as a 1/N share."""
+    tol = rtol * float(ref.abs().max())
+    e = (got - ref).abs().amax(dim=1)
+    kinks = int((e > tol).sum())
+    l2 = float((got - ref).norm() / ref.norm())
+    return {"what": what, "err": float(e.max()), "tol": tol, "kinks": kinks, "l2": l2,
+            "ok": kinks <= max(1, int(DEC_KINK_SHARE * e.numel())) and l2 <= rtol}
+
+
+def decoder_rows(label, c):
+    """K4, K5 and (where a decoder trains) K6 on one captured decoder-stage
+    call, each against its plain version: the output within DEC_OUT_ATOL,
+    the feature and weight gradients within DEC_GRAD_RTOL of the plain
+    gradient's largest entry, dp within DEC_DP_RTOL, K6's sum within
+    sqrt(rows) x eps of the largest sum of |partials| (a float32 sum's
+    rounding as a random walk; the worst case, rows x eps, read 170x
+    loose); ms (CUDA events, host issue included; K5's
+    with its K6 launches and allocations), device_ms (the kernel's own),
+    plain_ms, and library_ms: the device time of every kernel of the
+    cuBLAS bmm chain (the plain forward; for K5 autograd's backward of it;
+    for K6 torch.sum).  Bytes: the points, the features, the cotangent,
+    the outputs and each weight once (K5: and its partials written; K6:
+    the partials read and the sum written)."""
+    import torch
+
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    p, feats, weights, decs, g = c["p"], c["feats"], c["weights"], c["decs"], c["g"]
+    need_p, need_f, need_w = c["need_p"], c["need_f"], c["need_w"]
+    n, C = p.shape[0], feats[0].shape[1]
+    base = dict(case=label, n=n, decoders=len(decs))
+    fwd_mac, bwd_mac = dec_work(C, decs, need_p, need_f, need_w)
+    w_b = sum(w.numel() for w in weights) * 4
+    f_b = sum(f.numel() for f in feats) * 4
+
+    def fwd():
+        return DS.decoder_fwd(p, feats, weights, decs)
+
+    def fwd_plain():
+        return DS.decoder_fwd_plain(p, feats, weights, decs)
+
+    before = DS.launch_counts["decoder_fwd"]
+    err = float((fwd() - fwd_plain()).abs().max())
+    if DS.launch_counts["decoder_fwd"] != before + 1:
+        raise AssertionError(f"K4 {label}: not one launch")
+    if not err <= DEC_OUT_ATOL:
+        raise AssertionError(f"K4 {label}: max abs err {err} > {DEC_OUT_ATOL}")
+    rows = [dict(base, kernel="decoder_fwd", max_abs_err=err, tol=DEC_OUT_ATOL,
+                 bytes=n * 12 + f_b + n * 16 + w_b, flops=2 * fwd_mac * n,
+                 ms=cuda_time_ms(fwd), device_ms=device_time_ms(fwd, "decoder_fwd_kernel"),
+                 plain_ms=cuda_time_ms(fwd_plain, 5), library_ms=device_total_ms(fwd_plain))]
+
+    def bwd():
+        return DS.decoder_bwd(p, feats, weights, decs, g, need_p, need_f, need_w)
+
+    def bwd_plain():
+        return DS.decoder_bwd_plain(p, feats, weights, decs, g, need_p, need_f, need_w)
+
+    parts, inner_sum = [], DS.decoder_wgrad_sum
+    DS.decoder_wgrad_sum = lambda part: (parts.append(part), inner_sum(part))[1]
+    try:
+        got = bwd()
+    finally:
+        DS.decoder_wgrad_sum = inner_sum
+    exp = bwd_plain()
+    held = []
+    if need_p:
+        held.append(held_per_point("dp", got[0], exp[0], DEC_DP_RTOL))
+    for i, (a, b) in enumerate(zip(got[1], exp[1])):
+        if (a is None) != (b is None):
+            raise AssertionError(f"K5 {label}: feature {i} gradient presence differs")
+        if a is not None:
+            held.append(held_per_point(f"dfeat{i}", a, b, DEC_GRAD_RTOL))
+    for i, (a, b) in enumerate(zip(got[2], exp[2])):
+        if (a is None) != (b is None):
+            raise AssertionError(f"K5 {label}: decoder {i} weight gradient presence differs")
+        if a is not None:
+            ref = DS.unpack(b, decs[i], C)
+            for name, x in DS.unpack(a, decs[i], C).items():
+                err = float((x - ref[name]).abs().max())
+                tol = DEC_GRAD_RTOL * float(ref[name].abs().max())
+                held.append({"what": f"dec{i}.{name}", "err": err, "tol": tol,
+                             "kinks": 0, "ok": err <= tol})
+    bad = [h for h in held if not h["ok"]]
+    if bad:
+        raise AssertionError(f"K5 {label}: above tolerance: {bad}")
+    worst = max(held, key=lambda h: h["err"] / h["tol"] if h["tol"] else 0.0)
+    what, err, tol = worst["what"], worst["err"], worst["tol"]
+    leaves = [p.detach().requires_grad_(need_p)]
+    leaves += [f.detach().requires_grad_(bool(nf)) for f, nf in zip(feats, need_f)]
+    leaves += [w.detach().requires_grad_(bool(nw)) for w, nw in zip(weights, need_w)]
+    graph = DS.decoder_fwd_plain(leaves[0], leaves[1:1 + len(feats)],
+                                 leaves[1 + len(feats):], decs)
+    wanted = [x for x in leaves if x.requires_grad]
+    out_b = sum(x.numel() for x in got[1] if x is not None) * 4 + (n * 12 if need_p else 0)
+    rows.append(dict(base, kernel="decoder_bwd", max_abs_err=err, tol=tol, nearest=what,
+                     kink_points=sum(h["kinks"] for h in held),
+                     held={h["what"]: {k: v for k, v in h.items() if k != "what"}
+                           for h in held},
+                     bytes=n * 28 + f_b + out_b + w_b + sum(x.numel() * 4 for x in parts),
+                     flops=2 * bwd_mac * n, ms=cuda_time_ms(bwd),
+                     device_ms=device_time_ms(bwd, "decoder_bwd_kernel"),
+                     plain_ms=cuda_time_ms(bwd_plain, 5),
+                     library_ms=device_total_ms(lambda: torch.autograd.grad(
+                         graph, wanted, g, retain_graph=True))))
+    del graph, wanted
+    for part in parts:
+        eps = torch.finfo(torch.float32).eps
+        s = DS.decoder_wgrad_sum(part)
+        err = float((s.double() - part.double().sum(0)).abs().max())
+        tol = part.shape[0] ** 0.5 * eps * float(part.abs().double().sum(0).max())
+        if not err <= tol:
+            raise AssertionError(f"K6 {label}: max abs err {err} > {tol}")
+        rows.append(dict(base, kernel="decoder_wgrad_sum", max_abs_err=err, tol=tol,
+                         rows=part.shape[0], cols=part.shape[1],
+                         bytes=(part.numel() + part.shape[1]) * 4, flops=part.numel(),
+                         ms=cuda_time_ms(lambda: DS.decoder_wgrad_sum(part)),
+                         device_ms=device_time_ms(lambda: DS.decoder_wgrad_sum(part),
+                                                  "wgrad_sum_kernel"),
+                         plain_ms=cuda_time_ms(lambda: DS.decoder_wgrad_sum_plain(part), 5),
+                         library_ms=device_total_ms(lambda: part.sum(0))))
+    return rows
+
+
 RANDOM_CASES = (("fine_map", (74, 56, 43, 32), 1000),
                 ("fine_track", (74, 56, 43, 32), 200),
                 ("coarse_map", (11, 8, 7, 32), 1000))
@@ -609,6 +914,9 @@ def phase_kernels(dev, cases, lookups):
 
     gen = torch.Generator().manual_seed(0)
     rows = []
+    dec_cases = cases.pop("decoder")
+    for label in DEC_CASES:
+        rows += decoder_rows(label, dec_cases[label])
     for label, shape, n_rays in RANDOM_CASES:
         grid = torch.randn(shape, generator=gen).to(dev)
         p = ray_points(n_rays, gen, dev)
@@ -694,7 +1002,6 @@ def phase_slice(dev):
 
     import torch
 
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import replica_synthetic_cfg
@@ -709,9 +1016,11 @@ def phase_slice(dev):
     count_iterations(slam.mapper, iters, "mapping")
     count_iterations(slam.coarse_mapper, iters, "coarse_mapping")
     torch.cuda.reset_peak_memory_stats()
-    interp.reset_launch_counts()
-    slam.run()
-    counts = dict(interp.launch_counts)
+    reset_counts()
+    calls = []
+    with recorded_core(calls):
+        slam.run()
+    counts = all_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     est = slam.estimate_c2w_list.cpu().numpy()
@@ -753,6 +1062,14 @@ def phase_slice(dev):
     if counts["trilinear_bwd_dgrid"] != map_iters:
         raise AssertionError(f"K2 launched {counts['trilinear_bwd_dgrid']} times "
                              f"for {map_iters} mapping iterations")
+    # the decoder stage: one K4 per lookup Function, one K5 per iteration,
+    # one K6 per iteration and decoder that trains
+    k6 = sum(c[4] for c in calls)
+    if (counts["decoder_fwd"], counts["decoder_bwd"], counts["decoder_wgrad_sum"]) != \
+            (counts["trilinear_fwd"], track_iters + map_iters, k6):
+        raise AssertionError(f"K4-K6 launched {counts} for {counts['trilinear_fwd']} "
+                             f"lookups, {track_iters + map_iters} iterations and {k6} "
+                             "training decoder-iterations")
     grids = {k: list(v.shape) for k, v in slam.state.grids.items()}
     record = {"phase": "slice", "ok": True, "frames": slam.n_img,
           "H": slam.H, "W": slam.W, "grids": grids,
@@ -780,7 +1097,7 @@ def phase_slice(dev):
           "k1_launches_per_iter": (counts["trilinear_fwd"] - mesh_chunks)
           / (track_iters + map_iters),
           "k2_launches_per_mapping_iter": counts["trilinear_bwd_dgrid"] / map_iters,
-          "peak_mem_gib": peak_gib}
+          "k6_launches": k6, "peak_mem_gib": peak_gib}
     emit(record)
     return counts, slam, cfg, record
 
@@ -832,7 +1149,6 @@ def phase_vis(dev, done):
 
     import torch
 
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.utils.visualizer import Visualizer
 
     out = os.path.join(HERE, "output", "chip_smoke", "vis")
@@ -840,19 +1156,60 @@ def phase_vis(dev, done):
     idx = done.n_img - 1
     _, color, depth, _ = done.frame_reader[idx]
     torch.cuda.synchronize()
-    interp.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     path = vis.vis(idx, 0, depth, color, done.estimate_c2w_list[idx], done.state)
     seconds = time.perf_counter() - t0
-    counts = dict(interp.launch_counts)
+    counts = all_counts()
     chunks = math.ceil(done.H * done.W / done.rcfg.ray_batch_size)
     if path is None or not os.path.exists(path):
         raise AssertionError(f"no panel written (got {path})")
-    if counts["trilinear_fwd"] != chunks or counts["trilinear_bwd_dgrid"] or \
-            counts["trilinear_bwd_dp"]:
-        raise AssertionError(f"the panel launched {counts}, not {chunks} K1 only")
+    want = {"trilinear_fwd": chunks, "decoder_fwd": chunks}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"the panel launched {counts}, not {chunks} K1 and K4 only")
     emit({"phase": "vis", "ok": True, "path": path, "H": done.H, "W": done.W,
           "ray_chunks": chunks, "seconds": seconds, "launches": counts})
+
+
+def phase_profile(dev):
+    """``nice_slam_torch.run --profile`` on three frames of the box scene
+    at 120x160: the torch.profiler trace it writes under
+    <output>/torch_trace/ holds K1's and K4's kernels."""
+    import glob
+
+    from nice_slam_torch.run import main as run_main
+
+    out = os.path.join(HERE, "output", "chip_smoke", "profile")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    yaml = os.path.join(out, "box.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"""inherit_from: {HERE}/configs/Synthetic/box.yaml
+verbose: false
+meshing: null
+mapping: {{iters_first: 30, iters: 10, mesh_freq: 1000000, ckpt_freq: 1000000}}
+data: {{n_frames: 3, output: {out}/run}}
+""")
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(HERE)  # box.yaml names its pretrained decoders from the root
+    try:
+        run_main([yaml, "--profile", "--device", str(dev)])
+    finally:
+        os.chdir(cwd)
+    traces = glob.glob(os.path.join(out, "run", "torch_trace", "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}, not one trace")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels)
+             for k in ("trilinear_fwd", "decoder_fwd_kernel")}
+    if not all(found.values()):
+        raise AssertionError(f"the trace's kernels lack K1 or K4: {found}")
+    emit({"phase": "profile", "ok": True, "trace": traces[0],
+          "trace_bytes": os.path.getsize(traces[0]), "events": len(events),
+          "kernel_events": found, "seconds": time.perf_counter() - t0})
 
 
 def phase_quality(dev):
@@ -919,6 +1276,7 @@ def threaded_run(dev, sync):
 
     import torch
 
+    from nice_slam_torch.ops import decoder_stage as DS
     from nice_slam_torch.ops import interp
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
@@ -950,10 +1308,12 @@ def threaded_run(dev, sync):
     slam.track_one = tracked
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    interp.reset_launch_counts()
-    slam.run()
-    counts = dict(interp.launch_counts)
-    by = dict(interp.launches_by_stream)
+    reset_counts()
+    calls = []
+    with recorded_core(calls):
+        slam.run()
+    counts = all_counts()
+    by = {**interp.launches_by_stream, **DS.launches_by_stream}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n, t = slam.n_img, slam.timings
@@ -990,16 +1350,20 @@ def threaded_run(dev, sync):
         raise AssertionError(f"{sync}: launches {counts} for {all_track} tracking "
                              f"+ {all_map} mapping iterations + {mesh_chunks} "
                              "mesher chunks")
+    k4, k5, k6 = "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum"
     want = {}  # (kernel, thread) -> launches
     for thread, sid in ids.items():
         tr = track_iters.get(thread, 0)
         mp = map_iters.get(thread, 0) + coarse_iters.get(thread, 0)
         want[(k3, thread)] = tr
         want[(k2, thread)] = mp
+        want[(k5, thread)] = tr + mp
+        want[(k6, thread)] = sum(c[4] for c in calls if c[0] == thread)
         if thread != "mapper":  # the mapper's stream also runs the meshes
             want[(k1, thread)] = tr + mp
+        want[(k4, thread)] = by.get((k1, sid), 0)  # one K4 per lookup Function
     got = {(k, thread): by.get((k, sid), 0) for thread, sid in ids.items()
-           for k in (k1, k2, k3)}
+           for k in (k1, k2, k3, k4, k5, k6)}
     bad = {key: (got[key], v) for key, v in want.items() if got[key] != v}
     stray = {key: v for key, v in by.items() if key[1] not in ids.values()}
     if bad or stray or got[(k1, "mapper")] <= 0:
@@ -1439,7 +1803,7 @@ def phase_readers(dev):
     and are held to the generator; the OpenCV-written fixtures of
     tests/data/imageio decode to OpenCV's pixels; then the strict loop runs
     ten frames from a Replica-layout export through the CLI's entry point
-    (``nice_slam_torch.run.main``), launching K1-K3."""
+    (``nice_slam_torch.run.main``), launching K1-K6."""
     import hashlib
 
     import numpy as np
@@ -1447,7 +1811,6 @@ def phase_readers(dev):
     import yaml
 
     from nice_slam_torch import run as cli
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.tools import export_synthetic as tex
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import box_quality_cfg
@@ -1526,9 +1889,9 @@ def phase_readers(dev):
     cfg_path = os.path.join(out, "box_replica.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
-    interp.reset_launch_counts()
+    reset_counts()
     slam = cli.main([cfg_path, "--input_folder", loop_dir])
-    counts = dict(interp.launch_counts)
+    counts = all_counts()
     if type(slam.frame_reader).__name__ != "Replica" or slam.n_img != READERS_LOOP_FRAMES:
         raise AssertionError(f"the loop read {slam.n_img} frames through "
                              f"{type(slam.frame_reader).__name__}, not Replica")
@@ -1661,14 +2024,13 @@ def phase_pretrain(dev):
     from nice_slam_torch.config import load_config
     from nice_slam_torch.models.pretrain import load_pretrain
     from nice_slam_torch.models.scene import build_scene
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.tools import pretrain_decoders as P
 
     out = os.path.join(HERE, "output", "chip_smoke", "pretrain")
     shutil.rmtree(out, ignore_errors=True)
     seen, restore = pretrain_captures()
     torch.cuda.synchronize()
-    interp.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     try:
         dec, losses = P.pretrain(PRETRAIN_SCENES, PRETRAIN_STEPS, PRETRAIN_SAMPLES,
@@ -1677,12 +2039,12 @@ def phase_pretrain(dev):
     finally:
         restore()
     seconds = time.perf_counter() - t0
-    counts = dict(interp.launch_counts)
+    counts = all_counts()
     steps = PRETRAIN_SCENES * len(P.STAGES) * PRETRAIN_STEPS
     failed = []
-    if counts != {"trilinear_fwd": steps, "trilinear_bwd_dgrid": steps,
-                  "trilinear_bwd_dp": 0}:
-        failed.append(f"launches {counts}, not K1 = K2 = {steps} and K3 = 0")
+    # every step trains its decoder: one K4, one K5 and one K6
+    if counts != {**dict.fromkeys(counts, steps), "trilinear_bwd_dp": 0}:
+        failed.append(f"launches {counts}, not K3 = 0 and {steps} of each other")
     if not np.isfinite(losses).all():
         failed.append("non-finite losses")
     first = losses[..., :PRETRAIN_WINDOW].mean(axis=-1)
@@ -1744,7 +2106,6 @@ def phase_envelope(dev):
     both, plus the final meshes' chunks."""
     import math
 
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.slam import mapper as M
     from nice_slam_torch.tools import track_envelope as E
 
@@ -1758,7 +2119,7 @@ def phase_envelope(dev):
         iters["mapping"] += int(res[2].shape[0])
         return res
 
-    interp.reset_launch_counts()
+    reset_counts()
     M.Mapper.optimize_map = counted
     t0 = time.perf_counter()
     try:
@@ -1768,7 +2129,7 @@ def phase_envelope(dev):
     finally:
         M.Mapper.optimize_map = inner
     seconds = time.perf_counter() - t0
-    counts = dict(interp.launch_counts)
+    counts = all_counts()
     cfg = E.base_cfg()
     track_iters = len(rows) * (ENVELOPE_FRAMES - 1) * cfg["tracking"]["iters"]
     by = {}
@@ -1790,7 +2151,9 @@ def phase_envelope(dev):
                       f"deg/frame, default up to {max_ok(by['default'])}")
     if counts["trilinear_bwd_dp"] != track_iters or \
             counts["trilinear_bwd_dgrid"] != iters["mapping"] or \
-            counts["trilinear_fwd"] <= track_iters + iters["mapping"]:
+            counts["trilinear_fwd"] <= track_iters + iters["mapping"] or \
+            counts["decoder_fwd"] != counts["trilinear_fwd"] or \
+            counts["decoder_bwd"] != track_iters + iters["mapping"]:
         failed.append(f"launches {counts} for {track_iters} tracking and "
                       f"{iters['mapping']} mapping iterations")
     emit({"phase": "envelope", "ok": not failed, "frames": ENVELOPE_FRAMES,
@@ -1812,19 +2175,18 @@ def phase_landscape(dev):
     evaluation and no K2 or K3."""
     import math
 
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.tools import loss_landscape as L
 
     tour = os.path.join(HERE, "output", "chip_smoke", "gt_tour")
     record = os.path.join(HERE, "output", "chip_smoke", "landscape.json")
-    interp.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     book = L.main(["--out", tour, "--frames", *LANDSCAPE_FRAMES,
                    "--deltas_cm", *LANDSCAPE_DELTAS_CM, "--pixels", LANDSCAPE_PIXELS,
                    "--n_frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
                    "--record", record, "--device", "cuda:0"])
     seconds = time.perf_counter() - t0
-    counts = dict(interp.launch_counts)
+    counts = all_counts()
     evals = len(LANDSCAPE_FRAMES) * 3 * len(LANDSCAPE_DELTAS_CM)
     failed = []
     if sorted(book) != sorted(LANDSCAPE_FRAMES):
@@ -1836,9 +2198,9 @@ def phase_landscape(dev):
             if len(r["losses"]) != len(LANDSCAPE_DELTAS_CM) or \
                     not all(math.isfinite(v) for v in r["losses"]):
                 failed.append(f"frame {frame} {dof}: losses {r['losses']}")
-    if counts != {"trilinear_fwd": evals, "trilinear_bwd_dgrid": 0,
-                  "trilinear_bwd_dp": 0}:
-        failed.append(f"launches {counts}, not {evals} K1 only")
+    want = {"trilinear_fwd": evals, "decoder_fwd": evals}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        failed.append(f"launches {counts}, not {evals} K1 and K4 only")
     emit({"phase": "landscape", "ok": not failed, "checkpoint_of": "gt_tour",
           "frames": list(LANDSCAPE_FRAMES), "deltas_cm": list(LANDSCAPE_DELTAS_CM),
           "pixels": int(LANDSCAPE_PIXELS), "evaluations": evals,
@@ -2137,7 +2499,6 @@ def sharded_loop(dev, devices, strict, out_name):
 
     import torch
 
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.parallel import grid_sharding as gs
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
@@ -2165,9 +2526,11 @@ def sharded_loop(dev, devices, strict, out_name):
     for d in set(devices):
         torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(d)
-    interp.reset_launch_counts()
-    slam.run()
-    counts = dict(interp.launch_counts)
+    reset_counts()
+    calls = []
+    with recorded_core(calls):
+        slam.run()
+    counts = all_counts()
     peak = {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30
             for d in sorted(set(devices), key=str)}
     if not torch.isfinite(slam.estimate_c2w_list).all() or \
@@ -2182,8 +2545,13 @@ def sharded_loop(dev, devices, strict, out_name):
     for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
         verts, _ = mesh_stats(os.path.join(out, "mesh", name))
         mesh_chunks += math.ceil(lattice / chunk) + math.ceil(len(verts) / chunk)
+    # K1-K3 once per slab; the decoder stage once per call, on the points'
+    # device
     want = {"trilinear_fwd": D * (track_iters + map_iters + mesh_chunks),
-            "trilinear_bwd_dp": D * track_iters, "trilinear_bwd_dgrid": D * map_iters}
+            "trilinear_bwd_dp": D * track_iters, "trilinear_bwd_dgrid": D * map_iters,
+            "decoder_fwd": track_iters + map_iters + mesh_chunks,
+            "decoder_bwd": track_iters + map_iters,
+            "decoder_wgrad_sum": sum(c[4] for c in calls)}
     if counts != want:
         raise AssertionError(f"sharded loop launches {counts}, expected {want} "
                              f"(D = {D} per stage call)")
@@ -2455,14 +2823,15 @@ def chunk_sizes(n: int, chunk: int):
 
 
 def expected_launches(slam, devices, sharded, tracks, calls, meshes):
-    """The K1-K3 launches a run's recorded calls make, per (kernel, device
+    """The K1-K6 launches a run's recorded calls make, per (kernel, device
     index, thread): ``tracks`` (thread, lag) per tracked frame, ``calls``
-    (thread, coarse, iterations, rays) per mapping call, ``meshes``
+    (thread, coarse, iterations, rays, K6 launches) per mapping call, ``meshes``
     (thread, path) per mesh written.  Returns them and each mesh's faces."""
     import collections
 
     D = len(devices)
     k1, k2, k3 = "trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp"
+    k4, k5, k6 = "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum"
     want = collections.Counter()
 
     def add(kernels, th, devs, times):
@@ -2470,15 +2839,20 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
             for k in kernels:
                 want[(k, d.index, th)] += times
 
+    # K1-K3 run once per slab (sharded) or replica; the decoder stage once
+    # per replica, on the points' device when the grids are sharded
     first = [devices[0]]
     for th, _ in tracks:
         add((k1, k3), th, devices if sharded else first, slam.tcfg.iters)
-    for th, coarse, iters, rays in calls:
+        add((k4, k5), th, first, slam.tcfg.iters)
+    for th, coarse, iters, rays, k6_calls in calls:
         if sharded or (not coarse and rays % D == 0):
             devs = devices
         else:
             devs = [devices[-1]] if coarse else first
         add((k1, k2), th, devs, iters)
+        add((k4, k5), th, first if sharded else devs, iters)
+        add((k6,), th, first if sharded else devs, k6_calls)
     lattice = slam.mesher.resolution ** 3
     chunk = min(slam.rcfg.points_batch_size, lattice)
     faces = {}
@@ -2486,20 +2860,20 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
         verts, f = mesh_stats(path)
         faces[os.path.basename(path)] = len(f)
         for size in chunk_sizes(lattice, chunk) + chunk_sizes(len(verts), chunk):
-            add((k1,), th, devices if sharded or size % D == 0 else first, 1)
+            devs = devices if sharded or size % D == 0 else first
+            add((k1,), th, devs, 1)
+            add((k4,), th, first if sharded else devs, 1)
     if "final_mesh.ply" not in faces:
         raise AssertionError("no final mesh")
     return want, faces
 
 
 def check_launches(slam, devices, sharded, tracks, calls, meshes, tag):
-    """``interp.launches_by_device`` against ``expected_launches``: a
-    thread's launches on its own stream of each card, the calling thread's
-    on the card's default stream, and nothing else.  Returns each mesh's
-    faces."""
+    """The launches per (kernel, device, stream) against
+    ``expected_launches``: a thread's launches on its own stream of each
+    card, the calling thread's on the card's default stream, and nothing
+    else.  Returns each mesh's faces."""
     import torch
-
-    from nice_slam_torch.ops import interp
 
     want, faces = expected_launches(slam, devices, sharded, tracks, calls, meshes)
 
@@ -2509,8 +2883,8 @@ def check_launches(slam, devices, sharded, tracks, calls, meshes, tag):
             return torch.cuda.default_stream(c).cuda_stream
         return slam.streams[th][c].cuda_stream
 
-    by = dict(interp.launches_by_device)
-    want_by = {(k, idx, sid(th, idx)): v for (k, idx, th), v in want.items()}
+    by = all_by_device()
+    want_by = {(k, idx, sid(th, idx)): v for (k, idx, th), v in want.items() if v}
     if by != want_by:
         diff = {key: (by.get(key, 0), want_by.get(key, 0))
                 for key in set(by) | set(want_by) if by.get(key, 0) != want_by.get(key, 0)}
@@ -2539,12 +2913,13 @@ def check_streams(slam, cards, tag):
 
 def devices_run(devices, sync, mode, out_name):
     """The slice's 12 frames under ``sync`` over ``devices``, with the grids
-    sharded (``mode`` 'sharded': K1-K3 once per slab) or with ray data
+    sharded (``mode`` 'sharded': K1-K3 once per slab, K4-K6 once per call
+    on the first device) or with ray data
     parallelism and the coarse mapper pinned to the last device ('ray_dp':
     a main mapping iteration on every device when its rays divide evenly,
     a mesher chunk likewise, a coarse iteration on the pinned device, a
     tracking iteration on the first).  Every frame tracked with finite
-    poses and the last one mapped; K1-K3 launched exactly as the run's own
+    poses and the last one mapped; K1-K6 launched exactly as the run's own
     calls, recorded per thread, give per (kernel, device, stream): a
     thread's launches on its stream of that card, the warm-up's (and the
     strict loop's) on the card's default stream; each thread with a
@@ -2554,14 +2929,11 @@ def devices_run(devices, sync, mode, out_name):
     final meshes with faces.  Returns the record, with each card's peak
     memory."""
     import collections
-    import inspect
     import threading
 
     import torch
 
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.parallel import grid_sharding as gs
-    from nice_slam_torch.slam import mapper as mapper_mod
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import replica_synthetic_cfg
@@ -2599,28 +2971,15 @@ def devices_run(devices, sync, mode, out_name):
         meshes.append((thread(), path))
         return inner_mesh(path, *a, **k)
 
-    inner_core = mapper_mod.optimize_map_core
-    sig = inspect.signature(inner_core)
-
-    def core(*a, **k):
-        b = sig.bind(*a, **k).arguments
-        res = inner_core(*a, **k)
-        rays = b["colors"].shape[0] * b["pixs_per_image"]
-        calls.append((thread(), b["mcfg"].coarse_mapper, int(res[2].shape[0]), rays))
-        return res
-
     slam.track_one, slam._mesh = tracked, meshed
     cards = sorted(set(devices), key=str)
     for c in cards:
         torch.cuda.synchronize(c)
         torch.cuda.reset_peak_memory_stats(c)
-    interp.reset_launch_counts()
-    mapper_mod.optimize_map_core = core
-    try:
+    reset_counts()
+    with recorded_core(calls):
         slam.run()
-    finally:
-        mapper_mod.optimize_map_core = inner_core
-    counts = dict(interp.launch_counts)
+    counts = all_counts()
     peak = {str(c): torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
 
     n, t = slam.n_img, slam.timings
@@ -2661,7 +3020,7 @@ def devices_run(devices, sync, mode, out_name):
     if diff:
         raise AssertionError(f"{tag}: the checkpoint restored differently: {diff}")
     iters = collections.Counter()
-    for th, coarse, it, _ in calls:
+    for th, coarse, it, _, _ in calls:
         iters[f"{'coarse_' if coarse else ''}mapping@{th}"] += it
     for th, _ in tracks:
         iters[f"tracking@{th}"] += slam.tcfg.iters
@@ -2678,7 +3037,7 @@ def devices_run(devices, sync, mode, out_name):
             "ate_cm": 100 * ate_rmse(est, slam.gt_c2w_list),
             "iters": dict(iters), "launches": counts,
             "launches_by_device_stream": {f"{k}@cuda:{i}/{s}": v for (k, i, s), v
-                                          in sorted(interp.launches_by_device.items())},
+                                          in sorted(all_by_device().items())},
             "streams": {name: {str(c): s.cuda_stream for c, s in st.items()}
                         for name, st in slam.streams.items()},
             "meshes": mesh_faces, "resumed_bitwise": True, "halo_bitwise": sharded}
@@ -2736,14 +3095,25 @@ def phase_threaded_sharded(dev, sharded_loop_rec, strict_median_cm):
 
 # kernel -> (TPU-side code it replaces: the Pallas kernel first where there
 # is one, then the JAX device code; the case its line reports: each kernel
-# at a captured main-path launch)
+# at a captured main-path launch; its source)
+TRILINEAR_CU = "nice_slam_torch/csrc/trilinear.cu"
+DECODER_CU = "nice_slam_torch/csrc/decoder_stage.cu"
+DECODERS_PY = "nice_slam_tpu/models/decoders.py"
 KERNEL_META = {
     "trilinear_fwd": ("nice_slam_tpu/ops/interp.py:141, "
-                      "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color"),
+                      "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color", TRILINEAR_CU),
     "trilinear_bwd_dgrid": ("scripts/exp_scatter.py:177, nice_slam_tpu/ops/interp.py:186, "
-                            "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color"),
+                            "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color",
+                            TRILINEAR_CU),
     "trilinear_bwd_dp": ("nice_slam_tpu/ops/interp.py:321, "
-                         "nice_slam_tpu/parallel/grid_sharding.py:108", "track"),
+                         "nice_slam_tpu/parallel/grid_sharding.py:108", "track", TRILINEAR_CU),
+    "decoder_fwd": (f"{DECODERS_PY}:371 apply_nice_stage_batched, :250 apply_mlp, "
+                    ":298 apply_mlp_no_xyz", "map_color", DECODER_CU),
+    "decoder_bwd": (f"{DECODERS_PY}:371 apply_nice_stage_batched, :250 apply_mlp, "
+                    ":298 apply_mlp_no_xyz (their autodiff)", "map_color", DECODER_CU),
+    "decoder_wgrad_sum": (f"{DECODERS_PY}:371 apply_nice_stage_batched (the weight "
+                          "gradient's sum over points in its autodiff)", "map_color",
+                          DECODER_CU),
 }
 # K1 on the mesher's and renderer's paths; K1 and K2 on the pretrainer's
 NEW_PATH_CASES = ("mesh_fine", "render_color", "pretrain_coarse", "pretrain_fine")
@@ -2767,6 +3137,7 @@ def main() -> int:
         phase_resume(dev, done, cfg)
         phase_vis(dev, done)
         del done
+        phase_profile(dev)
         strict_median = phase_quality(dev)
         phase_threaded(dev, strict)
         phase_threaded_quality(dev, strict_median)
@@ -2792,7 +3163,7 @@ def main() -> int:
         traceback.print_exc()
         return 1
     kernels = []
-    for name, (replaces, case) in KERNEL_META.items():
+    for name, (replaces, case, source) in KERNEL_META.items():
         r = next(r for r in rows if r["kernel"] == name and r["case"] == case)
         other = {x["case"]: {k: x[k] for k in ("n", "grids", "ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms", "max_abs_err")}
@@ -2802,15 +3173,18 @@ def main() -> int:
                                                  "bound_by", "library_ms", "max_abs_err")}
                    for x in window_rows if x["kernel"] == name}
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "nice_slam_torch/csrc/trilinear.cu", "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "case": case, "launches": counts[name],
             "max_abs_err": max(x["max_abs_err"] for x in rows + window_rows
                                if x["kernel"] == name),
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **({"new_paths": other} if other else {}),
-            "window_cases": windows,
+            **({"window_cases": windows} if windows else {}),
+            **({"main_path_cases": {x["case"]: {k: x[k] for k in (
+                "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")} for x in rows if x["kernel"] == name}}
+               if name.startswith("decoder") else {}),
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     print(card, flush=True)

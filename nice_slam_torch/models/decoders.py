@@ -13,7 +13,8 @@ parameter tree converts leaf for leaf.
                          middle occ, fine -> fine + middle occ, color -> rgb
                          of the color head + fine + middle occ;
   * ``apply_nice_stage_batched``  the fine/color stages' 2-3 decoders as one
-                         batched matmul chain on 128-wide zero-padded inputs;
+                         call of the decoder stage (``ops/decoder_stage.py``:
+                         the hand-written kernels K4-K6 on the card);
   * ``imap_spec``, ``apply_imap``  the iMAP* model: one 256-wide, 4-block
                          MLP on the Fourier embedding, no grids, rgb +
                          volume density out.
@@ -26,15 +27,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from nice_slam_torch.ops.interp import sample_grid_feature, sample_grid_features
+from nice_slam_torch.ops import decoder_stage as DS
+from nice_slam_torch.ops.interp import sample_grid_features
 
 Params = Dict[str, Any]
 
 FOURIER_EMBED_SIZE = 93
 FOURIER_SCALE = 25.0
-_BATCH_IN_WIDTH = 128  # padded layer-input width (93 embed + 32 hidden -> 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,26 +156,34 @@ def _dense(layer: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ layer["w"] + layer["b"]
 
 
+def _grid_decoder(params: Params, spec: MLPSpec, p: torch.Tensor,
+                  grids: Dict[str, torch.Tensor], bound: torch.Tensor) -> torch.Tensor:
+    """One NICE decoder through the decoder stage: its grid lookup (with
+    the middle grid for the fine decoder's concat), then K4/K5 -> (N,)
+    occupancy or (N, 4) rgb + occ."""
+    names = ["grid_" + spec.name] + (["grid_middle"] if spec.concat_feature else [])
+    feats = sample_grid_features([grids[k] for k in names], p, bound)
+    dec = DS.decoder_of(spec, 0, 1 if spec.concat_feature else -1)
+    out = DS.decoder_stage(p, [dec], feats, [DS.pack(params, dec, spec.c_dim)])
+    return out if spec.color else out[:, 3]
+
+
 def apply_mlp(params: Params, spec: MLPSpec, p: torch.Tensor,
               grids: Optional[Dict[str, torch.Tensor]] = None,
               bound: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder on (N, 3) world points -> (N,) occupancy or (N, 4)
-    rgb+occ.  With c_dim > 0 it reads its grid features (and adds them
-    after every block's relu); with c_dim 0 it reads no grid."""
-    feat = None
+    rgb+occ.  A NICE decoder (hidden 32, reading grids) runs through the
+    decoder stage (``ops/decoder_stage.py``); with c_dim 0 (iMAP*'s MLP)
+    it is a plain matmul chain without grids."""
+    if DS.supported(spec):
+        return _grid_decoder(params, spec, p, grids, bound)
     if spec.c_dim != 0:
-        names = ["grid_" + spec.name] + (["grid_middle"] if spec.concat_feature else [])
-        feats = sample_grid_features([grids[k] for k in names], p, bound)
-        feat = feats[0]
-        if spec.concat_feature:
-            # the fine decoder sees the middle feature without a gradient path
-            feat = torch.cat([feat, feats[1].detach()], dim=-1)
+        raise ValueError(f"decoder {spec} reads grids but is not a NICE decoder "
+                         "the decoder stage takes")
     embedded = embed_points(params, spec, p)
     h = embedded
     for i, layer in enumerate(params["pts_linears"]):
         h = torch.relu(_dense(layer, h))
-        if feat is not None:
-            h = h + _dense(params["fc_c"][i], feat)
         if i in spec.skips:
             h = torch.cat([embedded, h], dim=-1)
     out = _dense(params["output_linear"], h)
@@ -187,83 +195,29 @@ def apply_mlp_no_xyz(params: Params, spec: MLPSpec, p: torch.Tensor,
                      bound: torch.Tensor) -> torch.Tensor:
     """Coarse decoder: the grid feature (over the enlarged coarse bound) is
     the whole input."""
-    feat = sample_grid_feature(grids["grid_" + spec.name], p, bound)
-    h = feat
-    for i, layer in enumerate(params["pts_linears"]):
-        h = torch.relu(_dense(layer, h))
-        if i in spec.skips:
-            h = torch.cat([feat, h], dim=-1)
-    out = _dense(params["output_linear"], h)
-    return out if spec.color else out[..., 0]
-
-
-def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
-    return F.pad(w, (0, 0, 0, rows - w.shape[0]))
+    return _grid_decoder(params, spec, p, grids, bound)
 
 
 def apply_nice_stage_batched(params: Dict[str, Params], spec: NICESpec,
                              p: torch.Tensor, grids: Dict[str, torch.Tensor],
                              bound: torch.Tensor, stage: str) -> torch.Tensor:
-    """The fine/color stage as one batched chain over D = 2 or 3 decoders:
-    (D, N, 128) @ (D, 128, 32) per block, inputs and weights zero-padded so
-    the math equals ``apply_nice`` up to f32 summation order."""
+    """The fine/color stage as one decoder-stage call over D = 2 or 3
+    decoders (middle, fine, color) -> (N, 4) raw rgb + occ, occ = middle +
+    fine residual; the math equals ``apply_nice`` up to f32 summation
+    order.  One lookup Function reads the stage's grids (one K1; one K2
+    and/or one K3 in its backward); the fine decoder reads the middle
+    feature detached, so its cotangent reaches the points only through
+    the middle decoder."""
     if stage not in ("fine", "color"):
         raise ValueError(f"batched stage must be fine or color, got {stage!r}")
     subs = spec.sub_specs()
     names = ["middle", "fine"] + (["color"] if stage == "color" else [])
-    plist = [params[n] for n in names]
-    hidden = spec.hidden_size
-    fw = 2 * spec.c_dim  # widest feature (the fine concat)
-
-    # one lookup Function for the stage's grids: one K2 and/or one K3 in
-    # its backward; the middle feature fed to the fine decoder is detached,
-    # so its cotangent reaches the points only through the middle decoder
-    looked = sample_grid_features([grids["grid_" + n] for n in names], p, bound)
-    mid_feat = looked[0]
-    fine_feat = torch.cat([looked[1], mid_feat.detach()], dim=-1)
-    feats = [F.pad(mid_feat, (0, fw - spec.c_dim)), fine_feat]
+    feats = sample_grid_features([grids["grid_" + n] for n in names], p, bound)
+    decs = [DS.decoder_of(subs["middle"], 0), DS.decoder_of(subs["fine"], 1, 0)]
     if stage == "color":
-        feats.append(F.pad(looked[2], (0, fw - spec.c_dim)))
-    feat = torch.stack(feats)  # (D, N, fw)
-
-    B = torch.stack([pp["embedder_B"] for pp in plist])  # (D, 3, 93)
-    emb = torch.sin(torch.einsum("np,dpe->dne", p, B))  # (D, N, 93)
-
-    n_blocks = len(plist[0]["pts_linears"])
-    Ws = [torch.stack([_pad_rows(pp["pts_linears"][k]["w"], _BATCH_IN_WIDTH)
-                       for pp in plist]) for k in range(n_blocks)]
-    bs = [torch.stack([pp["pts_linears"][k]["b"] for pp in plist])
-          for k in range(n_blocks)]
-    Wc = [torch.stack([_pad_rows(pp["fc_c"][k]["w"], fw) for pp in plist])
-          for k in range(n_blocks)]
-    bc = [torch.stack([pp["fc_c"][k]["b"] for pp in plist])
-          for k in range(n_blocks)]
-    Wo = torch.stack([F.pad(pp["output_linear"]["w"],
-                            (0, 4 - pp["output_linear"]["w"].shape[1]))
-                      for pp in plist])
-    bo = torch.stack([F.pad(pp["output_linear"]["b"],
-                            (0, 4 - pp["output_linear"]["b"].shape[0]))
-                      for pp in plist])
-
-    emb_w = emb.shape[-1]
-    x = F.pad(emb, (0, _BATCH_IN_WIDTH - emb_w))
-    h = None
-    for k in range(n_blocks):
-        h = torch.relu(torch.bmm(x, Ws[k]) + bs[k][:, None, :])
-        h = h + torch.bmm(feat, Wc[k]) + bc[k][:, None, :]
-        if k in subs["middle"].skips:
-            x = F.pad(torch.cat([emb, h], dim=-1),
-                      (0, _BATCH_IN_WIDTH - emb_w - hidden))
-        else:
-            x = F.pad(h, (0, _BATCH_IN_WIDTH - hidden))
-    out = torch.bmm(h, Wo) + bo[:, None, :]  # (D, N, 4)
-
-    occ = out[0, :, 0] + out[1, :, 0]  # middle + fine residual
-    if stage == "color":
-        rgb = out[2, :, :3]
-    else:
-        rgb = torch.zeros((p.shape[0], 3), dtype=p.dtype, device=p.device)
-    return torch.cat([rgb, occ[:, None]], dim=-1)
+        decs.append(DS.decoder_of(subs["color"], 2, occ3=False))
+    weights = [DS.pack(params[n], d, spec.c_dim) for n, d in zip(names, decs)]
+    return DS.decoder_stage(p, decs, feats, weights)
 
 
 def apply_nice(params: Dict[str, Params], spec: NICESpec, p: torch.Tensor,

@@ -37,43 +37,23 @@ grid type: a ``ShardedGrid`` goes to the sharded lookup.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from nice_slam_torch.ops import kernels
 from nice_slam_torch.ops.geometry import normalize_3d_coordinate
 
-# launches per kernel, counted where each wrapper launches its kernel, per
-# (kernel, CUDA stream handle) and per (kernel, device index, stream
-# handle); the threaded schedules launch from several threads, so a lock
-# keeps the counts exact
-launch_counts: Dict[str, int] = {"trilinear_fwd": 0, "trilinear_bwd_dgrid": 0,
-                                 "trilinear_bwd_dp": 0}
-launches_by_stream: Dict[Tuple[str, int], int] = {}
-launches_by_device: Dict[Tuple[str, int, int], int] = {}
-_count_lock = threading.Lock()
+# launches per kernel (see ``kernels.LaunchCounter``)
+_launches = kernels.LaunchCounter(("trilinear_fwd", "trilinear_bwd_dgrid",
+                                   "trilinear_bwd_dp"))
+launch_counts = _launches.counts
+launches_by_stream = _launches.by_stream
+launches_by_device = _launches.by_device
+reset_launch_counts = _launches.reset
+_count = _launches.count
 
 MAX_GRIDS = 3  # grids per K1/K2/K3 launch (kMaxGrids in trilinear.cu)
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
-        launches_by_stream.clear()
-        launches_by_device.clear()
-
-
-def _count(name: str, stream: int, device: Optional[int] = None) -> None:
-    with _count_lock:
-        launch_counts[name] += 1
-        key = (name, stream)
-        launches_by_stream[key] = launches_by_stream.get(key, 0) + 1
-        if device is not None:
-            key = (name, device, stream)
-            launches_by_device[key] = launches_by_device.get(key, 0) + 1
 
 
 class Window(NamedTuple):

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,6 +38,11 @@ SIGNATURES = {
         "trilinear_fwd": [_D, _I, _P, _I, _I, _P],
         "trilinear_bwd_dgrid": [_D, _I, _P, _I, _I, _P],
         "trilinear_bwd_dp": [_D, _I, _P, _P, _I, _I, _P],
+    },
+    "decoder_stage": {
+        "decoder_fwd": [_D, _I, _I, _P, _P, _I, _P],
+        "decoder_bwd": [_D, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+        "decoder_wgrad_sum": [_P, _I, _I, _P, _P],
     },
 }
 
@@ -133,6 +138,36 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
     return lib
+
+
+class LaunchCounter:
+    """Launches per kernel, counted where each wrapper launches its kernel:
+    ``counts`` per kernel, ``by_stream`` per (kernel, CUDA stream handle)
+    and ``by_device`` per (kernel, device index, stream handle).  The
+    threaded schedules launch from several threads, so a lock keeps the
+    counts exact.  ``reset`` clears the dicts in place."""
+
+    def __init__(self, names: Iterable[str]):
+        self.counts: Dict[str, int] = dict.fromkeys(names, 0)
+        self.by_stream: Dict[Tuple[str, int], int] = {}
+        self.by_device: Dict[Tuple[str, int, int], int] = {}
+        self._lock = threading.Lock()
+
+    def reset(self) -> None:
+        with self._lock:
+            for k in self.counts:
+                self.counts[k] = 0
+            self.by_stream.clear()
+            self.by_device.clear()
+
+    def count(self, name: str, stream: int, device: Optional[int] = None) -> None:
+        with self._lock:
+            self.counts[name] += 1
+            key = (name, stream)
+            self.by_stream[key] = self.by_stream.get(key, 0) + 1
+            if device is not None:
+                key = (name, device, stream)
+                self.by_device[key] = self.by_device.get(key, 0) + 1
 
 
 def check(rc: int, what: str) -> None:

@@ -1,7 +1,8 @@
 """Command-line entry point of the PyTorch port.
 
     python -m nice_slam_torch.run configs/<scene>.yaml [--nice | --imap]
-        [--input_folder DIR] [--output DIR] [--resume] [--device cuda|cpu]
+        [--input_folder DIR] [--output DIR] [--resume] [--profile]
+        [--device cuda|cpu]
 
 ``--nice`` (the default) runs the hierarchical-grid model over
 ``configs/nice_slam.yaml``, ``--imap`` the single-MLP iMAP* model over
@@ -9,7 +10,10 @@
 schedule and writes the JAX package's output tree to the output
 directory (``ckpts/``, ``mesh/``, ``tracking_vis/``, ``mapping_vis/``)
 plus ``poses.npz`` (estimated and true poses) and ``timings.json``.
-``--resume`` continues from the output directory's last checkpoint.  The
+``--resume`` continues from the output directory's last checkpoint.
+``--profile`` records a ``torch.profiler`` trace of the run (host activity,
+and the card's kernels and copies when it runs on one; no shapes, stacks
+or memory, to keep it small) into ``<output>/torch_trace/``.  The
 CUDA kernels are built with ``nvcc``, the mesh kernels with ``g++``, on
 first use.
 """
@@ -34,6 +38,9 @@ def main(argv=None):
                         help="override cfg data.output")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the output folder's last checkpoint")
+    parser.add_argument("--profile", action="store_true",
+                        help="record a torch.profiler trace of the run into "
+                             "<output>/torch_trace/")
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--nice", dest="nice", action="store_true",
                        help="hierarchical-grid model (the default)")
@@ -53,7 +60,24 @@ def main(argv=None):
     slam = NiceSLAM(cfg, args, device=args.device)
     if args.resume:
         slam.resume()
-    slam.run()
+    if args.profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        trace_dir = os.path.join(slam.output, "torch_trace")
+        activities = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(trace_dir))
+        prof.start()
+        try:
+            slam.run()
+        finally:
+            prof.stop()
+            print(f"INFO: profiler trace written to {trace_dir}")
+    else:
+        slam.run()
     est = slam.estimate_c2w_list.cpu().numpy()
     print(f"INFO: ATE RMSE {100 * ate_rmse(est, slam.gt_c2w_list):.3f} cm; "
           f"{slam.timings.get('fps', 0.0):.3f} frames/s; outputs in "

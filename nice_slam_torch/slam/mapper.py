@@ -468,6 +468,9 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                 lrs["dec"] = imap_lr(mcfg, it)
             adam.step(grads, lrs, active)
             losses.append(loss.detach())
+            # drop the iteration's graph and gradients before the next
+            # forward, not when the next iteration replaces them
+            del loss, flat, grads
             it += 1
     trained = {k: tree_map(lambda t: t.detach(), v) for k, v in groups.items()}
     new_state = _merge_scene(state, trained)

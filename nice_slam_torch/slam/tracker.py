@@ -135,6 +135,7 @@ def track_frame_sampled(spec: SceneSpec, state: SceneState,
         lr_it = lr * (tcfg.cf_lr_mult if it < tcfg.cf_iters else 1.0)
         opt.step({"p": [g]}, {"p": lr_it}, {"p": True})
         losses.append(loss.detach())
+        del loss  # drop the iteration's graph before the next one is built
         cams.append(cam.detach().clone())
     losses = torch.stack(losses)
     cams = torch.stack(cams)

@@ -14,9 +14,13 @@ it prints one JSON line: wall time of an unprofiled run (host clock,
 ending in a synchronize), the device's busy time in a profiled run (union
 of its kernel, copy and memset intervals), the idle share (1 - busy /
 wall), the number of device operations, the operations taking the
-most device time, and (``kernels``) the device ms and launch count of
-each trilinear kernel, K1-K3, whether or not it ranks in ``top``, and
-(``gemm_ms``) the device time of the cuBLAS GEMMs.  Needs a CUDA device.
+most device time, (``kernels``) the device ms and launch count of
+each hand-written kernel, the trilinear K1-K3 and the decoder stage's
+K4-K6, whether or not it ranks in ``top``, (``gemm_ms``) the device time
+of the cuBLAS GEMMs, and (``queued``) the device ms and calls of the
+plain PyTorch functions still queued for a kernel (the render
+integrator, the group Adam step and the frustum mask), each traced as a
+``record_function`` range.  Needs a CUDA device.
 
 ``--imap`` profiles the iMAP* model instead (``replica_imap_cfg``, 17
 frames, the first mapping 300 iterations): one tracked frame (50
@@ -54,7 +58,14 @@ import json
 import os
 import time
 
-TRILINEAR_KERNELS = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp")
+KERNELS = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp",
+           "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum")
+# the plain PyTorch functions still queued for a kernel of their own
+# (ROADMAP B.6-B.8): (module, attribute) each traced as a record_function
+# range named after it
+QUEUED = {"raw2outputs_nerf_color": ("nice_slam_torch.ops.render", "raw2outputs_nerf_color"),
+          "group_adam_step": ("nice_slam_torch.slam.optim", "GroupAdam.step"),
+          "frustum_mask": ("nice_slam_torch.slam.mapper", "frustum_mask")}
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
@@ -114,7 +125,7 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     kernels = {}
     gemm = sum(t for n, (t, _) in by_name.items() if "gemm" in n.lower())
-    for k in TRILINEAR_KERNELS:
+    for k in KERNELS:
         hits = [(t, c) for n, (t, c) in by_name.items() if k + "_kernel" in n]
         kernels[k] = {"ms": sum(t for t, _ in hits) / 1e3,
                       "count": sum(c for _, c in hits)}
@@ -124,6 +135,42 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
             "top": [{"name": n[:80], "ms": t / 1e3, "count": c}
                     for n, (t, c) in ranked],
             "gemm_ms": gemm / 1e3, "kernels": kernels}
+
+
+def _annotate_queued() -> None:
+    """Wrap each QUEUED function in a record_function range of its name."""
+    import functools
+    import importlib
+
+    import torch
+
+    for name, (module, attr) in QUEUED.items():
+        owner = importlib.import_module(module)
+        *path, leaf = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        inner = getattr(owner, leaf)
+
+        def wrapped(*a, __inner=inner, __name=name, **k):
+            with torch.profiler.record_function(__name):
+                return __inner(*a, **k)
+
+        setattr(owner, leaf, functools.wraps(inner)(wrapped))
+
+
+def _queued_summary(prof) -> dict:
+    """Device ms and calls of each QUEUED function: the device time of the
+    kernels launched inside its host-side range (the range's span on the
+    device timeline would also count the gaps and other streams' work)."""
+    import torch
+
+    out = {}
+    for e in prof.events():
+        if e.name in QUEUED and e.device_type == torch.autograd.DeviceType.CPU:
+            row = out.setdefault(e.name, {"device_ms": 0.0, "calls": 0})
+            row["device_ms"] += e.device_time_total / 1e3
+            row["calls"] += 1
+    return out
 
 
 def _per_card(prof, wall_ms: float) -> dict:
@@ -238,6 +285,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
+    _annotate_queued()
     out = args.out or os.path.join(ROOT, "output",
                                    "profile_step_imap" if args.imap else "profile_step")
     if args.schedules:
@@ -314,6 +362,7 @@ def main() -> None:
         if name == "mapping_call":
             row["iterations"] = map_iters
         row.update(_device_summary(prof, wall))
+        row["queued"] = _queued_summary(prof)
         if not slam.nice and name in mlp_tflop:
             row["mlp_tflop"] = mlp_tflop[name] / 1e12
             row["mlp_bound_ms"] = 1e3 * mlp_tflop[name] / F32_FLOPS_PER_S

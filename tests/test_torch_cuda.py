@@ -291,9 +291,15 @@ def test_tiny_strict_loop_launches_every_kernel(dev, tmp_path):
     cfg["data"].update({"n_frames": 6, "output": str(tmp_path)})
     cfg["mapping"].update({"iters_first": 30, "iters": 10})
     slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+    from nice_slam_torch.ops import decoder_stage as DS
+
     interp.reset_launch_counts()
+    DS.reset_launch_counts()
     slam.run()
     assert all(v > 0 for v in interp.launch_counts.values()), interp.launch_counts
+    assert all(v > 0 for v in DS.launch_counts.values()), DS.launch_counts
+    # one decoder-stage call per lookup Function
+    assert DS.launch_counts["decoder_fwd"] == interp.launch_counts["trilinear_fwd"]
     assert torch.isfinite(slam.estimate_c2w_list).all()
 
 
@@ -963,3 +969,167 @@ def test_coarse_pin_issues_without_host_sync(dev, tmp_path):
     slam.run()
     assert pending == [True, True], pending  # frames 0 and 5
     assert torch.isfinite(slam.estimate_c2w_list).all() and slam.mapping_idx == 6
+
+
+# ---------------------------------------------------------------------------
+# The decoder stage: K4 decoder_fwd, K5 decoder_bwd, K6 decoder_wgrad_sum
+# ---------------------------------------------------------------------------
+
+# (label, call, points, gradients wanted): the rows of the main path's
+# calls (tools/workloads.py's Replica-scale room) and the pretrainer's
+STAGE_ROWS = (("track", "color_stage", 9600, "fp"),
+              ("map_middle", "middle", 48000, "f"),
+              ("map_fine", "fine_stage", 48000, "f"),
+              ("map_color", "color_stage", 48000, "fw"),
+              ("map_color_ba", "color_stage", 48000, "fpw"),
+              ("map_coarse", "coarse", 48000, "f"),
+              ("mesh_chunk", "color_stage", 500000, ""),
+              ("pretrain_fine", "fine", 4096, "fW"),
+              ("pretrain_coarse", "coarse", 4096, "fW"))
+
+
+def _stage_case(dev, call, n, coherent, seed=0):
+    """The port's initial decoders packed for ``call``, features and a
+    cotangent on ``n`` points: ray samples (48 sorted per ray, as the
+    renderer's) or uniform in the box."""
+    from nice_slam_torch.models import decoders as D
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    gen = torch.Generator().manual_seed(seed)
+    spec = D.NICESpec(c_dim=32, hidden_size=32, coarse=True)
+    params = D.init_nice(gen, spec, "cpu")
+    subs = spec.sub_specs()
+    if call in ("fine_stage", "color_stage"):
+        names = ["middle", "fine"] + (["color"] if call == "color_stage" else [])
+        decs = [DS.decoder_of(subs["middle"], 0), DS.decoder_of(subs["fine"], 1, 0)]
+        if call == "color_stage":
+            decs.append(DS.decoder_of(subs["color"], 2, occ3=False))
+        n_feats = len(names)
+    else:
+        names = [call]
+        decs = [DS.decoder_of(subs[call], 0, 1 if call == "fine" else -1)]
+        n_feats = 2 if call == "fine" else 1
+    if coherent:
+        rays = -(-n // 48)
+        o = (torch.rand((rays, 1, 3), generator=gen) - 0.5) * 2.0
+        d = torch.nn.functional.normalize(torch.randn((rays, 1, 3), generator=gen), dim=-1)
+        t = torch.sort(torch.rand((rays, 48, 1), generator=gen) * 2.5, dim=1).values
+        p = (o + d * t).reshape(-1, 3)[:n]
+    else:
+        p = torch.rand((n, 3), generator=gen) * 5.2 - 2.6
+    feats = [0.3 * torch.randn((n, 32), generator=gen) for _ in range(n_feats)]
+    g = torch.randn((n, 4), generator=gen)
+    weights = [DS.pack(params[k], dd, 32) for k, dd in zip(names, decs)]
+    return (decs, p.contiguous().to(dev), [f.to(dev) for f in feats],
+            [w.to(dev) for w in weights], g.to(dev))
+
+
+def _assert_rel(got, ref, rtol, what):
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    assert err <= rtol * scale, f"{what}: {err} > {rtol} x {scale}"
+
+
+def _assert_per_point(got, ref, rtol, what):
+    """A per-point gradient: every point within rtol x the plain gradient's
+    largest entry but for at most 0.1 % of them, and the whole within
+    rtol in L2.  A pre-activation within rounding of relu's kink may take
+    the other branch in one of two float32 evaluations and move its
+    point's gradient by one unit's term; at random weights and 48k points
+    about a dozen units do."""
+    tol = rtol * float(ref.abs().max())
+    off = int(((got - ref).abs().amax(dim=1) > tol).sum())
+    assert off <= max(1, got.shape[0] // 1000), f"{what}: {off} points off by > {tol}"
+    l2 = float((got - ref).norm() / ref.norm())
+    assert l2 <= rtol, f"{what}: L2 error {l2} > {rtol}"
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
+@pytest.mark.parametrize("label,call,n,want", STAGE_ROWS, ids=[r[0] for r in STAGE_ROWS])
+def test_decoder_kernels_match_plain(dev, label, call, n, want, coherent):
+    """K4, K5 and K6 against their plain versions on the same card: the
+    output within 1e-2 absolute, the feature and weight gradients within
+    1e-3 of the plain gradient's largest entry, dp within 1e-2; one K4,
+    one K5 and one K6 per decoder that trains."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    decs, p, feats, weights, g = _stage_case(dev, call, n, coherent)
+    DS.reset_launch_counts()
+    out = DS.decoder_fwd(p, feats, weights, decs)
+    ref = DS.decoder_fwd_plain(p, feats, weights, decs)
+    assert float((out - ref).abs().max()) <= 1e-2
+    assert DS.launch_counts["decoder_fwd"] == 1
+    if not want:
+        return
+    D = len(decs)
+    need_p = "p" in want
+    need_w = [True] * D if "W" in want else ([False] * (D - 1) + ["w" in want])
+    need_f = [True] * len(feats)
+    got = DS.decoder_bwd(p, feats, weights, decs, g, need_p, need_f, need_w)
+    exp = DS.decoder_bwd_plain(p, feats, weights, decs, g, need_p, need_f, need_w)
+    torch.cuda.synchronize()
+    assert DS.launch_counts["decoder_bwd"] == 1
+    assert DS.launch_counts["decoder_wgrad_sum"] == sum(need_w)
+    if need_p:
+        _assert_per_point(got[0], exp[0], 1e-2, "dp")
+    for i, (a, b) in enumerate(zip(got[1], exp[1])):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _assert_per_point(a, b, 1e-3, f"dfeat {i}")
+    for i, (a, b) in enumerate(zip(got[2], exp[2])):
+        assert (a is None) == (b is None)
+        if a is not None:
+            for name, x in DS.unpack(a, decs[i], 32).items():
+                y = DS.unpack(b, decs[i], 32)[name]
+                tol = 1e-2 if name == "B" else 1e-3
+                _assert_rel(x, y, tol, f"decoder {i} {name}")
+
+
+def test_decoder_weight_gradient_is_deterministic(dev):
+    """Two K5 + K6 runs on the same inputs give bit-equal weight
+    gradients (K6 sums the per-CTA partials in a fixed order)."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    decs, p, feats, weights, g = _stage_case(dev, "color_stage", 48000, True)
+    need = ([True] * 3, [False, False, True])
+    runs = [DS.decoder_bwd(p, feats, weights, decs, g, False, [True] * 3, need[1])
+            for _ in range(2)]
+    assert torch.equal(runs[0][2][2], runs[1][2][2])
+    runs = [DS.decoder_bwd(p, feats, weights, decs, g, True, [True] * 3, need[0])
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+
+
+def test_decoder_function_on_cuda_matches_cpu(dev):
+    """The autograd Function on the card (K4-K6) against the CPU (the plain
+    versions), every gradient wanted."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    decs, p, feats, weights, g = _stage_case(dev, "color_stage", 3000, True)
+    res = {}
+    for where in ("cuda", "cpu"):
+        leaves = [x.detach().to(where).requires_grad_(True) for x in [p, *feats, *weights]]
+        out = DS.decoder_stage(leaves[0], decs, leaves[1:4], leaves[4:])
+        grads = torch.autograd.grad(out, leaves, g.to(where), allow_unused=True)
+        res[where] = (out.detach().cpu(), [None if x is None else x.cpu() for x in grads])
+    assert float((res["cuda"][0] - res["cpu"][0]).abs().max()) <= 1e-2
+    for i, (a, b) in enumerate(zip(res["cuda"][1], res["cpu"][1])):
+        assert (a is None) == (b is None), i
+        if a is not None and a.dim() == 2 and a.shape[0] == p.shape[0]:
+            _assert_per_point(a, b, 1e-2 if i == 0 else 2e-3, f"input {i}")
+        elif a is not None:
+            _assert_rel(a, b, 2e-3, f"input {i}")
+
+
+def test_decoder_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    decs, p, feats, weights, g = _stage_case(dev, "middle", 100, False)
+    with pytest.raises(ValueError):
+        DS.decoder_fwd(p, feats, [weights[0].cpu()], decs)
+    with pytest.raises(ValueError):
+        DS.decoder_fwd(p, feats, [weights[0][:-1]], decs)
+    with pytest.raises(TypeError):
+        DS.decoder_fwd(p, [feats[0].double()], weights, decs)
+    with pytest.raises(ValueError):
+        DS.decoder_bwd(p, feats, weights, decs, g[:50], False, [True], [False])
