@@ -27,7 +27,12 @@ Phases, each printing one JSON line:
            the points, K6 within sqrt(rows) x eps), timed as below with
            library_ms the device
            time of the plain cuBLAS bmm chain (its autograd backward for
-           K5, torch.sum for K6); then K1 trilinear_fwd, K2 trilinear_bwd_dgrid and K3
+           K5, torch.sum for K6), and on each K5 and K6 row the launch
+           geometry: CTAs, threads per CTA, resident warps per SM,
+           registers per thread, local (spill) bytes and shared bytes
+           (cudaFuncGetAttributes and the occupancy API, through
+           decoder_stage.cu's decoder_kernel_info), and K5's relu-kink
+           points; then K1 trilinear_fwd, K2 trilinear_bwd_dgrid and K3
            trilinear_bwd_dp against their plain PyTorch versions on random
            ray points at the main path's shapes (fine grid 74x56x43x32 at
            48k mapping / 9.6k tracking points, coarse grid 11x8x7x32 at
@@ -886,6 +891,7 @@ def decoder_rows(label, c):
                      library_ms=device_total_ms(lambda: torch.autograd.grad(
                          graph, wanted, g, retain_graph=True))))
     del graph, wanted
+    rows[-1]["geometry"] = bwd_launch_geometry(n, decs, C, need_w, p.device)
     for part in parts:
         eps = torch.finfo(torch.float32).eps
         s = DS.decoder_wgrad_sum(part)
@@ -900,8 +906,53 @@ def decoder_rows(label, c):
                          device_ms=device_time_ms(lambda: DS.decoder_wgrad_sum(part),
                                                   "wgrad_sum_kernel"),
                          plain_ms=cuda_time_ms(lambda: DS.decoder_wgrad_sum_plain(part), 5),
-                         library_ms=device_total_ms(lambda: part.sum(0))))
+                         library_ms=device_total_ms(lambda: part.sum(0)),
+                         geometry=wgrad_sum_geometry(part.shape[1], p.device)))
     return rows
+
+
+def resident(info, ctas, warps, sms):
+    """Resident warps per SM of a launch: the CTAs an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) or the CTAs it gets,
+    whichever is fewer; on average and on the SM that gets the fewest."""
+    return {"resident_warps_per_sm": min(info["ctas_per_sm"], ctas / sms) * warps,
+            "min_resident_warps_per_sm": min(info["ctas_per_sm"], ctas // sms) * warps}
+
+
+def bwd_launch_geometry(n, decs, c, need_w, dev):
+    """K5's launch on a case: CTAs, threads, tiles, partial rows, and the
+    kernel's registers, local (spill) bytes and shared bytes per CTA read
+    with cudaFuncGetAttributes (decoder_stage.cu's decoder_kernel_info)."""
+    import torch
+
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geom = DS.bwd_geometry(n, sms, any(need_w), len(decs))
+    smem = DS.bwd_smem(decs, c, need_w, dev)
+    info = DS.kernel_info("decoder_bwd_train" if any(need_w) else "decoder_bwd", smem, dev)
+    return {"ctas": geom.ctas, "grid": list(geom.grid), "threads": geom.threads,
+            "tile_points": geom.tile,
+            "tiles": geom.tiles, "partial_rows": geom.rows, "sms": sms,
+            "registers": info["registers"], "local_bytes": info["local_bytes"],
+            "shared_bytes": smem + info["static_shared_bytes"],
+            "ctas_per_sm": info["ctas_per_sm"],
+            **resident(info, geom.ctas, geom.threads // 32, sms)}
+
+
+def wgrad_sum_geometry(cols, dev):
+    """K6's launch: a CTA of 8 row groups x 32 columns per 32 columns."""
+    import torch
+
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = DS.kernel_info("decoder_wgrad_sum", 0, dev)
+    ctas = -(-cols // 32)
+    return {"ctas": ctas, "threads": info["threads"], "sms": sms,
+            "registers": info["registers"], "local_bytes": info["local_bytes"],
+            "shared_bytes": info["static_shared_bytes"], "ctas_per_sm": info["ctas_per_sm"],
+            **resident(info, ctas, info["threads"] // 32, sms)}
 
 
 RANDOM_CASES = (("fine_map", (74, 56, 43, 32), 1000),
@@ -3183,7 +3234,8 @@ def main() -> int:
             **({"window_cases": windows} if windows else {}),
             **({"main_path_cases": {x["case"]: {k: x[k] for k in (
                 "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")} for x in rows if x["kernel"] == name}}
+                "max_abs_err", "kink_points", "rows", "geometry") if k in x}
+                for x in rows if x["kernel"] == name}}
                if name.startswith("decoder") else {}),
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})

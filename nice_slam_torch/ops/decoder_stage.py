@@ -34,7 +34,8 @@ PyTorch version beside it:
                             cos(p @ B) B), and per-CTA partial sums of
                             the weight gradients of the decoders that
                             train (plain: ``decoder_bwd_plain``, the same
-                            gradients written out, not autograd);
+                            gradients written out, not autograd); its
+                            launch geometry is ``bwd_geometry``;
   K6 ``decoder_wgrad_sum``  the sum of those partials in a fixed order,
                             so the weight gradient is deterministic.
 
@@ -60,8 +61,9 @@ N_BLOCKS = 5
 SKIP = 2          # after block SKIP the next input is [lead, h]
 EMBED = 93        # Fourier embedding width
 IN_WIDTH = 128    # the plain chain's zero-padded layer input (93 + 32 -> 128)
-TILE = 64         # points per CTA (T in decoder_stage.cu)
 MAX_DECODERS = 3  # decoders per launch (kMaxDec in decoder_stage.cu)
+WARP_POINTS = 8   # K5: points per warp (WPTS in decoder_stage.cu)
+BWD_WARPS = {False: 2, True: 8}  # K5: warps per CTA, without / with a decoder that trains
 
 _launches = kernels.LaunchCounter(("decoder_fwd", "decoder_bwd",
                                    "decoder_wgrad_sum"))
@@ -428,14 +430,42 @@ def decoder_fwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
     return out
 
 
-def bwd_grid(n: int, device: torch.device, train: bool) -> int:
-    """K5's CTAs: one per tile of TILE points; where a decoder trains, at
-    most two per SM, each walking its tiles in a fixed order (so the
-    partials, TILE-point sums in that order, are deterministic)."""
-    tiles = -(-n // TILE)
-    if not train:
-        return tiles
-    return min(tiles, 2 * torch.cuda.get_device_properties(device).multi_processor_count)
+class BwdGeometry(NamedTuple):
+    """K5's launch: a ``grid`` of (x, y) CTAs, ``ctas`` in all, of
+    ``threads`` threads; ``tiles`` tiles of ``tile`` points (8 a warp), CTA
+    (b, y) walking tiles b, b + x, ... in order (y: the decoder, where each
+    has CTAs of its own); ``rows``: the rows of each training decoder's
+    partials (0 where none trains)."""
+
+    grid: Tuple[int, int]
+    ctas: int
+    threads: int
+    tile: int
+    tiles: int
+    rows: int
+
+
+def bwd_geometry(n: int, sms: int, train: bool, decoders: int = 1) -> BwdGeometry:
+    """K5's launch geometry, a function of (n, SM count, train, decoders)
+    alone.  Where no decoder trains, one CTA of 2 warps per tile of 16
+    points and decoder (at tracking's 9,600 points and 3 decoders 1,800
+    CTAs; an SM holds 8 of them, 16 warps); where one trains, one persistent CTA
+    of 8 warps per SM (tiles of 64 points) runs every decoder, so each CTA
+    writes one row of partials and the weight gradient's summation order
+    depends on nothing else."""
+    warps = BWD_WARPS[bool(train)]
+    tile = WARP_POINTS * warps
+    tiles = -(-n // tile)
+    grid = (min(tiles, sms), 1) if train else (tiles, decoders)
+    return BwdGeometry(grid=grid, ctas=grid[0] * grid[1], threads=32 * warps, tile=tile,
+                       tiles=tiles, rows=grid[0] if train else 0)
+
+
+def partial_shapes(decs: Sequence[Dec], c: int, need_w: Sequence[bool],
+                   geom: BwdGeometry) -> List[Optional[Tuple[int, int]]]:
+    """The shape of each decoder's weight-gradient partials (K5 writes a
+    row per CTA, K6 sums them), None for a decoder that does not train."""
+    return [(geom.rows, size(d, c)) if w else None for d, w in zip(decs, need_w)]
 
 
 def decoder_wgrad_sum(part: torch.Tensor) -> torch.Tensor:
@@ -467,26 +497,56 @@ def decoder_bwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
     prim = {d.feat for d in decs}
     dfeats = [torch.empty_like(f) if need_feats[i] and i in prim else None
               for i, f in enumerate(feats)]
-    dp = torch.zeros((n, 3), dtype=torch.float32, device=dev) if need_p else None
     train = any(need_w)
-    grid = bwd_grid(n, dev, train) if n else 0
-    parts = [torch.empty((grid, size(d, c)), dtype=torch.float32, device=dev)
-             if need_w[i] else None for i, d in enumerate(decs)]
-    if n:
-        hsave = (torch.empty((grid * N_BLOCKS * HIDDEN * TILE,), dtype=torch.float32,
-                             device=dev) if train else None)
-        desc = _desc(decs, feats, weights, parts, dfeats, c)
-        _launch("decoder_bwd", dev, desc, len(decs), c, p.data_ptr(), g.data_ptr(),
-                0 if dp is None else dp.data_ptr(),
-                0 if hsave is None else hsave.data_ptr(), grid, n)
-        dws = [None if part is None else decoder_wgrad_sum(part) for part in parts]
-    else:
+    # several decoders in CTAs of their own meet in dp through their shares
+    split = need_p and not train and len(decs) > 1 and n > 0
+    dp = (torch.empty if split else torch.zeros)((n, 3), dtype=torch.float32,
+                                                  device=dev) if need_p else None
+    if not n:
         for df in dfeats:
             if df is not None:
                 df.zero_()
-        dws = [None if part is None else torch.zeros(part.shape[1], device=dev)
-               for part in parts]
-    return dp, dfeats, dws
+        return dp, dfeats, [torch.zeros(size(d, c), device=dev) if need_w[i] else None
+                            for i, d in enumerate(decs)]
+    geom = bwd_geometry(n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                        train, len(decs))
+    dpart = torch.empty((len(decs), n, 3), dtype=torch.float32, device=dev) if split else None
+    counter = torch.zeros((geom.tiles,), dtype=torch.int32, device=dev) if split else None
+    parts = [None if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
+             for shape in partial_shapes(decs, c, need_w, geom)]
+    desc = _desc(decs, feats, weights, parts, dfeats, c)
+    _launch("decoder_bwd", dev, desc, len(decs), c, p.data_ptr(), g.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (dp, dpart, counter)),
+            geom.grid[0], n)
+    return dp, dfeats, [None if part is None else decoder_wgrad_sum(part) for part in parts]
+
+
+def bwd_smem(decs: Sequence[Dec], c: int, need_w: Sequence[bool],
+             device: torch.device) -> int:
+    """K5's dynamic shared memory for a launch (the CUDA source's row
+    layout): the tile's rows, plus the weight-gradient sums of the largest
+    decoder that trains."""
+    counts = [size(d, c) for d, w in zip(decs, need_w) if w]
+    with torch.cuda.device(device):
+        return kernels.library("decoder_stage").decoder_bwd_smem(
+            int(bool(counts)), max(counts, default=0))
+
+
+KERNEL_IDS = {"decoder_fwd": 0, "decoder_bwd": 1, "decoder_bwd_train": 2,
+              "decoder_wgrad_sum": 3}
+
+
+def kernel_info(which: str, smem: int, device: torch.device) -> Dict[str, int]:
+    """A kernel's compiled resources, read with cudaFuncGetAttributes, and
+    its resident CTAs per SM at ``smem`` bytes of dynamic shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); ``which``: a key of
+    KERNEL_IDS (``decoder_bwd_train``: K5 where a decoder trains)."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = kernels.library("decoder_stage").decoder_kernel_info(KERNEL_IDS[which], smem, out)
+    kernels.check(rc, f"decoder_kernel_info({which})")
+    return dict(zip(("registers", "local_bytes", "static_shared_bytes", "threads",
+                     "ctas_per_sm"), out))
 
 
 class _DecoderStage(torch.autograd.Function):

@@ -976,7 +976,10 @@ def test_coarse_pin_issues_without_host_sync(dev, tmp_path):
 # ---------------------------------------------------------------------------
 
 # (label, call, points, gradients wanted): the rows of the main path's
-# calls (tools/workloads.py's Replica-scale room) and the pretrainer's
+# calls (tools/workloads.py's Replica-scale room) and the pretrainer's; then
+# K5's ragged tiles: one point, a tile (16 points where nothing trains, 64
+# where a decoder does) less one, exactly, plus one, and (points -1) a
+# training call whose CTAs walk unequal numbers of tiles
 STAGE_ROWS = (("track", "color_stage", 9600, "fp"),
               ("map_middle", "middle", 48000, "f"),
               ("map_fine", "fine_stage", 48000, "f"),
@@ -985,7 +988,22 @@ STAGE_ROWS = (("track", "color_stage", 9600, "fp"),
               ("map_coarse", "coarse", 48000, "f"),
               ("mesh_chunk", "color_stage", 500000, ""),
               ("pretrain_fine", "fine", 4096, "fW"),
-              ("pretrain_coarse", "coarse", 4096, "fW"))
+              ("pretrain_coarse", "coarse", 4096, "fW"),
+              ("one_point", "color_stage", 1, "fp"),
+              ("tile_less_one", "color_stage", 15, "fp"),
+              ("tile", "fine_stage", 16, "f"),
+              ("tile_plus_one", "color_stage", 17, "fp"),
+              ("one_point_train", "color_stage", 1, "fw"),
+              ("train_tile_less_one", "color_stage", 63, "fpw"),
+              ("train_tile", "fine", 64, "fW"),
+              ("train_tile_plus_one", "color_stage", 65, "fw"),
+              ("train_uneven", "color_stage", -1, "fw"))
+
+
+def _uneven_points(dev) -> int:
+    """A training call whose persistent CTAs (one per SM) walk 2 or 1
+    tiles of 64 points, the last one ragged."""
+    return (torch.cuda.get_device_properties(dev).multi_processor_count + 3) * 64 + 5
 
 
 def _stage_case(dev, call, n, coherent, seed=0):
@@ -1053,6 +1071,7 @@ def test_decoder_kernels_match_plain(dev, label, call, n, want, coherent):
     one K5 and one K6 per decoder that trains."""
     from nice_slam_torch.ops import decoder_stage as DS
 
+    n = _uneven_points(dev) if n < 0 else n
     decs, p, feats, weights, g = _stage_case(dev, call, n, coherent)
     DS.reset_launch_counts()
     out = DS.decoder_fwd(p, feats, weights, decs)
@@ -1086,18 +1105,45 @@ def test_decoder_kernels_match_plain(dev, label, call, n, want, coherent):
 
 
 def test_decoder_weight_gradient_is_deterministic(dev):
-    """Two K5 + K6 runs on the same inputs give bit-equal weight
-    gradients (K6 sums the per-CTA partials in a fixed order)."""
+    """Three K5 + K6 runs on the same inputs, and one on a second stream,
+    give bit-equal weight gradients (each CTA sums its tiles in a fixed
+    order, K6 the per-CTA partials in a fixed order)."""
     from nice_slam_torch.ops import decoder_stage as DS
 
     decs, p, feats, weights, g = _stage_case(dev, "color_stage", 48000, True)
-    need = ([True] * 3, [False, False, True])
-    runs = [DS.decoder_bwd(p, feats, weights, decs, g, False, [True] * 3, need[1])
-            for _ in range(2)]
-    assert torch.equal(runs[0][2][2], runs[1][2][2])
-    runs = [DS.decoder_bwd(p, feats, weights, decs, g, True, [True] * 3, need[0])
-            for _ in range(2)]
-    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+    side = torch.cuda.Stream(dev)
+    for need_p, need_w in ((False, [False, False, True]), (True, [True] * 3)):
+        runs = [DS.decoder_bwd(p, feats, weights, decs, g, need_p, [True] * 3, need_w)
+                for _ in range(3)]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            runs.append(DS.decoder_bwd(p, feats, weights, decs, g, need_p, [True] * 3, need_w))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b, w in zip(runs[0][2], run[2], need_w) if w)
+
+
+def test_decoder_bwd_compiles_without_local_memory(dev):
+    """K5 in both launch shapes and K6 use no local memory (no spills), and
+    at tracking's 9,600 points K5's geometry keeps at least 8 warps resident
+    on every SM."""
+    from nice_slam_torch.models import decoders as D
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    subs = D.NICESpec(c_dim=32, hidden_size=32, coarse=True).sub_specs()
+    decs = [DS.decoder_of(subs["middle"], 0), DS.decoder_of(subs["fine"], 1, 0),
+            DS.decoder_of(subs["color"], 2, occ3=False)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for which, need_w in (("decoder_bwd", [False] * 3), ("decoder_bwd_train", [False, False, True])):
+        info = DS.kernel_info(which, DS.bwd_smem(decs, 32, need_w, dev), dev)
+        assert info["local_bytes"] == 0, (which, info)
+        assert info["ctas_per_sm"] >= 1, (which, info)
+    assert DS.kernel_info("decoder_wgrad_sum", 0, dev)["local_bytes"] == 0
+    geom = DS.bwd_geometry(9600, sms, False, 3)
+    info = DS.kernel_info("decoder_bwd", DS.bwd_smem(decs, 32, [False] * 3, dev), dev)
+    per_sm = min(info["ctas_per_sm"], geom.ctas // sms)
+    assert per_sm * geom.threads // 32 >= 8, (geom, info)
 
 
 def test_decoder_function_on_cuda_matches_cpu(dev):

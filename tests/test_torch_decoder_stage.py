@@ -318,6 +318,49 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         DS.decoder_stage(p, [dec, dec], [f], [w, w])  # one primary feature, two readers
 
 
+# (points, SMs, a decoder trains): tracking's and mapping's calls on an
+# H100, one point, ragged tiles, fewer tiles than SMs, unequal tiles per CTA
+GEOMETRY_CASES = ((9600, 132, False), (48000, 132, True), (48000, 132, False), (1, 132, False),
+                  (1, 132, True), (15, 132, False), (17, 132, False), (63, 132, True),
+                  (65, 132, True), (135 * 64 + 5, 132, True), (4096, 78, True))
+
+
+@pytest.mark.parametrize("n,sms,train", GEOMETRY_CASES)
+def test_bwd_geometry(n, sms, train):
+    """K5's launch as a function of (n, SMs, train, decoders): 16-point
+    tiles of 2 warps, one CTA per tile and decoder, where nothing trains;
+    where a decoder trains, 64-point tiles of 8 warps over at most one CTA
+    per SM running every decoder, a row of partials per CTA; each partial
+    buffer (CTAs, packed size)."""
+    for decoders in (1, 3):
+        geom = DS.bwd_geometry(n, sms, train, decoders)
+        tile = 64 if train else 16
+        assert geom.tile == tile and geom.threads == 32 * tile // 8
+        assert geom.tiles == -(-n // tile) and (geom.tiles - 1) * tile < n <= geom.tiles * tile
+        assert geom.grid == ((min(geom.tiles, sms), 1) if train else (geom.tiles, decoders))
+        assert geom.ctas == geom.grid[0] * geom.grid[1]
+        assert geom.rows == (geom.grid[0] if train else 0)
+    dec = DS.Dec(emb=True, feat=0, feat2=1, fc=True, out=1, occ3=True)
+    need = [False, train]
+    shapes = DS.partial_shapes([DS.Dec(True, 2, -1, True, 4, False), dec], 32, need, geom)
+    assert shapes == [None, (geom.grid[0], DS.size(dec, 32)) if train else None]
+    assert DS.size(dec, 32) == 20920  # the fine decoder: 10,048 + 160 + 10,240 + 160 + 33 + 279
+
+
+@pytest.mark.parametrize("rows", (1, 78, 132))
+def test_plain_wgrad_sum_at_the_new_row_count(rows):
+    """K6's plain version over one row of partials per SM (132 on an H100,
+    the color decoder's 15,899 columns) against a float64 sum, within
+    sqrt(rows) x eps of the largest sum of |partials|: the gate the card's
+    K6 is held to."""
+    gen = torch.Generator().manual_seed(rows)
+    part = torch.randn((rows, 15899), generator=gen) * torch.rand((rows, 1), generator=gen)
+    got = DS.decoder_wgrad_sum(part)
+    ref = part.double().sum(0)
+    tol = rows ** 0.5 * torch.finfo(torch.float32).eps * float(part.abs().double().sum(0).max())
+    assert float((got.double() - ref).abs().max()) <= tol
+
+
 def test_profile_flag_writes_a_trace(tmp_path):
     """``nice_slam_torch.run --profile`` on a few box frames on the CPU
     writes a readable torch.profiler trace under <output>/torch_trace/
