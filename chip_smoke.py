@@ -27,12 +27,12 @@ Phases, each printing one JSON line:
            the points, K6 within sqrt(rows) x eps), timed as below with
            library_ms the device
            time of the plain cuBLAS bmm chain (its autograd backward for
-           K5, torch.sum for K6), and on each K5 and K6 row the launch
+           K5, torch.sum for K6), and on each K4, K5 and K6 row the launch
            geometry: CTAs, threads per CTA, resident warps per SM,
            registers per thread, local (spill) bytes and shared bytes
            (cudaFuncGetAttributes and the occupancy API, through
-           decoder_stage.cu's decoder_kernel_info), and K5's relu-kink
-           points; then K1 trilinear_fwd, K2 trilinear_bwd_dgrid and K3
+           decoder_stage.cu's decoder_kernel_info; K4 must use no local
+           memory), and K5's relu-kink points; then K1 trilinear_fwd, K2 trilinear_bwd_dgrid and K3
            trilinear_bwd_dp against their plain PyTorch versions on random
            ray points at the main path's shapes (fine grid 74x56x43x32 at
            48k mapping / 9.6k tracking points, coarse grid 11x8x7x32 at
@@ -43,12 +43,13 @@ Phases, each printing one JSON line:
            own device time per call, each call after the L2 was evicted),
            beside its plain version and torch.nn.functional.grid_sample
            (library yardstick only; the port never calls it); fail if a
-           kernel's device_ms is below its bound_ms; K1 also on the two new
-           paths' lookups, recorded from the port's own calls with the
-           captured state: a mesh chunk (the first 500k points of the
+           kernel's device_ms is below its bound_ms; K1 and K4 also on the
+           two new paths' calls, recorded from the port's own calls with
+           the captured state: a mesh chunk (the first 500k points of the
            256^3 lattice over the room, 'fine' stage: middle and fine
-           grids) and a render chunk (100k rays x 48 samples of a full
-           frame, 'color' stage: three grids); check the whole decoder
+           grids and decoders) and a render chunk (100k rays x 48 samples
+           of a full frame, 'color' stage: three grids and decoders; K4's
+           plain version in slices of 1M points); check the whole decoder
            stack on the card against the CPU on a small input;
   slice    the strict loop (track every frame, map + coarse-map every 5th)
            at full width on the Replica-scale synthetic room, 12 frames of
@@ -426,23 +427,31 @@ def phase_capture(dev):
 
 
 def new_path_lookups(slam, cfg):
-    """K1's inputs on the mesher's and the renderer's paths, recorded from
-    the port's own calls on the captured state: the first lattice chunk
-    of a resolution-256 mesh ('fine' stage) and the first ray chunk of a
-    full-frame render ('color' stage)."""
+    """K1's and K4's inputs on the mesher's and the renderer's paths,
+    recorded from the port's own calls on the captured state: the first
+    lattice chunk of a resolution-256 mesh ('fine' stage) and the first
+    ray chunk of a full-frame render ('color' stage); K4's under "dec"."""
     import torch
 
+    from nice_slam_torch.ops import decoder_stage as DS
     from nice_slam_torch.ops import interp
     from nice_slam_torch.ops.render import get_rays, render_batch_ray
     from nice_slam_torch.utils.mesher import Mesher, chunked_eval
 
     seen = {}
     fwd = interp.trilinear_fwd_multi
+    dec_fwd = DS.decoder_fwd
 
     def rec(grids, p):
         seen.setdefault("lookup", {"p": p.detach().clone(),
                                    "grids": [g.detach() for g in grids]})
         return fwd(grids, p)
+
+    def rec_dec(p, feats, weights, decs):
+        seen["lookup"].setdefault("dec", {
+            "p": p.detach().clone(), "feats": [f.detach().clone() for f in feats],
+            "weights": [w.detach().clone() for w in weights], "decs": decs})
+        return dec_fwd(p, feats, weights, decs)
 
     mesher = Mesher(cfg, slam.cam, slam.spec, slam.rcfg)
     lattice, _ = mesher.get_grid_uniform(cfg["meshing"]["resolution"])
@@ -454,6 +463,7 @@ def new_path_lookups(slam, cfg):
     gt = torch.as_tensor(depth, device=c2w.device).reshape(-1)[:n]
     out = {}
     interp.trilinear_fwd_multi = rec
+    DS.decoder_fwd = rec_dec
     try:
         chunked_eval(slam.spec, slam.state, lattice[:mesher.points_batch_size],
                      "fine", mesher.points_batch_size)
@@ -464,6 +474,10 @@ def new_path_lookups(slam, cfg):
         out["render_color"] = seen.pop("lookup")
     finally:
         interp.trilinear_fwd_multi = fwd
+        DS.decoder_fwd = dec_fwd
+    for label, c in out.items():
+        if "dec" not in c:
+            raise AssertionError(f"no K4 call recorded on the {label} path")
     return out
 
 
@@ -659,6 +673,8 @@ DEC_OUT_ATOL = 1e-3   # K4's (N, 4) output against its plain version (read <= 1e
 DEC_GRAD_RTOL = 1e-3  # K5's feature and weight gradients, of the plain one's max abs
 DEC_DP_RTOL = 1e-2    # K5's point gradient (its factor B ~ 25-75 enters twice)
 DEC_KINK_SHARE = 1e-3  # of the points, those whose gradient may jump at a relu kink
+DEC_PLAIN_CHUNK = 1_000_000  # points per plain-chain call (a render chunk's whole
+                             # activations, ~70 GB at 4.8M points, would not fit)
 
 
 def reset_counts() -> None:
@@ -794,6 +810,58 @@ def held_per_point(what, got, ref, rtol):
             "ok": kinks <= max(1, int(DEC_KINK_SHARE * e.numel())) and l2 <= rtol}
 
 
+def dec_fwd_plain_chunked(p, feats, weights, decs):
+    """K4's plain version over the points in DEC_PLAIN_CHUNK slices (each
+    point's output depends on that point alone)."""
+    import torch
+
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    n = p.shape[0]
+    if n <= DEC_PLAIN_CHUNK:
+        return DS.decoder_fwd_plain(p, feats, weights, decs)
+    return torch.cat([DS.decoder_fwd_plain(p[i:i + DEC_PLAIN_CHUNK],
+                                           [f[i:i + DEC_PLAIN_CHUNK] for f in feats],
+                                           weights, decs)
+                      for i in range(0, n, DEC_PLAIN_CHUNK)])
+
+
+def decoder_fwd_row(label, c):
+    """K4 on one captured decoder-stage call against its plain version:
+    the output within DEC_OUT_ATOL, one launch, no local memory; ms, device_ms,
+    plain_ms, library_ms (the device time of every kernel of the plain
+    cuBLAS bmm chain), the bound's bytes (points, features, outputs and each
+    weight once) and flops, and the launch geometry."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    p, feats, weights, decs = c["p"], c["feats"], c["weights"], c["decs"]
+    n, C = p.shape[0], feats[0].shape[1]
+    fwd_mac, _ = dec_work(C, decs, False, [False] * len(feats), [False] * len(decs))
+
+    def fwd():
+        return DS.decoder_fwd(p, feats, weights, decs)
+
+    def fwd_plain():
+        return dec_fwd_plain_chunked(p, feats, weights, decs)
+
+    before = DS.launch_counts["decoder_fwd"]
+    err = float((fwd() - fwd_plain()).abs().max())
+    if DS.launch_counts["decoder_fwd"] != before + 1:
+        raise AssertionError(f"K4 {label}: not one launch")
+    if not err <= DEC_OUT_ATOL:
+        raise AssertionError(f"K4 {label}: max abs err {err} > {DEC_OUT_ATOL}")
+    geometry = fwd_launch_geometry(n, decs, C, p.device)
+    if geometry["local_bytes"]:
+        raise AssertionError(f"K4 uses local memory: {geometry}")
+    return dict(case=label, n=n, decoders=len(decs), kernel="decoder_fwd", max_abs_err=err,
+                tol=DEC_OUT_ATOL,
+                bytes=n * 12 + sum(f.numel() for f in feats) * 4 + n * 16
+                + sum(w.numel() for w in weights) * 4, flops=2 * fwd_mac * n,
+                ms=cuda_time_ms(fwd), device_ms=device_time_ms(fwd, "decoder_fwd_kernel"),
+                plain_ms=cuda_time_ms(fwd_plain, 5), library_ms=device_total_ms(fwd_plain),
+                geometry=geometry)
+
+
 def decoder_rows(label, c):
     """K4, K5 and (where a decoder trains) K6 on one captured decoder-stage
     call, each against its plain version: the output within DEC_OUT_ATOL,
@@ -816,26 +884,10 @@ def decoder_rows(label, c):
     need_p, need_f, need_w = c["need_p"], c["need_f"], c["need_w"]
     n, C = p.shape[0], feats[0].shape[1]
     base = dict(case=label, n=n, decoders=len(decs))
-    fwd_mac, bwd_mac = dec_work(C, decs, need_p, need_f, need_w)
+    _, bwd_mac = dec_work(C, decs, need_p, need_f, need_w)
     w_b = sum(w.numel() for w in weights) * 4
     f_b = sum(f.numel() for f in feats) * 4
-
-    def fwd():
-        return DS.decoder_fwd(p, feats, weights, decs)
-
-    def fwd_plain():
-        return DS.decoder_fwd_plain(p, feats, weights, decs)
-
-    before = DS.launch_counts["decoder_fwd"]
-    err = float((fwd() - fwd_plain()).abs().max())
-    if DS.launch_counts["decoder_fwd"] != before + 1:
-        raise AssertionError(f"K4 {label}: not one launch")
-    if not err <= DEC_OUT_ATOL:
-        raise AssertionError(f"K4 {label}: max abs err {err} > {DEC_OUT_ATOL}")
-    rows = [dict(base, kernel="decoder_fwd", max_abs_err=err, tol=DEC_OUT_ATOL,
-                 bytes=n * 12 + f_b + n * 16 + w_b, flops=2 * fwd_mac * n,
-                 ms=cuda_time_ms(fwd), device_ms=device_time_ms(fwd, "decoder_fwd_kernel"),
-                 plain_ms=cuda_time_ms(fwd_plain, 5), library_ms=device_total_ms(fwd_plain))]
+    rows = [decoder_fwd_row(label, c)]
 
     def bwd():
         return DS.decoder_bwd(p, feats, weights, decs, g, need_p, need_f, need_w)
@@ -919,6 +971,26 @@ def resident(info, ctas, warps, sms):
             "min_resident_warps_per_sm": min(info["ctas_per_sm"], ctas // sms) * warps}
 
 
+def fwd_launch_geometry(n, decs, c, dev):
+    """K4's launch on a call: persistent CTAs, threads, tiles, and the
+    kernel's registers, local (spill) bytes and shared bytes per CTA
+    (decoder_stage.cu's decoder_kernel_info)."""
+    import torch
+
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geom = DS.fwd_geometry(n, sms)
+    smem = DS.fwd_smem(decs, c, geom.warps, dev)
+    info = DS.kernel_info("decoder_fwd", smem, dev, geom.threads)
+    return {"ctas": geom.grid, "threads": geom.threads, "tile_points": geom.tile,
+            "tiles": geom.tiles, "sms": sms, "registers": info["registers"],
+            "local_bytes": info["local_bytes"],
+            "shared_bytes": smem + info["static_shared_bytes"],
+            "ctas_per_sm": info["ctas_per_sm"],
+            **resident(info, geom.grid, geom.warps, sms)}
+
+
 def bwd_launch_geometry(n, decs, c, need_w, dev):
     """K5's launch on a case: CTAs, threads, tiles, partial rows, and the
     kernel's registers, local (spill) bytes and shared bytes per CTA read
@@ -977,11 +1049,12 @@ def phase_kernels(dev, cases, lookups):
     for label, c in cases.items():
         if label not in dict((r[0], r) for r in RANDOM_CASES):
             rows += kernel_rows(label, c["grids"], c["p"], c["gs"])
-    for label, c in lookups.items():  # K1 only: these paths take no gradient
+    for label, c in lookups.items():  # K1 and K4 only: these paths take no gradient
         pts_b, gather_b, feat_b, _, _, lib_fwd, timed, held = case_tools(
             label, c["grids"], c["p"])
         rows.append(k1_row(label, c["grids"], c["p"], gather_b + pts_b + feat_b,
                            timed, held, lib_fwd))
+        rows.append(decoder_fwd_row(label, c["dec"]))
     torch.cuda.synchronize()
     with_bounds(rows)
     emit({"phase": "kernels", "ok": True, "rows": rows,
@@ -3216,8 +3289,10 @@ def main() -> int:
     kernels = []
     for name, (replaces, case, source) in KERNEL_META.items():
         r = next(r for r in rows if r["kernel"] == name and r["case"] == case)
-        other = {x["case"]: {k: x[k] for k in ("n", "grids", "ms", "device_ms", "plain_ms",
-                                               "bound_ms", "library_ms", "max_abs_err")}
+        other = {x["case"]: {k: x[k] for k in ("n", "grids", "decoders", "ms", "device_ms",
+                                               "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "max_abs_err", "geometry")
+                             if k in x}
                  for x in rows if x["kernel"] == name and x["case"] in NEW_PATH_CASES}
         windows = {x["case"]: {k: x[k] for k in ("n", "D", "slab", "owned", "grids", "ms",
                                                  "device_ms", "plain_ms", "bound_ms",
@@ -3235,7 +3310,7 @@ def main() -> int:
             **({"main_path_cases": {x["case"]: {k: x[k] for k in (
                 "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "kink_points", "rows", "geometry") if k in x}
-                for x in rows if x["kernel"] == name}}
+                for x in rows if x["kernel"] == name and x["case"] in DEC_CASES}}
                if name.startswith("decoder") else {}),
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})

@@ -25,36 +25,59 @@
 // What bounds it: operations.  One color-stage point is 51,653 MAC (middle
 // 15,479, fine 20,599, color 15,575) against 4 x 4 + 3 x 32 x 4 bytes of
 // output and features, so at the main path's sizes the f32 FMA rate
-// (67 TFLOP/s) is the bound, well above HBM's; the weights (about 21k
-// floats per decoder) are read by every CTA from L1/L2.
+// (67 TFLOP/s) is the bound, well above HBM's.  The weights (16-21k floats
+// a decoder) are K4's and K5's only other traffic: K5 reads them from
+// L1/L2, K4 copies them once per CTA into shared memory.
 //
-// Design.  K4 (the first design; a tiled redesign comes next):
-//  * one thread per point, a CTA a tile of T = 64 points; the thread runs
-//    every decoder of the call on its point in turn.  A block's 32 outputs
-//    live in registers; its inputs are per-thread columns of shared memory
-//    (column i of thread t at [i * TS + t], TS = T + 1: odd, so a warp's
-//    own-column accesses are free of bank conflicts).  The weights are read
-//    with __ldg as 16-byte loads that every lane of a warp shares (one
-//    broadcast transaction from L1).
+// One forward for K4 and K5 (forward_rows): the points of a warp are
+// tiled, a thread owning a 2 x 4 register micro-tile of each block's
+// product (2 points, 4 consecutive hidden units).  Each output is summed
+// from its bias, then over the lead rows, then over the hidden rows, in
+// order of i; then relu; then the injection (bc, then the feature rows in
+// order) is added.  The block input is read as float4 rows of shared
+// memory (each point one row, its stride 4 mod 8 floats) and the weight
+// row's quads as 16-byte loads (the 8 lanes of a point group read the
+// whole 128-byte row, the 4 point groups share it).  The embedding's sines
+// come from sincos_emb, which keeps nothing in local memory.  K4 and K5 run
+// this code at the same tile; which thread owns a point never changes the
+// order of an output's sum, so K4's block outputs and relu masks are K5's
+// recomputed ones bit for bit.
+//
+// K4 (redesigned for Hopper): what bounds it is the f32 FMA rate; what
+// kept a first design (a thread per point, every weight an L1 broadcast)
+// at 23-65x that bound was the load instructions around each FMA, the
+// weights' trips through L1 and L2, and a card the small calls left
+// empty.  So:
+//  * K5's 2 x 4 micro-tile (a warp owns 8 points, a thread 2 of them,
+//    strided: rows pg and pg + 4, so a quarter-warp's loads hit distinct
+//    banks); 4 x 4 and 4 x 8 tiles measured slower on an H100;
+//  * one persistent CTA per SM (fewer where the call has fewer tiles): for
+//    each decoder of the call in turn, one thread copies its packed
+//    weights (at most ~84 KB) into shared memory with cp.async.bulk,
+//    completing on an mbarrier, and the CTA walks tiles blockIdx.x,
+//    + gridDim.x, ... reading every weight from shared memory (1.3-1.8x
+//    faster on an H100 than reading them with __ldg as K5 does);
+//  * the CTA's warps (up to 16, 8 points each) are sized from (n, SMs) so
+//    a small call spreads over the SMs in one round (fwd_geometry in
+//    decoder_stage.py; tracking: 120 CTAs of 10 warps);
+//  * after the blocks each warp writes its points' heads (each a sum from
+//    b_o over the 32 units in order) into the rows' dead lead, and the lane
+//    of each point composes them into the output in decoder order, reading
+//    back what it wrote for the decoder before, as one thread running the
+//    decoders in turn would: bit-identical run to run, no memset, no
+//    atomics.
 //
 // K5 (redesigned for Hopper):
-//  * several threads per point: a warp owns 8 points, and a thread a 2 x 4
-//    register micro-tile of them (points 2 pg, 2 pg + 1; outputs 4 og ..
-//    4 og + 3; pg = lane & 3, og = lane >> 2).  Each block's product is a
-//    small GEMM over the warp's points.  The forward reads the block input
-//    as float4 rows of shared memory and the weight row's quad as one
-//    coalesced 16-byte __ldg (the 8 og lanes read the whole 128-byte row),
-//    and sums every output in the order of K4's gemv.  Its sin and cos
-//    (sincos_emb) are within ~2 ulp of K4's sinf but not equal to it, so a
-//    pre-activation within rounding of 0 can take the other relu branch
-//    than in K4 (the smoke reports these points as kink_points).  The
+//  * the forward as above with a 2 x 4 micro-tile (a warp owns 8 points,
+//    points 2 pg, 2 pg + 1; outputs 4 og .. 4 og + 3; pg = lane & 3, og =
+//    lane >> 2), the weights read with __ldg, keeping the relu masks.  The
 //    backward products that reduce over the hidden units (dx = dz W^T,
-//    dfeat = dh Wc^T) read the same coalesced quads: each thread forms the
-//    partial dot products over its own four units for 8 rows at a time,
-//    and a fixed butterfly of shuffles over the 8 og lanes (reduce-scatter)
-//    leaves each lane the whole sum of one row, so dz and dh stay in
-//    registers in the layout the next product reads (at 128 registers and
-//    no spill: 8 CTAs of 2 warps per SM);
+//    dfeat = dh Wc^T) read the same
+//    coalesced quads: each thread forms the partial dot products over its
+//    own four units for 8 rows at a time, and a fixed butterfly of shuffles
+//    over the 8 og lanes (reduce-scatter) leaves each lane the whole sum of
+//    one row, so dz and dh stay in registers in the layout the next product
+//    reads (at 128 registers and no spill: 8 CTAs of 2 warps per SM);
 //  * a warp's points depend on no other warp: where no decoder trains, a
 //    CTA is 2 warps (16 points) running one decoder of the call on one
 //    tile (grid: tiles x decoders), and no __syncthreads runs but in
@@ -101,8 +124,7 @@ constexpr int H = 32;       // hidden width
 constexpr int NB = 5;       // blocks
 constexpr int SKIP = 2;     // after block SKIP the input is [lead, h]
 constexpr int EMB = 93;     // Fourier embedding width
-constexpr int T = 64;       // points (threads) per CTA
-constexpr int TS = T + 1;   // shared column stride
+constexpr int LEADW = 96;   // the lead's shared width (EMB padded to a quad)
 constexpr int kMaxDec = 3;
 constexpr int kDesc = 9;    // long longs per decoder in the descriptor table
 constexpr int kMaxC = 32;   // feature width
@@ -114,28 +136,27 @@ struct Dec {
   const float* fs;  // secondary (detached) feature (N, c), or null
   float* dfp;       // K5: gradient of the primary feature, or null
   int emb, fw, out, occ3, lead;
-  int oW[NB], ob, oWc, obc, oWo, obo, oB, count;
+  int ob, oWc, obc, oWo, obo, oB, count;
 };
 
 struct Launch {
   Dec d[kMaxDec];
   int n_dec, c, n;
-  int lm, fm;       // widest lead and feature-injection input
   int train;        // K5: some decoder trains
 };
 
-__host__ __device__ inline int in_rows(const Dec& d, int k) {
-  return k == 0 ? d.lead : (k == SKIP + 1 ? d.lead + H : H);
+// The packed buffer: W_0..W_4, b_0..b_4, Wc_0..Wc_4, bc_0..bc_4, W_o, b_o, B
+// (decoder_stage.py `layout`); every W row is 32 floats at a multiple of 4.
+// Offset of block k's weight (k = NB: the end of the weights), from the
+// lead's width: W_0 is (lead, H), W_{SKIP+1} (lead + H, H), the others
+// (H, H).  Arithmetic, not a table: a table indexed with a loop's k would
+// go to local memory.
+__host__ __device__ __forceinline__ int w_off(const Dec& d, int k) {
+  return k == 0 ? 0 : d.lead * H + (k - 1) * H * H + (k > SKIP + 1 ? d.lead * H : 0);
 }
 
-// the packed buffer: W_0..W_4, b_0..b_4, Wc_0..Wc_4, bc_0..bc_4, W_o, b_o, B
-// (decoder_stage.py `layout`); every W row is 32 floats at a multiple of 4
 void layout(Dec& d) {
-  int o = 0;
-  for (int k = 0; k < NB; ++k) {
-    d.oW[k] = o;
-    o += in_rows(d, k) * H;
-  }
+  int o = w_off(d, NB);
   d.ob = o;
   o += NB * H;
   d.oWc = o;
@@ -151,138 +172,35 @@ void layout(Dec& d) {
   d.count = o;
 }
 
-// acc[j] += sum_i xs[i * TS] * W[i * H + j], i < K
-__device__ __forceinline__ void gemv(float (&acc)[H], const float* xs, int K,
-                                     const float* __restrict__ W) {
-#pragma unroll 2
-  for (int i = 0; i < K; ++i) {
-    const float x = xs[i * TS];
-    const float4* w = reinterpret_cast<const float4*>(W + i * H);
-#pragma unroll
-    for (int q = 0; q < H / 4; ++q) {
-      const float4 v = __ldg(w + q);
-      acc[4 * q] = fmaf(x, v.x, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(x, v.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(x, v.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(x, v.w, acc[4 * q + 3]);
-    }
-  }
-}
-
-// One decoder's forward on thread t's point.  lead_s, f_s, h_s: the
-// thread's shared columns.  Leaves the head in o[0..out), the relu masks in
-// mask, and (hs non-null) block k's output j at hs[(k * H + j) * T].
-__device__ __forceinline__ void forward_point(const Dec& d, int c, int n, bool valid,
-                                              float p0, float p1, float p2,
-                                              float* lead_s, float* f_s, float* h_s,
-                                              unsigned (&mask)[NB], float* hs,
-                                              float (&o)[4]) {
-  const float* __restrict__ w = d.w;
-  if (d.emb) {
-    const float* __restrict__ B = w + d.oB;
-    for (int i = 0; i < EMB; ++i)
-      lead_s[i * TS] = sinf(fmaf(p2, __ldg(B + 2 * EMB + i),
-                                 fmaf(p1, __ldg(B + EMB + i), p0 * __ldg(B + i))));
-  } else {
-    for (int i = 0; i < c; ++i) lead_s[i * TS] = valid ? d.fp[(size_t)n * c + i] : 0.f;
-  }
-  if (d.fw) {
-    for (int i = 0; i < c; ++i) f_s[i * TS] = valid ? d.fp[(size_t)n * c + i] : 0.f;
-    if (d.fw > c)
-      for (int i = 0; i < c; ++i) f_s[(c + i) * TS] = valid ? d.fs[(size_t)n * c + i] : 0.f;
-  }
-  float acc[H];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) {
-    const float* __restrict__ W = w + d.oW[k];
-    const float* __restrict__ b = w + d.ob + k * H;
-#pragma unroll
-    for (int j = 0; j < H; ++j) acc[j] = __ldg(b + j);
-    const int lead_in = (k == 0 || k == SKIP + 1) ? d.lead : 0;
-    if (lead_in) gemv(acc, lead_s, lead_in, W);
-    if (k > 0) gemv(acc, h_s, H, W + lead_in * H);
-    unsigned m = 0u;
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      if (acc[j] > 0.f) m |= 1u << j;
-      acc[j] = fmaxf(acc[j], 0.f);
-    }
-    mask[k] = m;
-    if (d.fw) {
-      float inj[H];
-      const float* __restrict__ bc = w + d.obc + k * H;
-#pragma unroll
-      for (int j = 0; j < H; ++j) inj[j] = __ldg(bc + j);
-      gemv(inj, f_s, d.fw, w + d.oWc + k * d.fw * H);
-#pragma unroll
-      for (int j = 0; j < H; ++j) acc[j] += inj[j];
-    }
-#pragma unroll
-    for (int j = 0; j < H; ++j) h_s[j * TS] = acc[j];
-    if (hs)
-#pragma unroll
-      for (int j = 0; j < H; ++j) hs[(k * H + j) * T] = acc[j];
-  }
-  const float* __restrict__ Wo = w + d.oWo;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float s = 0.f;
-    if (q < d.out) {
-      s = __ldg(w + d.obo + q);
-#pragma unroll
-      for (int j = 0; j < H; ++j) s = fmaf(acc[j], __ldg(Wo + j * d.out + q), s);
-    }
-    o[q] = s;
-  }
-}
-
-__global__ void __launch_bounds__(T) decoder_fwd_kernel(const Launch L,
-                                                        const float* __restrict__ p,
-                                                        float4* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int t = threadIdx.x;
-  const int n = blockIdx.x * T + t;
-  const bool valid = n < L.n;
-  float* lead_s = sm + t;
-  float* f_s = lead_s + L.lm * TS;
-  float* h_s = f_s + L.fm * TS;
-  const float p0 = valid ? p[3 * n] : 0.f, p1 = valid ? p[3 * n + 1] : 0.f,
-              p2 = valid ? p[3 * n + 2] : 0.f;
-  float res[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int di = 0; di < L.n_dec; ++di) {
-    const Dec& d = L.d[di];
-    unsigned mask[NB];
-    float o[4];
-    forward_point(d, L.c, n, valid, p0, p1, p2, lead_s, f_s, h_s, mask, nullptr, o);
-    if (d.out == 1) {
-      res[3] += o[0];
-    } else {
-      res[0] = o[0];
-      res[1] = o[1];
-      res[2] = o[2];
-      if (d.occ3) res[3] += o[3];
-    }
-  }
-  if (valid) out[n] = make_float4(res[0], res[1], res[2], res[3]);
-}
-
 // ---------------------------------------------------------------------------
-// K5 decoder_bwd
+// The forward of K4 and K5
 // ---------------------------------------------------------------------------
 
-constexpr int WPTS = 8;      // points per warp
-constexpr int NT_WARPS = 2;  // warps per CTA where no decoder trains
-constexpr int TR_WARPS = 8;  // warps per persistent CTA where a decoder trains
-constexpr int LEADW = 96;    // the lead's shared width (EMB padded to a quad)
+// The 2 x 4 micro-tile: 8 lanes (og) cover a block's 32 outputs, 4 point
+// groups (pg) a warp's 8 points; lane = 4 og + pg.
+constexpr int WPTS = 8;  // points per warp
 
-// A point's shared row (floats).  Where nothing trains, the block outputs
-// ping-pong in two slots, and the lead's gradient and the feature's reuse
-// the lead and the feature (dead once the forward is done); where a
-// decoder trains, the row keeps what the
-// CTA's weight-gradient products read: all five block outputs, the head
-// cotangent, dh and dz of the current block (ping-pong) and the lead's
-// gradient, then dA.  The stride is 4 mod 8 floats: the float4 accesses of
-// a quarter-warp (rows 2 pg or 2 pg + 1, quads 4 og) then hit distinct banks.
+// K4's point row: lead, injected feature (up to 2 x kMaxC), block outputs
+// (ping-pong), point; the lead's first four floats take the head once the
+// blocks are done.  Stride 4 mod 8 floats.
+struct FwdRow {
+  static constexpr int LEAD = 0;
+  static constexpr int F = LEADW;
+  static constexpr int HID = F + 2 * kMaxC;
+  static constexpr int P = HID + 2 * H;
+  static constexpr int S = P + 4;
+  static_assert(S % 8 == 4, "row stride must be 4 mod 8 floats");
+  __device__ static constexpr int hid(int k) { return HID + (k & 1) * H; }
+};
+
+// K5's point row.  Where nothing trains, the block outputs ping-pong in two
+// slots, and the lead's gradient and the feature's reuse the lead and the
+// feature (dead once the forward is done); where a decoder trains, the row
+// keeps what the CTA's weight-gradient products read: all five block
+// outputs, the head cotangent, dh and dz of the current block (ping-pong)
+// and the lead's gradient, then dA.  The stride is 4 mod 8 floats: the
+// float4 accesses of a quarter-warp (rows 2 pg or 2 pg + 1, quads 4 og)
+// then hit distinct banks.
 template <bool TRAIN>
 struct Row {
   static constexpr int LEAD = 0;
@@ -299,12 +217,11 @@ struct Row {
   __device__ static constexpr int hid(int k) { return HID + (TRAIN ? k : (k & 1)) * H; }
 };
 
-// offset of block k's weight in the packed buffer (layout's oW[k], from the
-// lead's width: indexing the descriptor's array with a loop's k would copy
-// it to local memory)
-__device__ __forceinline__ int w_off(const Dec& d, int k) {
-  return k == 0 ? 0 : d.lead * H + (k - 1) * H * H + (k == NB - 1 ? d.lead * H : 0);
-}
+// reads of the packed weights: through the read-only data cache
+struct Ldg {
+  __device__ static float4 q(const float4* a) { return __ldg(a); }
+  __device__ static float f(const float* a) { return __ldg(a); }
+};
 
 // sin x and cos x for |x| < 2^13 (the embedding's |p B| stays below ~10^3):
 // Cody-Waite reduction by pi/2 in three parts, then Cephes' minimax
@@ -325,37 +242,270 @@ __device__ __forceinline__ void sincos_emb(float x, float& sn, float& cs) {
   cs = q == 0 ? pc : q == 1 ? -ps : q == 2 ? -pc : ps;
 }
 
-__device__ __forceinline__ void fma4(float (&a)[4], float x, const float4 w) {
+__device__ __forceinline__ void fma4(float* a, float x, const float4 w) {
   a[0] = fmaf(x, w.x, a[0]);
   a[1] = fmaf(x, w.y, a[1]);
   a[2] = fmaf(x, w.z, a[2]);
   a[3] = fmaf(x, w.w, a[3]);
 }
 
-// acc[p][q] += sum_{i<K} x_p[i] * W[i * H + 4 og + q] for the thread's two
-// points (shared rows xa, xb): each output summed in order of i, as gemv.
-__device__ __forceinline__ void gemm2x4(float (&acc)[2][4], const float* xa, const float* xb,
-                                        int K, const float* __restrict__ W, int og) {
-  const float4* w4 = reinterpret_cast<const float4*>(W) + og;
+// A warp's WPTS point rows (wrows + pt * R::S, points n0 + pt): the point,
+// then the lead (the embedding sin(p B), or the primary feature), then the
+// injected feature; zeros past the last point.  Starts and ends with a
+// __syncwarp (the warp's lanes are done with the rows, then the rows are
+// written).
+template <class R, class W>
+__device__ __forceinline__ void fill_rows(const Launch& L, const Dec& d,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ p, float* wrows, int n0,
+                                          int lane) {
+  const int c = L.c;
+  __syncwarp();
+  for (int pt = lane; pt < WPTS; pt += 32) {
+    const int n = n0 + pt;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) wrows[pt * R::S + R::P + q] = n < L.n ? p[3 * n + q] : 0.f;
+  }
+  __syncwarp();
+  if (d.emb) {
+    const float* __restrict__ B = w + d.oB;
+    for (int idx = lane; idx < WPTS * EMB; idx += 32) {
+      const int pt = idx / EMB, i = idx - pt * EMB;
+      float* r = wrows + pt * R::S;
+      const float x = fmaf(r[R::P + 2], W::f(B + 2 * EMB + i),
+                           fmaf(r[R::P + 1], W::f(B + EMB + i), r[R::P] * W::f(B + i)));
+      float sn, cs;
+      sincos_emb(x, sn, cs);
+      r[R::LEAD + i] = sn;
+    }
+  } else {
+    for (int idx = lane; idx < WPTS * c; idx += 32) {
+      const int pt = idx / c, i = idx - pt * c, n = n0 + pt;
+      wrows[pt * R::S + R::LEAD + i] = n < L.n ? d.fp[(size_t)n * c + i] : 0.f;
+    }
+  }
+  if (d.fw) {
+    for (int idx = lane; idx < WPTS * c; idx += 32) {
+      const int pt = idx / c, i = idx - pt * c, n = n0 + pt;
+      float* r = wrows + pt * R::S + R::F;
+      r[i] = n < L.n ? d.fp[(size_t)n * c + i] : 0.f;
+      if (d.fw > c) r[c + i] = n < L.n ? d.fs[(size_t)n * c + i] : 0.f;
+    }
+  }
+  __syncwarp();
+}
+
+// acc[pp][o] += sum_{i<K} x_pp[i] * Wt[i * H + 4 og + o] for the thread's
+// 2 points (rows x, x + ps) and 4 outputs, each output summed in order of i
+template <class W>
+__device__ __forceinline__ void gemm(float (&acc)[2][4], const float* x, int ps, int K,
+                                     const float* __restrict__ Wt, int og) {
+  const float4* w4 = reinterpret_cast<const float4*>(Wt) + og;
   int i = 0;
   for (; i + 4 <= K; i += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(xa + i);
-    const float4 b = *reinterpret_cast<const float4*>(xb + i);
+    const float4 a = *reinterpret_cast<const float4*>(x + i);
+    const float4 b = *reinterpret_cast<const float4*>(x + ps + i);
     const float av[4] = {a.x, a.y, a.z, a.w};
     const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float4 w = __ldg(w4 + (i + r) * (H / 4));
-      fma4(acc[0], av[r], w);
-      fma4(acc[1], bv[r], w);
+      const float4 wv = W::q(w4 + (i + r) * (H / 4));
+      fma4(acc[0], av[r], wv);
+      fma4(acc[1], bv[r], wv);
     }
   }
   for (; i < K; ++i) {
-    const float4 w = __ldg(w4 + i * (H / 4));
-    fma4(acc[0], xa[i], w);
-    fma4(acc[1], xb[i], w);
+    const float4 wv = W::q(w4 + i * (H / 4));
+    fma4(acc[0], x[i], wv);
+    fma4(acc[1], x[ps + i], wv);
   }
 }
+
+// a[pp][..] = the quad og of a 32-float bias
+template <class W>
+__device__ __forceinline__ void bias(float (&a)[2][4], const float* __restrict__ b, int og) {
+  const float4 v = W::q(reinterpret_cast<const float4*>(b) + og);
+#pragma unroll
+  for (int pp = 0; pp < 2; ++pp) {
+    a[pp][0] = v.x;
+    a[pp][1] = v.y;
+    a[pp][2] = v.z;
+    a[pp][3] = v.w;
+  }
+}
+
+// One decoder's five blocks on the thread's 2 points (rows x, x + ps,
+// filled by fill_rows), outputs 4 og .. 4 og + 3 of each block, into
+// R::hid(k) of the rows.  MASK: the relu masks, bit 8 k + 4 pp + o of mask.
+template <class R, bool MASK, class W>
+__device__ __forceinline__ void forward_rows(const Dec& d, const float* __restrict__ w, float* x,
+                                             int ps, int og, unsigned long long& mask) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    float a[2][4];
+    bias<W>(a, w + d.ob + k * H, og);
+    const int lead_in = (k == 0 || k == SKIP + 1) ? d.lead : 0;
+    if (lead_in) gemm<W>(a, x + R::LEAD, ps, lead_in, w + w_off(d, k), og);
+    if (k > 0) gemm<W>(a, x + R::hid(k - 1), ps, H, w + w_off(d, k) + lead_in * H, og);
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (MASK && a[pp][q] > 0.f) mask |= 1ull << (8 * k + 4 * pp + q);
+        a[pp][q] = fmaxf(a[pp][q], 0.f);
+      }
+    if (d.fw) {
+      float inj[2][4];
+      bias<W>(inj, w + d.obc + k * H, og);
+      gemm<W>(inj, x + R::F, ps, d.fw, w + d.oWc + k * d.fw * H, og);
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[pp][q] += inj[pp][q];
+    }
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp)
+      *reinterpret_cast<float4*>(x + pp * ps + R::hid(k) + 4 * og) =
+          make_float4(a[pp][0], a[pp][1], a[pp][2], a[pp][3]);
+    __syncwarp();
+  }
+}
+
+// The heads of a warp's WPTS points (rows wrows + pt * R::S, block 4's output
+// in R::hid(NB - 1)) into each row's first four floats: lane l takes the
+// (point, column) pairs l, l + 32, ...; o_q = b_o[q] + sum_j h_j W_o[j][q]
+// in order of j, one FMA at a time.
+template <class R, class W>
+__device__ __forceinline__ void head_rows(const Dec& d, const float* __restrict__ w,
+                                          float* wrows, int lane) {
+  const int out = d.out;
+  for (int idx = lane; idx < WPTS * out; idx += 32) {
+    const int pt = out == 1 ? idx : idx >> 2, q = idx - pt * out;
+    float* r = wrows + pt * R::S;
+    float s = W::f(w + d.obo + q);
+#pragma unroll 8
+    for (int j = 0; j < H; ++j) s = fmaf(r[R::hid(NB - 1) + j], W::f(w + d.oWo + j * out + q), s);
+    r[R::LEAD + q] = s;
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// K4 decoder_fwd
+// ---------------------------------------------------------------------------
+
+constexpr int K4_MAX_WARPS = 16;
+constexpr int kChunk = 16384;  // bytes per bulk copy
+
+// reads of the packed weights from the CTA's shared copy
+struct Lds {
+  __device__ static float4 q(const float4* a) { return *a; }
+  __device__ static float f(const float* a) { return *a; }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* a) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(a));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// the one arrival of the barrier's phase, which also waits for `bytes`
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// global -> shared, `bytes` a multiple of 16 at 16-byte aligned addresses
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// this thread's generic accesses of shared memory, before the async proxy's
+// later writes there (the next decoder's bulk copy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, P;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// Persistent CTAs of 8-point warps walking tiles blockIdx.x, + gridDim.x,
+// ... (`tiles` of warps x 8 points), decoder by decoder: the decoder's
+// weights into the first wsm floats of shared memory, the warps' point
+// rows after them.  A thread's points are rows pg and pg + 4 of its warp.
+__global__ void __launch_bounds__(K4_MAX_WARPS * 32, 1)
+    decoder_fwd_kernel(const Launch L, const float* __restrict__ p, float4* __restrict__ out,
+                       int wsm, int tiles) {
+  using R = FwdRow;
+  extern __shared__ float4 sm4[];
+  __shared__ unsigned long long bar;
+  float* w = reinterpret_cast<float*>(sm4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pg = lane & 3, og = lane >> 2;
+  const int tp = (blockDim.x >> 5) * WPTS;
+  float* wrows = w + wsm + warp * WPTS * R::S;
+  if (threadIdx.x == 0) mbar_init(&bar);
+  __syncthreads();
+  unsigned long long no_mask = 0ull;
+  for (int di = 0; di < L.n_dec; ++di) {
+    const Dec& d = L.d[di];
+    if (threadIdx.x == 0) {
+      const int bytes = d.count * 4 & ~15;
+      mbar_arrive_expect(&bar, bytes);
+      for (int off = 0; off < bytes; off += kChunk)
+        bulk_copy(w + off / 4, d.w + off / 4, min(kChunk, bytes - off), &bar);
+      for (int i = bytes / 4; i < d.count; ++i) w[i] = d.w[i];
+    }
+    mbar_wait(&bar, di & 1);
+    __syncthreads();  // the tail's plain stores
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = tile * tp + warp * WPTS;
+      fill_rows<R, Lds>(L, d, w, p, wrows, n0, lane);
+      forward_rows<R, false, Lds>(d, w, wrows + pg * R::S, 4 * R::S, og, no_mask);
+      head_rows<R, Lds>(d, w, wrows, lane);
+      for (int pt = lane; pt < WPTS; pt += 32) {
+        const int n = n0 + pt;
+        if (n >= L.n) break;
+        const float* o = wrows + pt * R::S + R::LEAD;
+        float4 r = di ? out[n] : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (d.out == 1) {
+          r.w += o[0];
+        } else {
+          r.x = o[0];
+          r.y = o[1];
+          r.z = o[2];
+          if (d.occ3) r.w += o[3];
+        }
+        out[n] = r;
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // every warp is done with this decoder's weights
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5 decoder_bwd
+// ---------------------------------------------------------------------------
+
+constexpr int NT_WARPS = 2;  // warps per CTA where no decoder trains
+constexpr int TR_WARPS = 8;  // warps per persistent CTA where a decoder trains
 
 // The 8 og lanes of a point group each hold v[o], a partial sum of output
 // o (o < 8).  A fixed butterfly (lane bits 4, 3, 2 are og's bits 2, 1, 0)
@@ -491,99 +641,24 @@ __global__ void __launch_bounds__(WARPS * 32, TRAIN ? 1 : 8)
     }
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       if (TRAIN) __syncthreads();  // the previous tile's products are done with the rows
-      __syncwarp();                // the warp's lanes are done with its rows
       const int n0 = tile * TP + warp * WPTS;
-      if (lane < WPTS) {
+      fill_rows<R, Ldg>(L, d, w, p, wrows, n0, lane);
+      if (TRAIN && lane < WPTS) {
         const int n = n0 + lane;
         const bool v = n < L.n;
         float* r = wrows + lane * S;
+        float gq[4];
 #pragma unroll
-        for (int q = 0; q < 3; ++q) r[R::P + q] = v ? p[3 * n + q] : 0.f;
-        if (TRAIN) {
-          float gq[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) gq[q] = v ? g[4 * n + q] : 0.f;
-          r[R::DO] = d.out == 1 ? gq[3] : gq[0];
-          r[R::DO + 1] = d.out == 1 ? 0.f : gq[1];
-          r[R::DO + 2] = d.out == 1 ? 0.f : gq[2];
-          r[R::DO + 3] = d.out == 1 || !d.occ3 ? 0.f : gq[3];
-        }
+        for (int q = 0; q < 4; ++q) gq[q] = v ? g[4 * n + q] : 0.f;
+        r[R::DO] = d.out == 1 ? gq[3] : gq[0];
+        r[R::DO + 1] = d.out == 1 ? 0.f : gq[1];
+        r[R::DO + 2] = d.out == 1 ? 0.f : gq[2];
+        r[R::DO + 3] = d.out == 1 || !d.occ3 ? 0.f : gq[3];
       }
-      __syncwarp();
-      if (d.emb) {
-        const float* __restrict__ B = w + d.oB;
-        for (int idx = lane; idx < WPTS * EMB; idx += 32) {
-          const int pt = idx / EMB, i = idx - pt * EMB;
-          float* r = wrows + pt * S;
-          float sn, cs;
-          sincos_emb(fmaf(r[R::P + 2], __ldg(B + 2 * EMB + i),
-                          fmaf(r[R::P + 1], __ldg(B + EMB + i), r[R::P] * __ldg(B + i))),
-                     sn, cs);
-          r[R::LEAD + i] = sn;
-        }
-      } else {
-        for (int idx = lane; idx < WPTS * c; idx += 32) {
-          const int pt = idx / c, i = idx - pt * c, n = n0 + pt;
-          wrows[pt * S + R::LEAD + i] = n < L.n ? d.fp[(size_t)n * c + i] : 0.f;
-        }
-      }
-      if (d.fw) {
-        for (int idx = lane; idx < WPTS * c; idx += 32) {
-          const int pt = idx / c, i = idx - pt * c, n = n0 + pt;
-          float* r = wrows + pt * S + R::F;
-          r[i] = n < L.n ? d.fp[(size_t)n * c + i] : 0.f;
-          if (d.fw > c) r[c + i] = n < L.n ? d.fs[(size_t)n * c + i] : 0.f;
-        }
-      }
-      __syncwarp();
 
-      // the forward, in K4's summation order; relu masks: bit 8 k + 4 p + q
+      // the forward, K4's; relu masks: bit 8 k + 4 p + q
       unsigned long long mask = 0ull;
-#pragma unroll
-      for (int k = 0; k < NB; ++k) {
-        float a[2][4];
-        const float4 bk = __ldg(reinterpret_cast<const float4*>(w + d.ob + k * H) + og);
-#pragma unroll
-        for (int pp = 0; pp < 2; ++pp) {
-          a[pp][0] = bk.x;
-          a[pp][1] = bk.y;
-          a[pp][2] = bk.z;
-          a[pp][3] = bk.w;
-        }
-        const int lead_in = (k == 0 || k == SKIP + 1) ? d.lead : 0;
-        if (lead_in) gemm2x4(a, ra + R::LEAD, ra + S + R::LEAD, lead_in, w + w_off(d, k), og);
-        if (k > 0)
-          gemm2x4(a, ra + R::hid(k - 1), ra + S + R::hid(k - 1), H,
-                  w + w_off(d, k) + lead_in * H, og);
-#pragma unroll
-        for (int pp = 0; pp < 2; ++pp)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (a[pp][q] > 0.f) mask |= 1ull << (8 * k + 4 * pp + q);
-            a[pp][q] = fmaxf(a[pp][q], 0.f);
-          }
-        if (d.fw) {
-          float inj[2][4];
-          const float4 bc = __ldg(reinterpret_cast<const float4*>(w + d.obc + k * H) + og);
-#pragma unroll
-          for (int pp = 0; pp < 2; ++pp) {
-            inj[pp][0] = bc.x;
-            inj[pp][1] = bc.y;
-            inj[pp][2] = bc.z;
-            inj[pp][3] = bc.w;
-          }
-          gemm2x4(inj, ra + R::F, ra + S + R::F, d.fw, w + d.oWc + k * d.fw * H, og);
-#pragma unroll
-          for (int pp = 0; pp < 2; ++pp)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) a[pp][q] += inj[pp][q];
-        }
-#pragma unroll
-        for (int pp = 0; pp < 2; ++pp)
-          *reinterpret_cast<float4*>(ra + pp * S + R::hid(k) + 4 * og) =
-              make_float4(a[pp][0], a[pp][1], a[pp][2], a[pp][3]);
-        __syncwarp();
-      }
+      forward_rows<R, true, Ldg>(d, w, ra, S, og, mask);
 
       // the head's cotangent and dh of block 4 (units 4 og .. 4 og + 3)
       float dh[2][4];
@@ -818,12 +893,18 @@ __global__ void __launch_bounds__(K6_COLS * K6_GROUPS)
 }
 
 // the largest shared memory each kernel asks for (c <= kMaxC)
-constexpr int kFwdMaxSmem = (EMB + 2 * kMaxC + H) * TS * 4;
 // the largest packed buffer: the 93-wide lead, a 64-wide feature, 4 outputs
 constexpr int kMaxCount = (EMB + 3 * H + EMB + H) * H + NB * H + NB * 2 * kMaxC * H +
                           NB * H + H * 4 + 4 + 3 * EMB;
 constexpr int kBwdTrainMaxSmem = (TR_WARPS * WPTS * Row<true>::S + kMaxCount) * 4;
 static_assert(kBwdTrainMaxSmem <= 232448, "K5's training CTA exceeds Hopper's shared memory");
+
+// K4: the weights (max_count floats, padded to a quad), then the rows
+int fwd_smem(int max_count, int warps) {
+  return ((max_count + 3) / 4 * 4 + warps * WPTS * FwdRow::S) * 4;
+}
+constexpr int kFwdMaxSmem = ((kMaxCount + 3) / 4 * 4 + K4_MAX_WARPS * WPTS * FwdRow::S) * 4;
+static_assert(kFwdMaxSmem + 16 <= 232448, "K4's CTA exceeds Hopper's shared memory");
 
 int bwd_smem(bool train, int max_count) {
   return train ? (TR_WARPS * WPTS * Row<true>::S + max_count) * 4
@@ -853,8 +934,6 @@ bool make_launch(Launch& L, const long long* desc, int n_dec, int c, int n) {
         (d.fw != 0 && d.fw != c && d.fw != 2 * c) || (d.fw == 2 * c && !d.fs))
       return false;
     layout(d);
-    L.lm = L.lm > d.lead ? L.lm : d.lead;
-    L.fm = L.fm > d.fw ? L.fm : d.fw;
   }
   return true;
 }
@@ -873,8 +952,8 @@ int set_attributes_once() {
   if (g_attr_done.load(std::memory_order_acquire) & bit) return 0;
   std::lock_guard<std::mutex> lock(g_attr_lock);
   if (g_attr_done.load(std::memory_order_relaxed) & bit) return 0;
-  e = cudaFuncSetAttribute(decoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kFwdMaxSmem);
+  e = cudaFuncSetAttribute(decoder_fwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdMaxSmem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(decoder_bwd_kernel<true, TR_WARPS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdTrainMaxSmem);
@@ -889,16 +968,22 @@ extern "C" {
 
 // desc: per decoder kDesc values -- weights, weight-gradient partials (0:
 // none), primary feature, secondary feature (0: none), primary feature's
-// gradient (0: none), emb, fw, out, occ3.
+// gradient (0: none), emb, fw, out, occ3.  warps, grid: K4's CTAs and their
+// warps of 8 points (decoder_stage.py `fwd_geometry`).
 int decoder_fwd(const long long* desc, int n_dec, int c, const float* p, float* out,
-                int n, void* stream) {
+                int warps, int grid, int n, void* stream) {
   Launch L;
-  if (!make_launch(L, desc, n_dec, c, n)) return (int)cudaErrorInvalidValue;
+  if (!make_launch(L, desc, n_dec, c, n) || warps < 1 || warps > K4_MAX_WARPS || grid < 1)
+    return (int)cudaErrorInvalidValue;
   const int rc = set_attributes_once();
   if (rc) return rc;
-  const int smem = (L.lm + L.fm + H) * TS * 4;
-  decoder_fwd_kernel<<<(n + T - 1) / T, T, smem, (cudaStream_t)stream>>>(
-      L, p, reinterpret_cast<float4*>(out));
+  int max_count = 0;
+  for (int i = 0; i < n_dec; ++i)
+    if (L.d[i].count > max_count) max_count = L.d[i].count;
+  const int tile = warps * WPTS;
+  decoder_fwd_kernel<<<grid, 32 * warps, fwd_smem(max_count, warps),
+                       (cudaStream_t)stream>>>(
+      L, p, reinterpret_cast<float4*>(out), (max_count + 3) / 4 * 4, (n + tile - 1) / tile);
   return (int)cudaGetLastError();
 }
 
@@ -942,19 +1027,27 @@ int decoder_wgrad_sum(const float* part, int rows, int cols, float* out, void* s
   return (int)cudaGetLastError();
 }
 
+// K4's dynamic shared memory: the largest packed buffer of the call's
+// decoders, warps per CTA
+int decoder_fwd_smem(int max_count, int warps) { return fwd_smem(max_count, warps); }
+
 // K5's dynamic shared memory for a launch: train, and the largest packed
 // buffer among the decoders that train
 int decoder_bwd_smem(int train, int max_count) { return bwd_smem(train != 0, max_count); }
 
 // A kernel's compiled resources (which: 0 K4, 1 K5 where nothing trains,
 // 2 K5 where a decoder trains, 3 K6) and its resident CTAs per SM at
-// dyn_smem bytes of dynamic shared memory: out = registers per thread,
-// local bytes per thread, static shared bytes, threads per CTA, CTAs per SM.
-int decoder_kernel_info(int which, int dyn_smem, int* out) {
+// dyn_smem bytes of dynamic shared memory and threads per CTA (0: the
+// kernel's own block size; K4's depends on the call): out = registers per
+// thread, local bytes per thread, static shared bytes, threads per CTA,
+// CTAs per SM.
+int decoder_kernel_info(int which, int dyn_smem, int threads, int* out) {
   const void* f;
-  int threads;
   switch (which) {
-    case 0: f = (const void*)decoder_fwd_kernel; threads = T; break;
+    case 0:
+      f = (const void*)decoder_fwd_kernel;
+      threads = threads ? threads : K4_MAX_WARPS * 32;
+      break;
     case 1: f = (const void*)decoder_bwd_kernel<false, NT_WARPS>; threads = NT_WARPS * 32; break;
     case 2: f = (const void*)decoder_bwd_kernel<true, TR_WARPS>; threads = TR_WARPS * 32; break;
     case 3: f = (const void*)decoder_wgrad_sum_kernel; threads = K6_COLS * K6_GROUPS; break;

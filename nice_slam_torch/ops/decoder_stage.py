@@ -28,7 +28,9 @@ PyTorch version beside it:
   K4 ``decoder_fwd``        the stage's forward (plain: the JAX
                             functions' matmul chains, dense for one
                             decoder, batched on 128-wide zero-padded
-                            inputs for a stage);
+                            inputs for a stage); its launch geometry is
+                            ``fwd_geometry``, and its forward is K5's
+                            recomputed one bit for bit;
   K5 ``decoder_bwd``        the backward from the output's cotangent: the
                             features' gradients, the points' (through
                             cos(p @ B) B), and per-CTA partial sums of
@@ -48,6 +50,7 @@ stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -62,7 +65,8 @@ SKIP = 2          # after block SKIP the next input is [lead, h]
 EMBED = 93        # Fourier embedding width
 IN_WIDTH = 128    # the plain chain's zero-padded layer input (93 + 32 -> 128)
 MAX_DECODERS = 3  # decoders per launch (kMaxDec in decoder_stage.cu)
-WARP_POINTS = 8   # K5: points per warp (WPTS in decoder_stage.cu)
+WARP_POINTS = 8   # K4 and K5: points per warp (WPTS in decoder_stage.cu)
+FWD_MAX_WARPS = 16   # K4: warps per CTA at most (K4_MAX_WARPS)
 BWD_WARPS = {False: 2, True: 8}  # K5: warps per CTA, without / with a decoder that trains
 
 _launches = kernels.LaunchCounter(("decoder_fwd", "decoder_bwd",
@@ -414,6 +418,42 @@ def _launch(name: str, device: torch.device, *args) -> None:
     _launches.count(name, stream, device.index)
 
 
+class FwdGeometry(NamedTuple):
+    """K4's launch: ``grid`` persistent CTAs of ``threads`` threads
+    (``warps`` warps of 8 points), CTA b walking tiles b, b + grid, ...
+    of the ``tiles`` tiles of ``tile`` points, each decoder of the call in
+    turn."""
+
+    grid: int
+    threads: int
+    warps: int
+    tile: int
+    tiles: int
+
+
+def fwd_geometry(n: int, sms: int) -> FwdGeometry:
+    """K4's launch geometry, a function of (n, SM count) alone: the rounds
+    of tiles a CTA walks at 16 warps, then the fewest warps that cover the
+    points in that many rounds over the SMs, at most one CTA per SM (the
+    CTA holds a decoder's weights, up to ~84 KB, and its rows).  A small
+    call spreads over every SM (tracking's 9,600 points on 132 SMs: 120
+    CTAs of 10 warps, one tile each), a large one runs 16 warps an SM.
+    The decoders run in turn in every CTA, so their number does not enter."""
+    rounds = max(1, -(-n // (sms * FWD_MAX_WARPS * WARP_POINTS)))
+    warps = -(-n // (rounds * sms * WARP_POINTS))
+    tile = WARP_POINTS * warps
+    tiles = -(-n // tile)
+    return FwdGeometry(grid=min(tiles, sms), threads=32 * warps, warps=warps, tile=tile,
+                       tiles=tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """The SM count of card ``index``, read once: K4 and K5 size their
+    launches from it on every call."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decoder_fwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
                 weights: Sequence[torch.Tensor], decs: Sequence[Dec]
                 ) -> torch.Tensor:
@@ -425,8 +465,9 @@ def decoder_fwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
     out = torch.empty((n, 4), dtype=torch.float32, device=p.device)
     if n:
         desc = _desc(decs, feats, weights, [None] * len(decs), [None] * len(feats), c)
+        geom = fwd_geometry(n, _sms(p.device.index))
         _launch("decoder_fwd", p.device, desc, len(decs), c, p.data_ptr(),
-                out.data_ptr(), n)
+                out.data_ptr(), geom.warps, geom.grid, n)
     return out
 
 
@@ -508,7 +549,7 @@ def decoder_bwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
                 df.zero_()
         return dp, dfeats, [torch.zeros(size(d, c), device=dev) if need_w[i] else None
                             for i, d in enumerate(decs)]
-    geom = bwd_geometry(n, torch.cuda.get_device_properties(dev).multi_processor_count,
+    geom = bwd_geometry(n, _sms(dev.index),
                         train, len(decs))
     dpart = torch.empty((len(decs), n, 3), dtype=torch.float32, device=dev) if split else None
     counter = torch.zeros((geom.tiles,), dtype=torch.int32, device=dev) if split else None
@@ -532,18 +573,31 @@ def bwd_smem(decs: Sequence[Dec], c: int, need_w: Sequence[bool],
             int(bool(counts)), max(counts, default=0))
 
 
+def fwd_smem(decs: Sequence[Dec], c: int, warps: int, device: torch.device) -> int:
+    """K4's dynamic shared memory for a call (the CUDA source's layout): the
+    largest packed buffer of its decoders, then a row per point of the
+    CTA's ``warps`` warps."""
+    with torch.cuda.device(device):
+        return kernels.library("decoder_stage").decoder_fwd_smem(
+            max(size(d, c) for d in decs), warps)
+
+
 KERNEL_IDS = {"decoder_fwd": 0, "decoder_bwd": 1, "decoder_bwd_train": 2,
               "decoder_wgrad_sum": 3}
 
 
-def kernel_info(which: str, smem: int, device: torch.device) -> Dict[str, int]:
+def kernel_info(which: str, smem: int, device: torch.device,
+                threads: int = 0) -> Dict[str, int]:
     """A kernel's compiled resources, read with cudaFuncGetAttributes, and
     its resident CTAs per SM at ``smem`` bytes of dynamic shared memory
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); ``which``: a key of
-    KERNEL_IDS (``decoder_bwd_train``: K5 where a decoder trains)."""
+    and ``threads`` threads per CTA (0: the kernel's own; K4's depends on
+    the call, ``fwd_geometry``) (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+    ``which``: a key of KERNEL_IDS (``decoder_bwd_train``: K5 where a
+    decoder trains)."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = kernels.library("decoder_stage").decoder_kernel_info(KERNEL_IDS[which], smem, out)
+        rc = kernels.library("decoder_stage").decoder_kernel_info(
+            KERNEL_IDS[which], smem, threads, out)
     kernels.check(rc, f"decoder_kernel_info({which})")
     return dict(zip(("registers", "local_bytes", "static_shared_bytes", "threads",
                      "ctas_per_sm"), out))

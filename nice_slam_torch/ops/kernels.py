@@ -40,11 +40,12 @@ SIGNATURES = {
         "trilinear_bwd_dp": [_D, _I, _P, _P, _I, _I, _P],
     },
     "decoder_stage": {
-        "decoder_fwd": [_D, _I, _I, _P, _P, _I, _P],
+        "decoder_fwd": [_D, _I, _I, _P, _P, _I, _I, _I, _P],
         "decoder_bwd": [_D, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
         "decoder_wgrad_sum": [_P, _I, _I, _P, _P],
+        "decoder_fwd_smem": [_I, _I],
         "decoder_bwd_smem": [_I, _I],
-        "decoder_kernel_info": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+        "decoder_kernel_info": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     },
 }
 

@@ -174,7 +174,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib, log = build()
-    captured, lookups = chip_smoke.phase_capture(dev)
+    captured, lookups, _ = chip_smoke.phase_capture(dev)
+    captured.pop("decoder")
     cases = {k: (v["grids"], v["p"]) for k, v in {**captured, **lookups}.items()}
     gen = torch.Generator().manual_seed(0)  # the smoke's random cases, in its order
     for label, shape, n_rays in (("fine_map", (74, 56, 43, 32), 1000),

@@ -19,6 +19,7 @@ import contextlib
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -979,7 +980,8 @@ def test_coarse_pin_issues_without_host_sync(dev, tmp_path):
 # calls (tools/workloads.py's Replica-scale room) and the pretrainer's; then
 # K5's ragged tiles: one point, a tile (16 points where nothing trains, 64
 # where a decoder does) less one, exactly, plus one, and (points -1) a
-# training call whose CTAs walk unequal numbers of tiles
+# training call whose CTAs walk unequal numbers of tiles; K4's persistent
+# CTAs walk tiles of 8 points a warp, several each from 17k points up
 STAGE_ROWS = (("track", "color_stage", 9600, "fp"),
               ("map_middle", "middle", 48000, "f"),
               ("map_fine", "fine_stage", 48000, "f"),
@@ -997,7 +999,8 @@ STAGE_ROWS = (("track", "color_stage", 9600, "fp"),
               ("train_tile_less_one", "color_stage", 63, "fpw"),
               ("train_tile", "fine", 64, "fW"),
               ("train_tile_plus_one", "color_stage", 65, "fw"),
-              ("train_uneven", "color_stage", -1, "fw"))
+              ("train_uneven", "color_stage", -1, "fw"),
+              ("one_decoder_ragged", "coarse", 33, "f"))
 
 
 def _uneven_points(dev) -> int:
@@ -1124,10 +1127,72 @@ def test_decoder_weight_gradient_is_deterministic(dev):
             assert all(torch.equal(a, b) for a, b, w in zip(runs[0][2], run[2], need_w) if w)
 
 
+def _head_f32(bo, h, wo):
+    """b_o + sum_j h_j W_o[j] as K4's head sums it: one float32 FMA at a
+    time in order of j (each product exact in float64, the sum rounded once
+    to float64 and once to float32: a double rounding that can differ from
+    the FMA only when the float64 sum falls on a float32 midpoint, about
+    one case in 2^29)."""
+    s = np.float32(bo)
+    for j in range(h.shape[0]):
+        s = np.float32(np.float64(h[j]) * np.float64(wo[j]) + np.float64(s))
+    return s
+
+
+@pytest.mark.parametrize("call", ["color_stage", "middle", "coarse"])
+def test_decoder_fwd_is_k5s_recomputed_forward_bit_for_bit(dev, call):
+    """K4's output is, bit for bit, the composed heads of the block-4
+    outputs that K5 recomputes.  With a one-hot cotangent on point m (1 at
+    rgb's first column and at occupancy) and every decoder training, K5's
+    dWo column 0 of each decoder is point m's block-4 output as K5
+    recomputed it (every other point adds h x 0); its head summed in K4's
+    order and the heads composed in decoder order must equal K4's output at
+    m.  K4 taking its sines from sinf instead of sincos_emb fails this."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    decs, p, feats, weights, _ = _stage_case(dev, call, 3000, True)
+    n, D = p.shape[0], len(decs)
+    out = DS.decoder_fwd(p, feats, weights, decs).cpu().numpy()
+    for m in (0, 1, 1499, n - 1):
+        g1 = torch.zeros((n, 4), device=dev)
+        g1[m, 0] = g1[m, 3] = 1.0
+        _, _, dws = DS.decoder_bwd(p, feats, weights, decs, g1, False, [False] * len(feats),
+                                   [True] * D)
+        res = np.zeros(4, np.float32)
+        for d, w, dw in zip(decs, weights, dws):
+            W = DS.unpack(w.cpu(), d, 32)
+            h = DS.unpack(dw.cpu(), d, 32)["Wo"][:, 0].numpy()
+            o = [_head_f32(W["bo"][q].item(), h, W["Wo"][:, q].numpy()) for q in range(d.out)]
+            if d.out == 1:
+                res[3] = np.float32(res[3] + o[0])
+            else:
+                res[:3] = o[:3]
+                if d.occ3:
+                    res[3] = np.float32(res[3] + o[3])
+        assert np.array_equal(out[m], res), (call, m, out[m] - res)
+
+
+def test_decoder_fwd_is_bit_identical_across_runs_and_streams(dev):
+    """Three K4 runs on the same inputs, and one on a second stream, give
+    bit-equal outputs (each CTA composes its tile's heads in decoder order)."""
+    from nice_slam_torch.ops import decoder_stage as DS
+
+    for call in ("color_stage", "fine_stage", "middle"):
+        decs, p, feats, weights, _ = _stage_case(dev, call, 48000, True)
+        runs = [DS.decoder_fwd(p, feats, weights, decs) for _ in range(3)]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            runs.append(DS.decoder_fwd(p, feats, weights, decs))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:]), call
+
+
 def test_decoder_bwd_compiles_without_local_memory(dev):
-    """K5 in both launch shapes and K6 use no local memory (no spills), and
-    at tracking's 9,600 points K5's geometry keeps at least 8 warps resident
-    on every SM."""
+    """K4, K5 in both launch shapes and K6 use no local memory (no spills),
+    and at tracking's 9,600 points K4's and K5's geometries keep at least 8
+    warps resident on every SM."""
     from nice_slam_torch.models import decoders as D
     from nice_slam_torch.ops import decoder_stage as DS
 
@@ -1144,6 +1209,11 @@ def test_decoder_bwd_compiles_without_local_memory(dev):
     info = DS.kernel_info("decoder_bwd", DS.bwd_smem(decs, 32, [False] * 3, dev), dev)
     per_sm = min(info["ctas_per_sm"], geom.ctas // sms)
     assert per_sm * geom.threads // 32 >= 8, (geom, info)
+    fgeom = DS.fwd_geometry(9600, sms)
+    info = DS.kernel_info("decoder_fwd", DS.fwd_smem(decs, 32, fgeom.warps, dev), dev,
+                          fgeom.threads)
+    assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 1, info
+    assert fgeom.warps >= 8 and fgeom.grid >= 0.9 * sms, (fgeom, info)
 
 
 def test_decoder_function_on_cuda_matches_cpu(dev):

@@ -347,6 +347,35 @@ def test_bwd_geometry(n, sms, train):
     assert DS.size(dec, 32) == 20920  # the fine decoder: 10,048 + 160 + 10,240 + 160 + 33 + 279
 
 
+# (points, SMs): tracking's call on an H100, mapping's stages, the coarse
+# mapper, one point, fewer points than an SM's warp, a render chunk, and a
+# card with fewer SMs
+FWD_GEOMETRY_CASES = ((9600, 132), (48000, 132), (32000, 132), (1, 132), (7, 132),
+                      (500_000, 132), (4_800_000, 132), (4096, 78))
+
+
+@pytest.mark.parametrize("n,sms", FWD_GEOMETRY_CASES)
+def test_fwd_geometry(n, sms):
+    """K4's launch as a function of (n, SMs): at most one CTA per SM, of
+    1-16 warps of 8 points; the tiles cover the points once; the warps are
+    the fewest that cover the points in as many rounds as 16 warps would,
+    so tracking's 9,600 points on 132 SMs take 120 CTAs of 10 warps, one
+    tile each, and a large call 16 warps an SM."""
+    geom = DS.fwd_geometry(n, sms)
+    assert 1 <= geom.warps <= DS.FWD_MAX_WARPS and geom.threads == 32 * geom.warps
+    assert geom.tile == DS.WARP_POINTS * geom.warps
+    assert (geom.tiles - 1) * geom.tile < n <= geom.tiles * geom.tile
+    assert geom.grid == min(geom.tiles, sms)
+    rounds = -(-geom.tiles // geom.grid)
+    assert rounds == -(-n // (sms * 16 * 8))  # 16-warp CTAs would take as many
+    if geom.warps > 1:  # one warp fewer would take another round
+        assert -(-n // (8 * (geom.warps - 1))) > rounds * sms
+    if (n, sms) == (9600, 132):
+        assert (geom.grid, geom.warps, geom.tiles) == (120, 10, 120)
+    if n >= 16 * 8 * sms:
+        assert geom.warps >= 15 and geom.grid == sms
+
+
 @pytest.mark.parametrize("rows", (1, 78, 132))
 def test_plain_wgrad_sum_at_the_new_row_count(rows):
     """K6's plain version over one row of partials per SM (132 on an H100,
