@@ -43,7 +43,12 @@ Phases, each printing one JSON line:
            own device time per call, each call after the L2 was evicted),
            beside its plain version and torch.nn.functional.grid_sample
            (library yardstick only; the port never calls it); fail if a
-           kernel's device_ms is below its bound_ms; K1 and K4 also on the
+           kernel's device_ms is below its bound_ms; each K1 row (here and
+           in the sharded and pretrain phases) with its launch geometry:
+           CTAs, the rounds of resident CTAs they take, items and the most
+           a thread walks, registers, local bytes and resident CTAs per
+           SM (interp.k1_geometry; trilinear.cu's trilinear_fwd_info), K1
+           failing if it uses local memory; K1 and K4 also on the
            two new paths' calls, recorded from the port's own calls with
            the captured state: a mesh chunk (the first 500k points of the
            256^3 lattice over the room, 'fine' stage: middle and fine
@@ -518,9 +523,33 @@ def k1_row(label, grids, p, bytes_, timed, held, lib_fwd):
     del feats, ref
     return dict(held("trilinear_fwd", err, 1e-5),
                 bytes=bytes_, flops=n * grids[0].shape[3] * 21 * len(grids),
+                geometry=k1_launch_geometry(label, n, grids, p.device),
                 **timed(lambda: interp.trilinear_fwd_multi(grids, p),
                         lambda: interp.trilinear_fwd_multi_plain(grids, p),
                         lib_fwd, "grid_sampler_3d", "trilinear_fwd"))
+
+
+def k1_launch_geometry(label, n, grids, dev):
+    """K1's launch on a case (``interp.k1_geometry``: CTAs, the rounds of
+    resident CTAs they take, items, the most a thread walks and the
+    CTA's chunk of them, 0 for a grid stride) and the
+    kernel's registers, local (spill) bytes and resident CTAs per SM
+    (trilinear.cu's trilinear_fwd_info); fails if K1 uses local memory."""
+    import torch
+
+    from nice_slam_torch.ops import interp
+
+    C = grids[0].shape[3]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = interp.k1_kernel_info(C, dev)
+    if info["local_bytes"]:
+        raise AssertionError(f"K1 {label}: {info['local_bytes']} bytes of local memory")
+    geom = interp.k1_launch_geometry(n, len(grids), C, dev)
+    return {"ctas": geom.ctas, "threads": geom.threads, "rounds": geom.rounds,
+            "items": geom.items, "per_thread": geom.per_thread, "chunk": geom.chunk, "sms": sms,
+            "registers": info["registers"], "local_bytes": info["local_bytes"],
+            "ctas_per_sm": info["ctas_per_sm"],
+            **resident(info, geom.ctas, geom.threads // 32, sms)}
 
 
 def case_tools(label, grids, p):
@@ -2601,8 +2630,10 @@ def window_case(label, c, D, devices, dense_rows, timed_slab):
              lambda: interp.trilinear_bwd_dp_multi_plain(slabs, p, cots, ws),
              pts_b + row_b + own_b + pts_b, sum(owned) * 8 * C * 2)]
         for kernel, fn, plain, bytes_, flops in specs:
+            geometry = ({"geometry": k1_launch_geometry(base["case"], n, slabs, p.device)}
+                        if kernel == "trilinear_fwd" else {})
             rows.append(dict(base, kernel=kernel, max_abs_err=worst[kernel],
-                             bytes=bytes_, flops=flops, ms=cuda_time_ms(fn),
+                             bytes=bytes_, flops=flops, **geometry, ms=cuda_time_ms(fn),
                              device_ms=device_time_ms(fn, kernel),
                              plain_ms=cuda_time_ms(plain, 5),
                              # grid_sample over the whole dense lookup: the
@@ -3296,7 +3327,8 @@ def main() -> int:
                  for x in rows if x["kernel"] == name and x["case"] in NEW_PATH_CASES}
         windows = {x["case"]: {k: x[k] for k in ("n", "D", "slab", "owned", "grids", "ms",
                                                  "device_ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "library_ms", "max_abs_err")}
+                                                 "bound_by", "library_ms", "max_abs_err",
+                                                 "geometry") if k in x}
                    for x in window_rows if x["kernel"] == name}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3305,7 +3337,9 @@ def main() -> int:
                                if x["kernel"] == name),
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], **({"new_paths": other} if other else {}),
+            "library_ms": r["library_ms"],
+            **({"geometry": r["geometry"]} if "geometry" in r else {}),
+            **({"new_paths": other} if other else {}),
             **({"window_cases": windows} if windows else {}),
             **({"main_path_cases": {x["case"]: {k: x[k] for k in (
                 "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

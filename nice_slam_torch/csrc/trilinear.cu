@@ -38,22 +38,37 @@
 // the points, the rows the owned points touch, and the outputs.
 //
 // K1, the lookup.  Bound by bytes: it gathers 8 corner rows per point and
-// grid, mostly from L1 and L2 (the 22.8 MB fine grid fits the 50 MB L2),
-// and writes an (n, C) feature per grid.  One thread per (grid, point,
-// float4 of channels), blockIdx.y picking the grid: the L lanes of a point
-// read one corner row as L contiguous 16-byte loads (a 128-byte
-// transaction at C = 32), and a block's 256 / L consecutive ray samples
-// share most of their corner rows in L1.  The first design launched once
-// per grid, and at tracking's 9.6k points each launch was one ragged
-// wave; one launch lets the grids' blocks fill one another's tails.  A
-// design that walks runs of consecutive points per warp as K2 does,
-// keeping every grid's current cell's 8 corner rows in registers
-// (tools/k1_sweep.cu), ran slower on the main path's three-grid lookups
-// (tools/k1_sweep.py, PERF.md): 183 registers at three grids leave 8
-// warps per SM, each step of a run waits on its gathers, and the reuse
-// it adds L1 already gives.  This one takes 38 registers, 6 blocks per
-// SM; L is a template argument, as in K2 and K3.  The lerp order is the
-// JAX forward's: z, then y, then x.
+// grid, mostly from L1 and L2, and writes an (n, C) feature per grid.  An
+// item is a (grid, point, float4 of channels): the L lanes of a point read
+// one corner row as L contiguous 16-byte loads (a 128-byte transaction at
+// C = 32).  The launch is one round of resident CTAs (ops/interp.py
+// k1_geometry, from the occupancy API through trilinear_fwd_info), not one
+// thread per item in as many rounds as the items take (tracking's 900 CTAs
+// of 256 in two rounds before): a thread walks items with a grid stride,
+// or from 16 items a thread on (a mesh or render chunk) each CTA walks a
+// contiguous chunk, whose consecutive rays or lattice rows find their rows
+// in the SM's L1; it loads its next item's point while it gathers for the
+// current one, and the features go out with streaming stores.  What it was
+// chosen over (PERF.md, its K1 findings; tools/k1_sweep.py keeps the kernel it
+// replaced and the register walk to time it against):
+//  * a cap of 32 registers (8 CTAs a SM, one round at tracking) spilled or
+//    held half the loads back, and lost to the uncapped build at every
+//    main-path case; ptxas is asked for 5 CTAs a SM (48 registers), all 8
+//    loads of an item in flight;
+//  * 2 or 4 items in flight a thread took 105-190 registers and lost;
+//  * two float4s a lane (half the lanes locating a point) lost outside
+//    the mesh chunk; L2 evict-last loads of the grids gained nothing
+//    measurable;
+//  * loads under a branch per half of the corners cost a second memory
+//    round trip, so an item's 8 loads are one block.
+// The store floor of a render chunk (its 1.84 GB of features written with
+// nothing computed) is 0.57 ms of K1's ~1.0: the rest is the gathers.  The
+// first design launched once per grid; a register walk over runs of
+// consecutive points as K2 does (183 registers at three grids) lost by 40 %
+// or more on the main path's three-grid lookups.  L is a template
+// argument, as in K2 and K3; the lerp order is the JAX forward's, z, then
+// y, then x, each lerp rounded as the kernel it replaced was compiled
+// (lerp1).
 //
 // K3, the point gradient.  Bound by bytes like K1 (8 corner rows per
 // point and grid), but at tracking's 9.6k points one launch per grid is
@@ -165,10 +180,17 @@ __device__ __forceinline__ float corner_weight(float fx, float fy, float fz,
   return wx * wy * wz;
 }
 
+// a (1 - t) + b t rounded as the K1 before this one was compiled: b t
+// rounded, then fused into a (1 - t).  Written out, because nvcc paired the products the
+// other way in a build that kept two items in flight.
+__device__ __forceinline__ float lerp1(float a, float b, float s, float t) {
+  return __fmaf_rn(a, s, __fmul_rn(b, t));
+}
+
 __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
   const float s = 1.0f - t;
-  return make_float4(a.x * s + b.x * t, a.y * s + b.y * t,
-                     a.z * s + b.z * t, a.w * s + b.w * t);
+  return make_float4(lerp1(a.x, b.x, s, t), lerp1(a.y, b.y, s, t),
+                     lerp1(a.z, b.z, s, t), lerp1(a.w, b.w, s, t));
 }
 
 __device__ __forceinline__ float4 fma4(float w, float4 g, float4 acc) {
@@ -191,58 +213,108 @@ struct FwdGrids {
   int win[kMaxGrids][3];          // its window: x_lo, planes, D
 };
 
+// item t's grid m, lane q and point (t below count x n x L)
 template <int L>
-__global__ void __launch_bounds__(kThreads)
-trilinear_fwd_kernel(FwdGrids s, const float* __restrict__ p, int n) {
-  const long t = (long)blockIdx.x * kThreads + threadIdx.x;
-  const int pt = (int)(t / L);
-  const int q = (int)(t % L);
-  if (pt >= n) return;
-  // this block's grid, picked with constant indices: a loop over m (even
-  // unrolled) copied the parameters to an 88-byte local-memory frame and
-  // ran at half the speed on an H100, and an else-if chain compiled to
-  // code 5-10 % slower than these two ifs
+__device__ __forceinline__ int item_point(unsigned t, unsigned per_grid, int& m, int& q) {
+  m = 0;
+  if (t >= per_grid) { t -= per_grid; m = 1; }
+  if (t >= per_grid) { t -= per_grid; m = 2; }
+  q = (int)(t % L);
+  return (int)(t / L);
+}
+
+// Items (grid m, point, lane q) in grid-major order, item t = (m * n + pt)
+// * L + q.  With chunk 0 thread g walks items g, g + S, g + 2S, ... (S: the
+// launch's threads); else CTA b walks its own `chunk` items from b x chunk
+// in steps of 256 (ops/interp.py k1_geometry picks).  A thread loads its
+// next item's point while it gathers for the current one.  A point another
+// slab owns reads no row and stores 0.  ptxas is asked for 5 CTAs a SM (at
+// most 48 registers), so all 8 loads of an item are in flight at once.
+template <int L>
+__global__ void __launch_bounds__(kThreads, 5)
+trilinear_fwd_kernel(FwdGrids s, const float* __restrict__ p, int n, int count,
+                     unsigned chunk) {
   static_assert(kMaxGrids == 3, "one branch per grid");
-  const float4* grid = s.grid[0];
-  float4* out = s.out[0];
-  int nx = s.dims[0][0], ny = s.dims[0][1], nz = s.dims[0][2];
-  int x_lo = s.win[0][0], planes = s.win[0][1], D = s.win[0][2];
-  if (blockIdx.y == 1) {
-    grid = s.grid[1];
-    out = s.out[1];
-    nx = s.dims[1][0];
-    ny = s.dims[1][1];
-    nz = s.dims[1][2];
-    x_lo = s.win[1][0];
-    planes = s.win[1][1];
-    D = s.win[1][2];
+  const unsigned per_grid = (unsigned)n * L;
+  const unsigned items = per_grid * (unsigned)count;  // < 2^31 (the wrapper's check)
+  // this thread's first item, end and step
+  unsigned first = blockIdx.x * kThreads + threadIdx.x, end = items,
+           step = gridDim.x * kThreads;
+  if (chunk) {
+    first = blockIdx.x * chunk + threadIdx.x;
+    end = min(items, (blockIdx.x + 1) * chunk);
+    step = kThreads;
   }
-  if (blockIdx.y == 2) {
-    grid = s.grid[2];
-    out = s.out[2];
-    nx = s.dims[2][0];
-    ny = s.dims[2][1];
-    nz = s.dims[2][2];
-    x_lo = s.win[2][0];
-    planes = s.win[2][1];
-    D = s.win[2][2];
-  }
-  Cell c = locate(p, pt, nx, ny, nz);
-  if (!in_window(c, x_lo, planes, D)) {
-    out[(long)pt * L + q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    return;
-  }
-  float4 v[8];
+  float xn[3];  // the point of the thread's next item (point 0 past the end)
+  {
+    int m, q;
+    const int pn = item_point<L>(first < end ? first : 0, per_grid, m, q);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __ldg(&grid[(long)corner_row(c, k, ny, nz) * L + q]);
-  // same lerp order as the JAX forward: z, then y, then x
-  const float4 c00 = lerp4(v[0], v[4], c.f[2]);
-  const float4 c01 = lerp4(v[2], v[6], c.f[2]);
-  const float4 c10 = lerp4(v[1], v[5], c.f[2]);
-  const float4 c11 = lerp4(v[3], v[7], c.f[2]);
-  const float4 c0 = lerp4(c00, c01, c.f[1]);
-  const float4 c1 = lerp4(c10, c11, c.f[1]);
-  out[(long)pt * L + q] = lerp4(c0, c1, c.f[0]);
+    for (int a = 0; a < 3; ++a) xn[a] = p[3 * pn + a];
+  }
+  for (unsigned t = first; t < end; t += step) {
+    int m, q;
+    const int pt = item_point<L>(t, per_grid, m, q);
+    const float x[3] = {xn[0], xn[1], xn[2]};
+    {  // the next item's point, in flight with this one's gathers
+      int mm, qq;
+      const unsigned r = t + step;
+      const int pn = item_point<L>(r < end ? r : 0, per_grid, mm, qq);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) xn[a] = p[3 * pn + a];
+    }
+    // the item's grid, picked with constant indices: a loop over m (even
+    // unrolled) copied the parameters to an 88-byte local-memory frame and
+    // ran at half the speed on an H100, and an else-if chain compiled to
+    // code 5-10 % slower than these two ifs
+    const float4* grid = s.grid[0];
+    float4* out = s.out[0];
+    int nx = s.dims[0][0], ny = s.dims[0][1], nz = s.dims[0][2];
+    int x_lo = s.win[0][0], planes = s.win[0][1], D = s.win[0][2];
+    if (m == 1) {
+      grid = s.grid[1];
+      out = s.out[1];
+      nx = s.dims[1][0];
+      ny = s.dims[1][1];
+      nz = s.dims[1][2];
+      x_lo = s.win[1][0];
+      planes = s.win[1][1];
+      D = s.win[1][2];
+    }
+    if (m == 2) {
+      grid = s.grid[2];
+      out = s.out[2];
+      nx = s.dims[2][0];
+      ny = s.dims[2][1];
+      nz = s.dims[2][2];
+      x_lo = s.win[2][0];
+      planes = s.win[2][1];
+      D = s.win[2][2];
+    }
+    Cell c = locate(x, 0, nx, ny, nz);
+    const bool own = in_window(c, x_lo, planes, D);
+    // 32-bit offsets (ops/interp.py _check_launch keeps a grid below 2^31
+    // floats, the wrapper the launch below 2^31 items): 64-bit ones took a
+    // render chunk's lookup from 0.99 to 1.04 ms on an H100 (PERF.md)
+    float4* dst = out + (pt * L + q);
+    float4 v[8];
+    if (own) {  // all 8 in one block, so ptxas issues them together
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __ldg(grid + (corner_row(c, k, ny, nz) * L + q));
+    }
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // another slab's point
+    if (own) {
+      // same lerp order as the JAX forward: z, then y, then x
+      const float4 c00 = lerp4(v[0], v[4], c.f[2]);
+      const float4 c01 = lerp4(v[2], v[6], c.f[2]);
+      const float4 c10 = lerp4(v[1], v[5], c.f[2]);
+      const float4 c11 = lerp4(v[3], v[7], c.f[2]);
+      const float4 c0 = lerp4(c00, c01, c.f[1]);
+      const float4 c1 = lerp4(c10, c11, c.f[1]);
+      val = lerp4(c0, c1, c.f[0]);
+    }
+    __stcs(dst, val);  // streaming: the features are not read again here
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -482,12 +554,46 @@ int device_attribute(cudaDeviceAttr attr) {
   return value;
 }
 
+// A K1 launch's grids from its descriptor (kDesc values per grid); false
+// if a window is not one the kernels can run.
+bool fwd_grids(const long long* desc, int count, FwdGrids* s) {
+  *s = {};
+  for (int m = 0; m < count; ++m) {
+    const long long* e = desc + kDesc * m;
+    if (!window_ok(e)) return false;
+    s->grid[m] = (const float4*)e[0];
+    s->out[m] = (float4*)e[1];
+    for (int a = 0; a < 3; ++a) {
+      s->dims[m][a] = (int)e[2 + a];
+      s->win[m][a] = (int)e[5 + a];
+    }
+  }
+  return true;
+}
+
 template <int L>
-int launch_fwd(const FwdGrids& s, int count, const float* p, int n,
-               cudaStream_t stream) {
-  const dim3 blocks((unsigned)(((long)n * L + kThreads - 1) / kThreads), count);
-  trilinear_fwd_kernel<L><<<blocks, kThreads, 0, stream>>>(s, p, n);
+int launch_fwd(const FwdGrids& s, int count, const float* p, int n, int ctas,
+               unsigned chunk, cudaStream_t stream) {
+  trilinear_fwd_kernel<L><<<ctas, kThreads, 0, stream>>>(s, p, n, count, chunk);
   return (int)cudaGetLastError();
+}
+
+// K1's resources at L float4s a row: registers, local (spill) bytes,
+// threads per CTA and resident CTAs per SM (the occupancy API).
+template <int L>
+int fwd_info(int* out) {
+  const void* f = (const void*)trilinear_fwd_kernel<L>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = kThreads;
+  out[3] = blocks;
+  return 0;
 }
 
 template <int L>
@@ -516,29 +622,38 @@ extern "C" {
 
 // desc: per grid kDesc values -- grid (slab) ptr, output ptr, then the
 // full grid's nx, ny, nz and the slab window x_lo, planes, D (a dense grid:
-// 0, nx - 1, 1).
+// 0, nx - 1, 1).  ctas, chunk: the launch's CTAs and the items each walks
+// (0: a grid stride), from ops/interp.py k1_geometry.  The kernel's offsets
+// are 32-bit: the wrapper keeps count x n x L and each grid's floats below
+// 2^31.
 int trilinear_fwd(const long long* desc, int count, const float* p, int n, int c,
-                  void* stream) {
-  if (count < 1 || count > kMaxGrids || n < 1) return (int)cudaErrorInvalidValue;
-  FwdGrids s = {};
-  for (int m = 0; m < count; ++m) {
-    const long long* e = desc + kDesc * m;
-    if (!window_ok(e)) return (int)cudaErrorInvalidValue;
-    s.grid[m] = (const float4*)e[0];
-    s.out[m] = (float4*)e[1];
-    for (int a = 0; a < 3; ++a) {
-      s.dims[m][a] = (int)e[2 + a];
-      s.win[m][a] = (int)e[5 + a];
-    }
-  }
+                  int ctas, int chunk, void* stream) {
+  if (count < 1 || count > kMaxGrids || n < 1 || ctas < 1 || chunk < 0 ||
+      chunk % kThreads || (long long)count * n * (c / 4) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  FwdGrids s;
+  if (!fwd_grids(desc, count, &s)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (c / 4) {
-    case 1: return launch_fwd<1>(s, count, p, n, st);
-    case 2: return launch_fwd<2>(s, count, p, n, st);
-    case 4: return launch_fwd<4>(s, count, p, n, st);
-    case 8: return launch_fwd<8>(s, count, p, n, st);
-    case 16: return launch_fwd<16>(s, count, p, n, st);
-    case 32: return launch_fwd<32>(s, count, p, n, st);
+    case 1: return launch_fwd<1>(s, count, p, n, ctas, chunk, st);
+    case 2: return launch_fwd<2>(s, count, p, n, ctas, chunk, st);
+    case 4: return launch_fwd<4>(s, count, p, n, ctas, chunk, st);
+    case 8: return launch_fwd<8>(s, count, p, n, ctas, chunk, st);
+    case 16: return launch_fwd<16>(s, count, p, n, ctas, chunk, st);
+    case 32: return launch_fwd<32>(s, count, p, n, ctas, chunk, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1's resources at c channels into out[4] (fwd_info).
+int trilinear_fwd_info(int c, int* out) {
+  switch (c / 4) {
+    case 1: return fwd_info<1>(out);
+    case 2: return fwd_info<2>(out);
+    case 4: return fwd_info<4>(out);
+    case 8: return fwd_info<8>(out);
+    case 16: return fwd_info<16>(out);
+    case 32: return fwd_info<32>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

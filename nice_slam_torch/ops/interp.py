@@ -37,7 +37,8 @@ grid type: a ``ShardedGrid`` goes to the sharded lookup.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +55,8 @@ reset_launch_counts = _launches.reset
 _count = _launches.count
 
 MAX_GRIDS = 3  # grids per K1/K2/K3 launch (kMaxGrids in trilinear.cu)
+K1_THREADS = 256  # threads per K1 CTA (kThreads in trilinear.cu)
+K1_CHUNK_FROM = 16  # items a K1 thread walks from which each CTA takes a chunk
 
 
 class Window(NamedTuple):
@@ -321,6 +324,70 @@ def _desc(a: torch.Tensor, b: torch.Tensor, shape, w: Window) -> List[int]:
             w.x_lo, w.planes, w.D]
 
 
+class K1Geometry(NamedTuple):
+    """K1's launch: ``ctas`` CTAs of ``threads`` threads over ``items``
+    (grid, point, lane) items, at most ``per_thread`` of them a thread:
+    thread g walks items g, g + S, g + 2S, ... (S = ctas x threads) where
+    ``chunk`` is 0, else CTA b walks its own ``chunk`` items from b x chunk;
+    ``slots``: the CTAs the card holds at once; ``rounds``: of them the
+    launch takes."""
+
+    ctas: int
+    threads: int
+    items: int
+    per_thread: int
+    chunk: int
+    slots: int
+    rounds: int
+
+
+def k1_geometry(n: int, count: int, L: int, sms: int, ctas_per_sm: int) -> K1Geometry:
+    """K1's launch geometry, a function of these numbers alone: one item
+    per (grid, point, float4 of channels), and one CTA per K1_THREADS
+    items, but no more than the card holds at once (``sms`` x
+    ``ctas_per_sm``), so the launch is one round of resident CTAs
+    (tracking's 9,600 points x 3 grids x 8 lanes: 900 CTAs of one item a
+    thread at 8 CTAs a SM on 132 SMs, 660 CTAs of 1-2 at 5).  Their
+    threads walk the rest with a grid stride, or, from K1_CHUNK_FROM items
+    a thread on (a mesh or render chunk), each CTA walks a contiguous
+    chunk of them, so the rows the previous rays or lattice rows read are
+    still in its SM's L1."""
+    items = count * n * L
+    slots = sms * ctas_per_sm
+    ctas = max(1, min(-(-items // K1_THREADS), slots))
+    per_thread = -(-items // (ctas * K1_THREADS))
+    return K1Geometry(ctas=ctas, threads=K1_THREADS, items=items, per_thread=per_thread,
+                      chunk=per_thread * K1_THREADS if per_thread >= K1_CHUNK_FROM else 0,
+                      slots=slots, rounds=-(-ctas // slots))
+
+
+def k1_kernel_info(c: int, device: torch.device) -> Dict[str, int]:
+    """K1's compiled resources at ``c`` channels, read with
+    cudaFuncGetAttributes and the occupancy API (trilinear.cu's
+    trilinear_fwd_info): registers, local (spill) bytes, threads and
+    resident CTAs per SM."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = kernels.library("trilinear").trilinear_fwd_info(c, out)
+    kernels.check(rc, "trilinear_fwd_info")
+    return dict(zip(("registers", "local_bytes", "threads", "ctas_per_sm"), out))
+
+
+@functools.lru_cache(maxsize=4096)
+def _k1_launch(index: Optional[int], n: int, count: int, c: int) -> K1Geometry:
+    dev = torch.device("cuda", index)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return k1_geometry(n, count, c // 4, sms, k1_kernel_info(c, dev)["ctas_per_sm"])
+
+
+def k1_launch_geometry(n: int, count: int, c: int, device: torch.device) -> K1Geometry:
+    """``k1_geometry`` of a K1 launch of ``count`` grids of ``c`` channels
+    at ``n`` points on ``device``, worked out once per such launch: the
+    main path repeats a few launch shapes, and each K1 call then costs
+    one cache lookup."""
+    return _k1_launch(device.index, n, count, c)
+
+
 def trilinear_fwd_multi(grids: Sequence[torch.Tensor], p: torch.Tensor,
                         windows: Optional[Sequence[Window]] = None
                         ) -> List[torch.Tensor]:
@@ -340,12 +407,16 @@ def trilinear_fwd_multi(grids: Sequence[torch.Tensor], p: torch.Tensor,
                              f"count, got {[tuple(g.shape) for g in grids]}")
     ws = _windows([g.shape[0] for g in grids], windows)
     n = p.shape[0]
+    if len(grids) * n * (C // 4) >= 2 ** 31:
+        raise ValueError("problem too large for 32-bit launch indices")
     outs = [torch.empty((n, C), dtype=torch.float32, device=p.device) for _ in grids]
     if n:
         desc = []
         for grid, out, w in zip(grids, outs, ws):
             desc += _desc(grid, out, grid.shape, w)
-        _launch("trilinear_fwd", p, desc, len(grids), p.data_ptr(), n, C)
+        geom = k1_launch_geometry(n, len(grids), C, p.device)
+        _launch("trilinear_fwd", p, desc, len(grids), p.data_ptr(), n, C, geom.ctas,
+                geom.chunk)
     return outs
 
 

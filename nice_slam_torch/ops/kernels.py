@@ -35,7 +35,8 @@ _D = ctypes.POINTER(ctypes.c_longlong)  # a per-grid descriptor table
 # own (utils/meshlib.py)
 SIGNATURES = {
     "trilinear": {
-        "trilinear_fwd": [_D, _I, _P, _I, _I, _P],
+        "trilinear_fwd": [_D, _I, _P, _I, _I, _I, _I, _P],
+        "trilinear_fwd_info": [_I, ctypes.POINTER(ctypes.c_int)],
         "trilinear_bwd_dgrid": [_D, _I, _P, _I, _I, _P],
         "trilinear_bwd_dp": [_D, _I, _P, _P, _I, _I, _P],
     },

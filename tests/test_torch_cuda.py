@@ -198,6 +198,104 @@ def test_k1_wrapper_rejects_too_many_grids_or_mixed_channels(dev):
         interp.trilinear_fwd_multi([grid, grid.cpu()], p)
 
 
+K1_SHAPES = {
+    "one": [(11, 8, 7, 32)],
+    "two": [(37, 28, 21, 32), (74, 56, 43, 32)],
+    "color_stage": [(37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32)],
+    "c8_three": [(6, 9, 7, 8), (40, 40, 40, 8), (5, 5, 5, 8)],
+    "c128_two": [(9, 8, 7, 128), (4, 4, 4, 128)],
+}
+
+
+def _k1_n(dev, shapes, size):
+    """A point count for K1's card-sized launch (``interp.k1_geometry``):
+    one point, fewer than a warp, exactly the items of one round of
+    resident CTAs, past it with a ragged tail, several rounds' worth, or
+    enough that each CTA walks its own chunk (past K1_CHUNK_FROM items a
+    thread, with a ragged last chunk)."""
+    count, C = len(shapes), shapes[0][3]
+    if size == "one_point":
+        return 1
+    if size == "below_warp":
+        return 3
+    slots = interp.k1_launch_geometry(1, count, C, dev).slots
+    round_n = slots * interp.K1_THREADS // (count * (C // 4))
+    return {"one_round": round_n, "ragged": round_n + 7, "past_round": 3 * round_n + 101,
+            "chunked": 20 * round_n + 13}[size]
+
+
+def _k1_points(n, pattern, gen):
+    """n points: ray samples, runs of 20 in one cell, or pairs of cells in
+    turn (into the border-clamped corners and onto exact nodes)."""
+    if pattern == "rays":
+        return _ray_samples(n // 48 + 1)[:n].contiguous()
+    if pattern == "runs":
+        cells = torch.rand((n // 20 + 1, 3), generator=gen) * 2.4 - 1.2
+        return torch.repeat_interleave(cells, 20, dim=0)[:n].contiguous()
+    cells = torch.tensor([[0.1, -0.2, 0.3], [1.0, 1.0, 1.0], [-1.0, -1.0, -1.0],
+                          [2.0, -3.0, 1.5], [0.0, 0.0, 0.0]])
+    return cells[torch.arange(n) % len(cells)].contiguous()
+
+
+@pytest.mark.parametrize("pattern", ["rays", "runs", "alternating"])
+@pytest.mark.parametrize("size", ["one_point", "below_warp", "one_round", "ragged",
+                                  "past_round", "chunked"])
+@pytest.mark.parametrize("shapes", list(K1_SHAPES.values()), ids=list(K1_SHAPES))
+def test_k1_grid_stride_matches_plain(dev, shapes, size, pattern):
+    """K1's launch is one round of resident CTAs whose threads walk the
+    rest with a grid stride, or each CTA its own chunk: held against its
+    plain version at 1e-5 where a thread takes one item, exactly one
+    round's, a round's and a ragged tail, several, and a chunk walk with a
+    ragged last chunk; 1-3 grids of mixed shapes; C = 8, 32, 128."""
+    n = _k1_n(dev, shapes, size)
+    geom = interp.k1_launch_geometry(n, len(shapes), shapes[0][3], dev)
+    assert geom.rounds == 1 and geom.ctas <= geom.items
+    assert (geom.per_thread > 1) == (size in ("ragged", "past_round", "chunked"))
+    assert (geom.chunk > 0) == (size == "chunked")
+    gen = torch.Generator().manual_seed(n)
+    grids = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    _k1_held(grids, _k1_points(n, pattern, gen).to(dev))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("size", ["one_point", "below_warp", "past_round", "chunked"])
+@pytest.mark.parametrize("shapes", [K1_SHAPES["color_stage"], K1_SHAPES["one"]],
+                         ids=["color_stage", "coarse"])
+def test_k1_slabs_sum_to_dense_k1_bit_for_bit(dev, shapes, size, D):
+    """K1 over the D slabs of each grid (one launch per slab), each against
+    its plain version at 1e-5, summed to the dense K1 bit for bit, from
+    one point to several rounds of resident CTAs and a chunk walk."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    n = _k1_n(dev, shapes, size)
+    geom = interp.k1_launch_geometry(n, len(shapes), shapes[0][3], dev)
+    assert (geom.chunk > 0) == (size == "chunked")
+    gen = torch.Generator().manual_seed(D * n)
+    grids = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    p = _k1_points(n, "rays", gen).to(dev)
+    sharded = [gs.shard_grid(g, [dev] * D) for g in grids]
+    feats = None
+    for d in range(D):
+        slabs = [sg.slabs[d] for sg in sharded]
+        ws = [sg.window(d) for sg in sharded]
+        f = interp.trilinear_fwd_multi(slabs, p, ws)
+        for a, b in zip(f, interp.trilinear_fwd_multi_plain(slabs, p, ws)):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        feats = f if feats is None else [a + b for a, b in zip(feats, f)]
+    for a, b in zip(feats, interp.trilinear_fwd_multi(grids, p)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C", [4, 8, 16, 32, 64, 128])
+def test_k1_resources(dev, C):
+    """K1 uses no local memory, and its resident CTAs fit the SM's
+    registers (trilinear_fwd_info)."""
+    info = interp.k1_kernel_info(C, dev)
+    assert info["local_bytes"] == 0, info
+    assert info["threads"] == interp.K1_THREADS and info["ctas_per_sm"] >= 1, info
+    assert info["registers"] * info["threads"] * info["ctas_per_sm"] <= 65536, info
+
+
 def test_multi_function_on_cuda_matches_cpu(dev):
     shapes = [(11, 8, 7, 16), (13, 9, 30, 16), (7, 7, 7, 16)]
     gen = torch.Generator().manual_seed(2)

@@ -345,3 +345,32 @@ def test_multi_fwd_equals_per_grid_lookups_and_matches_jax(points):
         ref = jinterp._trilinear_impl(jnp.asarray(gj), jnp.asarray(p))
         np.testing.assert_allclose(f.numpy(), np.asarray(ref), atol=ATOL)
 
+
+@pytest.mark.parametrize("n, count, ctas, per_thread, chunked", [
+    (9600, 3, 900, 1, False),          # tracking: one round, one item a thread
+    (48000, 3, 1056, 5, False),        # a color-stage mapping iteration
+    (32000, 1, 1000, 1, False),        # a coarse-mapping iteration
+    (4_800_000, 3, 1056, 427, True),   # a render chunk
+], ids=["track", "color_stage", "coarse", "render_chunk"])
+def test_k1_geometry_is_one_round_whose_walk_covers_every_item_once(n, count, ctas,
+                                                                    per_thread, chunked):
+    """K1's launch at 132 SMs and 8 resident CTAs per SM, C = 32: never
+    more CTAs than items and never more than one round; the kernel's walk
+    (thread g: items g, g + S, ...; or, from K1_CHUNK_FROM items a thread
+    on, CTA b: its own chunk) visits every (grid, point, float4) item
+    exactly once."""
+    g = tinterp.k1_geometry(n, count, 8, 132, 8)
+    assert (g.ctas, g.per_thread, g.rounds, bool(g.chunk)) == (ctas, per_thread, 1, chunked)
+    assert g.items == count * n * 8 and g.ctas <= g.items and g.ctas <= g.slots == 1056
+    stride = g.ctas * g.threads
+    visits = np.zeros(g.items, np.uint8)
+    if g.chunk:  # CTA b: items b * chunk + tid + 256 j, j < per_thread
+        assert g.chunk == g.per_thread * g.threads and g.ctas * g.chunk >= g.items
+        for b in range(g.ctas):
+            visits[b * g.chunk:min(g.items, (b + 1) * g.chunk)] += 1
+    else:  # thread t: items t + S j
+        for k in range(g.per_thread):
+            visits[k * stride:(k + 1) * stride] += 1
+    assert (visits == 1).all()
+    # the items a thread walks: at most per_thread, and a full first round
+    assert -(-g.items // stride) == g.per_thread and g.items > (g.per_thread - 1) * stride
