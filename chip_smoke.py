@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
   build    compile every source of the port, one process per source, all
            started together: the CUDA kernels with nvcc (sm_90a: the
-           trilinear lookup K1-K3 and the decoder stage K4-K6), the host
-           mesh kernels with g++;
+           trilinear lookup K1-K3, the decoder stage K4-K6, the render
+           integrator K7-K8, the group Adam step K9 and the frustum mask
+           K10), the host mesh kernels with g++;
   capture  a 2-frame run of the slice's own workload (Replica-scale room,
            first mapping 60 iterations) that records the backward kernels'
            arguments on the main path: one tracking iteration's lookups
@@ -18,8 +19,28 @@ Phases, each printing one JSON line:
            decoder stage's arguments as they reach K5: tracking (color
            stage, 9.6k points, dp), mapping's middle, fine and color
            stages (48k points; the color stage trains the color decoder,
-           so K6 runs) and the coarse mapper (48k points);
-  kernels  K4 decoder_fwd, K5 decoder_bwd and K6 decoder_wgrad_sum on each
+           so K6 runs) and the coarse mapper (48k points); and K7-K10's
+           arguments: the integrator's forward and cotangents of a
+           tracking iteration (200 rays x 48 samples), a color-stage
+           mapping iteration (1000 x 48) and a coarse one (1000 x 32), the
+           tracker's and the color stage's first Adam step (every leaf,
+           gradient, moment and frustum mask) and the first frustum-mask
+           call (the room's middle, fine and color grids, a 680x1200
+           depth frame);
+  kernels  K7 integrate_fwd and K8 integrate_bwd on the captured
+           tracking, color-stage and coarse calls and on the render chunk's
+           call (100k rays x 48 samples; seeded cotangents for K8) against
+           their plain versions (K7 within 1e-5, K8 within 1e-4 of the
+           plain output's largest entry), K9 group_adam on the captured
+           tracker and color-stage steps against the plain step from the
+           same state (within 2 float32 epsilons of each value's terms;
+           library_ms torch._fused_adam_ on the same leaves, a yardstick
+           only), K10's two kernels on the captured frustum call (the
+           largest lookups within 1e-5 of the depth range, at most 1e-4
+           of the nodes' masks differing: nodes within rounding of a
+           test's boundary); each row with its registers and local bytes
+           (none allowed) and its bound; then
+           K4 decoder_fwd, K5 decoder_bwd and K6 decoder_wgrad_sum on each
            captured decoder-stage call against their plain versions (the
            output within 1e-3, the feature and weight gradients within
            1e-3 of the plain gradient's largest entry, dp within 1e-2, a
@@ -62,15 +83,17 @@ Phases, each printing one JSON line:
            (K1 once per iteration and once per mesher chunk, K3 once per
            tracking iteration, K2 once per mapping iteration; K4 once per
            K1, K5 once per iteration, K6 once per iteration and decoder
-           that trains: the color decoder's color-stage iterations); it writes
+           that trains: the color decoder's color-stage iterations; K7, K8
+           and K9 once per iteration, K10's two kernels once per
+           frustum-selecting main-mapper call); it writes
            the final checkpoint, final_mesh.ply and final_mesh_eval_rec.ply
            at resolution 256, and each mesh must have faces;
   resume   a fresh system on the slice's config resumes from its final
            checkpoint: every grid, decoder tensor and pose equal to the
            slice's final state bit for bit, the start index n_frames;
   vis      one 680x1200 residual panel of the slice's final state
-           (render_img: nine 100k-ray chunks, one K1 and one K4 launch
-           each);
+           (render_img: nine 100k-ray chunks, one K1, one K4 and one K7
+           launch each);
   profile  ``nice_slam_torch.run --profile`` on three box frames: the
            trace under <output>/torch_trace/ holds K1 and K4 events;
   quality  the 30-frame tracked box run (0.25 rad orbit, mapping iters 60,
@@ -85,9 +108,10 @@ Phases, each printing one JSON line:
            coarse mapper run as threads, each on its own CUDA stream.  Each
            run must track frames 1-11 with finite poses, map frame 11,
            write the final checkpoint and a final mesh with faces, and
-           launch K1-K6 with exact counts (K3 = tracking iterations, K2 =
+           launch K1-K10 with exact counts (K3 = tracking iterations, K2 =
            mapping + coarse-mapping iterations, K1 = both + mesher chunks,
-           K4 = K1, K5 = all iterations, K6 = training decoder-iterations)
+           K4 = K1, K5, K7, K8 and K9 = all iterations, K6 = training
+           decoder-iterations, K10 = frustum-selecting mapping calls)
            on the streams they belong to: per stream, K3 = the tracker
            thread's tracking iterations, K2 = each mapper thread's mapping
            iterations, the warm-up's on the default stream; a stream that
@@ -142,7 +166,7 @@ Phases, each printing one JSON line:
            fixtures of tests/data/imageio decode to OpenCV's pixels, and
            undistort at freiburg1_desk's camera gives OpenCV's; then
            ``nice_slam_torch.run`` runs the strict loop for ten frames from
-           a 120x160 Replica-layout export (K1-K6 launched, ATE within
+           a 120x160 Replica-layout export (K1-K10 launched, ATE within
            20 cm, the checkpoint's selected_keyframes recorded); reports the
            read ms per 680x1200 frame;
   sharded  multi-device NICE-SLAM on this card, D logical devices on
@@ -156,7 +180,7 @@ Phases, each printing one JSON line:
            owning the most points timed against its own bound; the
            slice's 12-frame loop with the grids sharded over [cuda:0] x 4
            (NICE_SLAM_TORCH_SPATIAL=1): every frame tracked, K1-K3
-           launches exactly 4 x the slice's and K4-K6 the slice's, the
+           launches exactly 4 x the slice's and K4-K10 the slice's, the
            halo planes bitwise equal, both
            meshes with faces, the dense final checkpoint restored by an
            unsharded system bit for bit, per_device_bytes within 1 % of
@@ -175,10 +199,12 @@ Phases, each printing one JSON line:
            same list; (b) free with ray DP over [cuda:0] x 2 and the coarse
            mapper pinned to the last device, beside a strict run on the
            same list.  Each run: every frame tracked with finite poses,
-           the last mapped; K1-K6 launches exactly as the run's recorded
+           the last mapped; K1-K10 launches exactly as the run's recorded
            calls give them per (kernel, device, stream) (a thread's on its
-           own stream of each card, K1-K3 once per slab or replica, K4-K6
-           once per replica, on the points' card when sharded; the
+           own stream of each card, K1-K3 once per slab or replica, K4-K8
+           once per replica, on the points' card when sharded, K9 once per
+           step on each card the trained leaves lie on, K10 on the first;
+           the
            warm-up's on the default streams); each thread with a stream of
            its own on every card; loose lag <= 7; the halo planes bitwise
            equal (a); the dense final checkpoint restored by a fresh
@@ -201,7 +227,8 @@ Phases, each printing one JSON line:
            38^3 x 32 over +-3 m; 4096 points x 300 Adam steps per stage),
            cut in depth to 2 scenes (the recipe: 40): every loss finite and
            each stage's mean over its last 50 steps below its first 50's;
-           K1 and K2 once per step (1800 each), K3 never; K1 and K2 held
+           K1, K2 and K9 once per step (1800 each), K3, K7, K8 and K10
+           never; K1 and K2 held
            against their plain versions on the first coarse-stage and
            fine-stage step's arguments (rows of the kernels line); the
            export loaded back by the port's loader equal bit for bit to the
@@ -213,11 +240,11 @@ Phases, each printing one JSON line:
            row finite, the 1.0 deg rows <= 20 cm, and the JAX gate's rule
            (tests/test_quality_gates.py:148-154): the largest motion cf
            tracks below 10 cm >= default's; K3 = tracking iterations, K2 =
-           mapping iterations;
+           mapping iterations, K7-K9 = both, K10 = mapping calls;
   landscape the port's loss_landscape on gt_tour's final checkpoint at
            frames 30, 90 and 149, offsets -4..4 cm, 2000 pixels: finite
-           losses shaped as the JAX tool's, one K1 launch per evaluation,
-           no K2 or K3; reports each DOF's 'biased' flag;
+           losses shaped as the JAX tool's, one K1, K4 and K7 launch per
+           evaluation and nothing else; reports each DOF's 'biased' flag;
   viewer   ``nice_slam_torch.visualizer`` on the slice's output with
            --save_rendering: vis.mp4 (Motion-JPEG) holds one frame per
            frame 0..N, each read by the port's JPEG decoder; then
@@ -405,15 +432,21 @@ def phase_capture(dev):
     interp.trilinear_bwd_dgrid_multi = rec_dgrid
     interp.trilinear_bwd_dp_multi = rec_dp
     DS.decoder_bwd = rec_dec
+    k7_k10, restore = k7_k10_captures()
     try:
         slam.run()
     finally:
         interp.trilinear_bwd_dgrid_multi = dgrid_multi
         interp.trilinear_bwd_dp_multi = dp_multi
         DS.decoder_bwd = dec_bwd
+        restore()
     missing = [k for k in DEC_CASES if k not in dec_seen]
+    missing += [f"K7/K8 {k}" for k in K78_CASES[:3]
+                if "g_depth" not in k7_k10["integrate"].get(k, {})]
+    missing += [f"K9 {k}" for k in K9_CASES if k not in k7_k10["adam"]]
+    missing += ["K10"] if k7_k10["frustum"] is None else []
     if missing:
-        raise AssertionError(f"no decoder-stage backward captured for {missing}")
+        raise AssertionError(f"no main-path call captured for {missing}")
     g = slam.state.grids
     # the color stage looks up middle, fine, color in that order
     seen["map_color"]["grids"] = [g["grid_middle"], g["grid_fine"], g["grid_color"]]
@@ -428,6 +461,8 @@ def phase_capture(dev):
                             for k, v in dec_seen.items()}})
     slam.cfg = dict(cfg, meshing=meshing)
     cases["decoder"] = dec_seen
+    k7_k10["integrate"]["render_color"] = lookups["render_color"].pop("integrate")
+    cases["k7_k10"] = k7_k10
     return cases, lookups, slam
 
 
@@ -443,9 +478,12 @@ def new_path_lookups(slam, cfg):
     from nice_slam_torch.ops.render import get_rays, render_batch_ray
     from nice_slam_torch.utils.mesher import Mesher, chunked_eval
 
+    from nice_slam_torch.ops import integrator as I
+
     seen = {}
     fwd = interp.trilinear_fwd_multi
     dec_fwd = DS.decoder_fwd
+    int_fwd = I.integrate_fwd
 
     def rec(grids, p):
         seen.setdefault("lookup", {"p": p.detach().clone(),
@@ -458,6 +496,13 @@ def new_path_lookups(slam, cfg):
             "weights": [w.detach().clone() for w in weights], "decs": decs})
         return dec_fwd(p, feats, weights, decs)
 
+    def rec_int(raw, z, rays_d, occupancy=False):
+        if "lookup" in seen:
+            seen["lookup"].setdefault("integrate", {
+                "raw": raw.detach().clone(), "z": z.detach().clone(),
+                "rays_d": rays_d.detach().clone(), "occ": bool(occupancy)})
+        return int_fwd(raw, z, rays_d, occupancy)
+
     mesher = Mesher(cfg, slam.cam, slam.spec, slam.rcfg)
     lattice, _ = mesher.get_grid_uniform(cfg["meshing"]["resolution"])
     _, color, depth, _ = slam.frame_reader[0]
@@ -469,6 +514,7 @@ def new_path_lookups(slam, cfg):
     out = {}
     interp.trilinear_fwd_multi = rec
     DS.decoder_fwd = rec_dec
+    I.integrate_fwd = rec_int
     try:
         chunked_eval(slam.spec, slam.state, lattice[:mesher.points_batch_size],
                      "fine", mesher.points_batch_size)
@@ -480,9 +526,12 @@ def new_path_lookups(slam, cfg):
     finally:
         interp.trilinear_fwd_multi = fwd
         DS.decoder_fwd = dec_fwd
+        I.integrate_fwd = int_fwd
     for label, c in out.items():
         if "dec" not in c:
             raise AssertionError(f"no K4 call recorded on the {label} path")
+    if "integrate" not in out["render_color"]:
+        raise AssertionError("no K7 call recorded on the render path")
     return out
 
 
@@ -706,29 +755,59 @@ DEC_PLAIN_CHUNK = 1_000_000  # points per plain-chain call (a render chunk's who
                              # activations, ~70 GB at 4.8M points, would not fit)
 
 
-def reset_counts() -> None:
-    """Zero the launch counts of K1-K3 and K4-K6."""
-    from nice_slam_torch.ops import decoder_stage as DS
-    from nice_slam_torch.ops import interp
+K7_K10 = ("integrate_fwd", "integrate_bwd", "group_adam", "frustum_depth_max",
+          "frustum_mask")
 
-    interp.reset_launch_counts()
-    DS.reset_launch_counts()
+
+def counters():
+    """The modules that count the launches of K1-K3, K4-K6, K7-K8, K9 and
+    K10."""
+    from nice_slam_torch.ops import decoder_stage as DS
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.ops import integrator as I
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.slam import optim as O
+
+    return interp, DS, I, O, Fm
+
+
+def reset_counts() -> None:
+    """Zero the launch counts of K1-K10."""
+    for mod in counters():
+        mod.reset_launch_counts()
 
 
 def all_counts() -> dict:
-    """The launches of K1-K6 since the last ``reset_counts``."""
-    from nice_slam_torch.ops import decoder_stage as DS
-    from nice_slam_torch.ops import interp
-
-    return {**interp.launch_counts, **DS.launch_counts}
+    """The launches of K1-K10 since the last ``reset_counts``."""
+    return {k: v for mod in counters() for k, v in mod.launch_counts.items()}
 
 
 def all_by_device() -> dict:
-    """The launches of K1-K6 per (kernel, device index, stream)."""
-    from nice_slam_torch.ops import decoder_stage as DS
-    from nice_slam_torch.ops import interp
+    """The launches of K1-K10 per (kernel, device index, stream)."""
+    return {k: v for mod in counters() for k, v in mod.launches_by_device.items()}
 
-    return {**interp.launches_by_device, **DS.launches_by_device}
+
+def all_by_stream() -> dict:
+    """The launches of K1-K10 per (kernel, stream)."""
+    return {k: v for mod in counters() for k, v in mod.launches_by_stream.items()}
+
+
+def k7_k10_want(iters: int, frustum_calls: int, adam=None) -> dict:
+    """K7-K10's launches of a run on one card: one K7, one K8 and one K9
+    per tracking or mapping iteration (``adam``: K9's count, where it
+    differs), and K10's two kernels once per main-mapper call that
+    selects features by the frustum."""
+    return {"integrate_fwd": iters, "integrate_bwd": iters,
+            "group_adam": iters if adam is None else adam,
+            "frustum_depth_max": frustum_calls, "frustum_mask": frustum_calls}
+
+
+def frustum_per_call(mcfg, spec) -> int:
+    """K10's launches (of each of its two kernels) in a mapping call: one
+    where the main mapper of a NICE scene selects features by the
+    frustum."""
+    return int(bool(mcfg.frustum_feature_selection) and not mcfg.coarse_mapper
+               and spec.nice)
 
 
 def k6_per_call(mcfg, plan) -> int:
@@ -745,7 +824,8 @@ def k6_per_call(mcfg, plan) -> int:
 @contextlib.contextmanager
 def recorded_core(sink):
     """Append each optimize_map_core call to ``sink`` as (thread, coarse,
-    iterations, rays, K6 launches per device it runs on)."""
+    iterations, rays, K6 launches per device it runs on, K10 launches of
+    each of its kernels)."""
     import inspect
     import threading
 
@@ -759,7 +839,8 @@ def recorded_core(sink):
         res = inner(*a, **k)
         sink.append((threading.current_thread().name, b["mcfg"].coarse_mapper,
                      int(res[2].shape[0]), b["colors"].shape[0] * b["pixs_per_image"],
-                     k6_per_call(b["mcfg"], b["stage_plan"])))
+                     k6_per_call(b["mcfg"], b["stage_plan"]),
+                     frustum_per_call(b["mcfg"], b["spec"])))
         return res
 
     mapper_mod.optimize_map_core = core
@@ -1056,6 +1137,283 @@ def wgrad_sum_geometry(cols, dev):
             **resident(info, ctas, info["threads"] // 32, sms)}
 
 
+# ---------------------------------------------------------------------------
+# K7 integrate_fwd, K8 integrate_bwd, K9 group_adam, K10 frustum_depth_max and
+# frustum_mask
+# ---------------------------------------------------------------------------
+
+K78_CASES = ("track", "map_color", "map_coarse", "render_color")
+K9_CASES = ("track", "map_color")
+K7_RTOL = 1e-5   # K7's outputs, of the plain output's largest entry
+K8_RTOL = 1e-4   # K8's gradients, of the plain gradient's largest entry
+K9_EPS = 2.0     # K9 against the plain step, in float32 epsilons of each value's terms
+K10_SHARE = 1e-4  # of the nodes, those whose mask may differ (within rounding of a test)
+
+
+def k7_k10_captures():
+    """Record K7-K10's arguments on the capture run: the integrator's
+    forward and its cotangents per case (the label of the loss that
+    called it: tracking, or a mapping stage), the first Adam step of the
+    tracker and of the color stage (clones of every leaf, gradient,
+    moment and mask), and the first frustum-mask call.  Returns the record
+    and a function that undoes the hooks."""
+    import inspect
+
+    import torch
+
+    from nice_slam_torch.ops import integrator as I
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.slam import optim as O
+    from nice_slam_torch.slam import tracker as T
+
+    rec = {"integrate": {}, "adam": {}, "frustum": None}
+    state = {"label": None, "pending": None}
+    saved = {(I, "integrate_fwd"): I.integrate_fwd, (I, "integrate_bwd"): I.integrate_bwd,
+             (O, "group_adam"): O.group_adam, (M, "frustum_masks"): M.frustum_masks,
+             (T, "tracking_loss_sampled"): T.tracking_loss_sampled,
+             (M, "mapping_loss"): M.mapping_loss}
+    map_sig = inspect.signature(M.mapping_loss)
+
+    def clone(t):
+        return t.detach().clone() if isinstance(t, torch.Tensor) else t
+
+    def track_loss(*a, **k):
+        state["label"] = "track"
+        return saved[(T, "tracking_loss_sampled")](*a, **k)
+
+    def map_loss(*a, **k):
+        state["label"] = "map_" + map_sig.bind(*a, **k).arguments["stage"]
+        return saved[(M, "mapping_loss")](*a, **k)
+
+    def fwd(raw, z, rays_d, occupancy=False):
+        label = state["label"]
+        if label in K78_CASES and label not in rec["integrate"]:
+            rec["integrate"][label] = {"raw": clone(raw), "z": clone(z),
+                                       "rays_d": clone(rays_d), "occ": bool(occupancy)}
+            state["pending"] = label
+        return saved[(I, "integrate_fwd")](raw, z, rays_d, occupancy)
+
+    def bwd(raw, z, rays_d, depth, g_depth, g_var, g_rgb, occupancy=False, need_rays=True):
+        if state["pending"] is not None:
+            rec["integrate"][state["pending"]].update(
+                depth=clone(depth), g_depth=clone(g_depth), g_var=clone(g_var),
+                g_rgb=clone(g_rgb), need_rays=bool(need_rays))
+            state["pending"] = None
+        return saved[(I, "integrate_bwd")](raw, z, rays_d, depth, g_depth, g_var, g_rgb,
+                                          occupancy, need_rays)
+
+    def adam(leaves):
+        label = state["label"]
+        if label in K9_CASES and label not in rec["adam"]:
+            rec["adam"][label] = [tuple(clone(x) for x in leaf) for leaf in leaves]
+        return saved[(O, "group_adam")](leaves)
+
+    def masks(*a):
+        if rec["frustum"] is None:
+            rec["frustum"] = tuple(clone(x) for x in a)
+        return saved[(M, "frustum_masks")](*a)
+
+    for (mod, name), fn in zip(saved, (fwd, bwd, adam, masks, track_loss, map_loss)):
+        setattr(mod, name, fn)
+
+    def restore():
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return rec, restore
+
+
+def rel_err(got, ref) -> float:
+    """|got - ref| of the largest entry of |ref| (0 where ref is all 0)."""
+    scale = float(ref.abs().max())
+    return float((got - ref).abs().max()) / scale if scale else float((got - ref).abs().max())
+
+
+def k7_k8_rows(label, c, dev):
+    """K7 and K8 on one captured integrator call: errors against the plain
+    versions, times, bound and launch geometry.  A call without a
+    backward (the render chunk) gets seeded cotangents for K8."""
+    import torch
+
+    from nice_slam_torch.ops import integrator as I
+
+    raw, z, rays_d, occ = c["raw"], c["z"], c["rays_d"], c["occ"]
+    n, s = z.shape
+    if "g_depth" not in c:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        c = dict(c, depth=I.integrate_fwd_plain(raw, z, rays_d, occ)[0],
+                 g_depth=torch.randn(n, generator=gen, device=dev),
+                 g_var=torch.randn(n, generator=gen, device=dev),
+                 g_rgb=torch.randn((n, 3), generator=gen, device=dev), need_rays=True)
+    got = I.integrate_fwd(raw, z, rays_d, occ)
+    ref = I.integrate_fwd_plain(raw, z, rays_d, occ)
+    err7 = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    rel7 = max(rel_err(a, b) for a, b in zip(got, ref))
+    cot = (c["depth"], c["g_depth"], c["g_var"], c["g_rgb"])
+    need = c["need_rays"] and not occ
+    g8 = I.integrate_bwd(raw, z, rays_d, *cot, occ, need)
+    r8 = I.integrate_bwd_plain(raw, z, rays_d, *cot, occ)
+    err8 = float((g8[0] - r8[0]).abs().max())
+    rel8 = rel_err(g8[0], r8[0])
+    if need:
+        err8 = max(err8, float((g8[1] - r8[1]).abs().max()))
+        rel8 = max(rel8, rel_err(g8[1], r8[1]))
+    if not (rel7 <= K7_RTOL and rel8 <= K8_RTOL and torch.isfinite(g8[0]).all()):
+        raise AssertionError(f"K7/K8 {label}: errors {rel7}, {rel8} of the plain "
+                             f"outputs' largest entries > {K7_RTOL}, {K8_RTOL}")
+    rays_b = n * 12 if not occ else 0
+    samples_b = n * s * 20  # raw and z
+    rows = []
+    for kernel, err, rel, tol, bytes_, fn, plain in (
+            ("integrate_fwd", err7, rel7, K7_RTOL, samples_b + rays_b + n * 20 + n * s * 4,
+             lambda: I.integrate_fwd(raw, z, rays_d, occ),
+             lambda: I.integrate_fwd_plain(raw, z, rays_d, occ)),
+            ("integrate_bwd", err8, rel8, K8_RTOL,
+             samples_b + rays_b + n * 24 + n * s * 16 + (n * 12 if need else 0),
+             lambda: I.integrate_bwd(raw, z, rays_d, *cot, occ, need),
+             lambda: I.integrate_bwd_plain(raw, z, rays_d, *cot, occ))):
+        info = I.integrate_kernel_info(kernel == "integrate_bwd", occ, dev)
+        if info["local_bytes"]:
+            raise AssertionError(f"{kernel}: {info['local_bytes']} bytes of local memory")
+        rows.append(dict(case=label, kernel=kernel, n=n, samples=s, occupancy=occ,
+                         max_abs_err=err, rel_err=rel, tol=tol, bytes=bytes_,
+                         flops=n * s * (20 if kernel == "integrate_fwd" else 40),
+                         ms=cuda_time_ms(fn), device_ms=device_time_ms(fn, kernel + "_kernel"),
+                         plain_ms=cuda_time_ms(plain, 5), library_ms=None,
+                         library_device_ms=None,
+                         geometry={"ctas": -(-n // info["threads"]), **info}))
+    return rows
+
+
+def k9_row(label, leaves, dev):
+    """K9 on one captured Adam step: against the plain step from the same
+    state (m and v within K9_EPS epsilons of their two terms' magnitudes,
+    p of |p| + lr (|u| + the update's sensitivity to m's rounding), as in
+    tests/test_torch_cuda.py), times, bound, and torch._fused_adam_ on
+    the same leaves as the library yardstick (one lr for all, no masks)."""
+    import torch
+
+    from nice_slam_torch.slam import optim as O
+
+    def fresh():
+        return [(p.clone(), g, m.clone(), v.clone(), k, b1, b2, lr)
+                for p, g, m, v, k, b1, b2, lr in leaves]
+
+    mine, plain = fresh(), fresh()
+    O.group_adam(mine)
+    O.group_adam_plain(plain)
+    eps = torch.finfo(torch.float32).eps
+    worst = err = 0.0
+    differ = total = 0
+    for (p0, g, m0, v0, k, b1, b2, lr), a, b in zip(leaves, mine, plain):
+        g = torch.zeros_like(p0) if g is None else (g if k is None else g * k)
+        sm = (0.9 * m0).abs() + (0.1 * g).abs()
+        sv = (0.999 * v0).abs() + (0.001 * g * g).abs()
+        denom = torch.sqrt(b[3] / b2) + 1e-8
+        u = (b[2] / b1) / denom
+        lr_t = lr.abs() if isinstance(lr, torch.Tensor) else abs(lr)
+        sp = p0.abs() + lr_t * (u.abs() + sm / (b1 * denom))
+        for x, y, scale in ((a[0], b[0], sp), (a[2], b[2], sm), (a[3], b[3], sv)):
+            err = max(err, float((x - y).abs().max()))
+            worst = max(worst, float(((x - y).abs() / (scale * eps).clamp_min(1e-38)).max()))
+            differ += int((x != y).sum())
+            total += x.numel()
+    if not worst <= K9_EPS:
+        raise AssertionError(f"K9 {label}: {worst} epsilons from the plain step > {K9_EPS}")
+    n = sum(p.numel() for p, *_ in leaves)
+    bytes_ = sum(p.numel() * (24 + (4 if g is not None else 0))
+                 + (k.numel() * 4 if k is not None else 0)
+                 for p, g, m, v, k, *_ in leaves)
+    timed = fresh()
+    lib = fresh()
+    lib_p = [x[0] for x in lib]
+    lib_g = [torch.zeros_like(x[0]) if x[1] is None else x[1] for x in lib]
+    lib_m, lib_v = [x[2] for x in lib], [x[3] for x in lib]
+    steps = [torch.tensor(1.0, device=dev) for _ in lib]
+
+    def lib_fn():
+        torch._fused_adam_(lib_p, lib_g, lib_m, lib_v, [], steps, lr=1e-3, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                           maximize=False)
+
+    info = O.group_adam_kernel_info(dev)
+    if info["local_bytes"]:
+        raise AssertionError(f"group_adam: {info['local_bytes']} bytes of local memory")
+    return [dict(case=label, kernel="group_adam", n=n, leaves=len(leaves),
+                 masked_leaves=sum(x[4] is not None for x in leaves), max_abs_err=err,
+                 eps_of_terms=worst, values_differing=differ, values=total, tol=K9_EPS,
+                 bytes=bytes_, flops=n * 16,
+                 ms=cuda_time_ms(lambda: O.group_adam(timed)),
+                 device_ms=device_time_ms(lambda: O.group_adam(timed), "group_adam_kernel"),
+                 plain_ms=cuda_time_ms(lambda: O.group_adam_plain(timed), 5),
+                 library_ms=cuda_time_ms(lib_fn), library_device_ms=device_total_ms(lib_fn),
+                 geometry={"ctas": sum(-(-p.numel() // 4096) for p, *_ in leaves), **info})]
+
+
+def k10_rows(args, dev):
+    """K10 on the captured frustum call (the Replica room's middle, fine
+    and color grids and a 680x1200 depth frame): each grid's largest
+    lookup against the plain version's, each mask equal but for at most
+    K10_SHARE of the nodes (a node within rounding of a test's boundary;
+    tests/test_torch_cuda.py checks that they are), times and bounds."""
+    import torch
+
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.ops.geometry import invert, linspace
+    from nice_slam_torch.ops.interp import bilinear_sample_2d
+
+    c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = args
+    got = Fm.frustum_masks(*args)
+    nodes = sum(a * b * c for a, b, c in shapes)
+    differ = 0
+    max_err = 0.0
+    w2c = invert(c2w)
+    for shape, m in zip(shapes, got):
+        ref = Fm.frustum_mask_plain(*args[:3], shape, *args[4:])
+        differ += int(((m[..., 0] > 0) != ref).sum())
+        # the largest lookup, as K10's first kernel reduces it
+        axes = [linspace(bound[a, 0], bound[a, 1], n) for a, n in enumerate(shape)]
+        pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
+        cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        zc = cam[:, 2] + 1e-5
+        look = bilinear_sample_2d(depth, (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc,
+                                  (fy * cam[:, 1] + cy * cam[:, 2]) / zc)
+        top = Fm.frustum_depth_max(*args[:3], [shape], *args[4:])
+        max_err = max(max_err, abs(float(look.max()) - float(top[0])))
+    if differ > K10_SHARE * nodes or max_err > 1e-5 * float(depth.max()):
+        raise AssertionError(f"K10: {differ} of {nodes} nodes differ from the plain "
+                             f"masks, largest lookups off by {max_err}")
+    rows = []
+    fn = lambda: Fm.frustum_masks(*args)  # noqa: E731
+    ms = cuda_time_ms(fn)
+    plain_ms = cuda_time_ms(lambda: [Fm.frustum_mask_plain(*args[:3], s, *args[4:])
+                                     for s in shapes], 5)
+    img_b = H * W * 4
+    for kernel, bytes_, err in (("frustum_depth_max", img_b + 4 * len(shapes), max_err),
+                                ("frustum_mask", img_b + 4 * nodes, float(differ > 0))):
+        info = Fm.frustum_kernel_info(kernel, dev)
+        if info["local_bytes"]:
+            raise AssertionError(f"{kernel}: {info['local_bytes']} bytes of local memory")
+        rows.append(dict(case="room", kernel=kernel, n=nodes, grids=len(shapes),
+                         shapes=[list(s) for s in shapes], H=H, W=W, max_abs_err=err,
+                         nodes_differing=differ, tol=K10_SHARE, bytes=bytes_,
+                         flops=nodes * 60, ms=ms, device_ms=device_time_ms(fn, kernel + "_kernel"),
+                         plain_ms=plain_ms, library_ms=None, library_device_ms=None,
+                         geometry={"ctas": sum(-(-(a * b * c) // info["threads"])
+                                               for a, b, c in shapes), **info}))
+    return rows
+
+
+def k7_k10_all_rows(cap, dev):
+    """Every K7-K10 row of the kernels phase."""
+    rows = []
+    for label in K78_CASES:
+        rows += k7_k8_rows(label, cap["integrate"][label], dev)
+    for label in K9_CASES:
+        rows += k9_row(label, cap["adam"][label], dev)
+    rows += k10_rows(cap["frustum"], dev)
+    return rows
+
+
 RANDOM_CASES = (("fine_map", (74, 56, 43, 32), 1000),
                 ("fine_track", (74, 56, 43, 32), 200),
                 ("coarse_map", (11, 8, 7, 32), 1000))
@@ -1067,6 +1425,7 @@ def phase_kernels(dev, cases, lookups):
     gen = torch.Generator().manual_seed(0)
     rows = []
     dec_cases = cases.pop("decoder")
+    rows += k7_k10_all_rows(cases.pop("k7_k10"), dev)
     for label in DEC_CASES:
         rows += decoder_rows(label, dec_cases[label])
     for label, shape, n_rays in RANDOM_CASES:
@@ -1223,6 +1582,14 @@ def phase_slice(dev):
         raise AssertionError(f"K4-K6 launched {counts} for {counts['trilinear_fwd']} "
                              f"lookups, {track_iters + map_iters} iterations and {k6} "
                              "training decoder-iterations")
+    # the integrator, the Adam step and the frustum mask: K7, K8 and K9 once
+    # per iteration, K10's two kernels once per main-mapper call
+    frustum = sum(c[5] for c in calls)
+    want = k7_k10_want(track_iters + map_iters, frustum)
+    if {k: counts[k] for k in K7_K10} != want:
+        raise AssertionError(f"K7-K10 launched {counts}, expected {want} for "
+                             f"{track_iters + map_iters} iterations and {frustum} "
+                             "frustum-selecting mapping calls")
     grids = {k: list(v.shape) for k, v in slam.state.grids.items()}
     record = {"phase": "slice", "ok": True, "frames": slam.n_img,
           "H": slam.H, "W": slam.W, "grids": grids,
@@ -1250,7 +1617,7 @@ def phase_slice(dev):
           "k1_launches_per_iter": (counts["trilinear_fwd"] - mesh_chunks)
           / (track_iters + map_iters),
           "k2_launches_per_mapping_iter": counts["trilinear_bwd_dgrid"] / map_iters,
-          "k6_launches": k6, "peak_mem_gib": peak_gib}
+          "k6_launches": k6, "frustum_calls": frustum, "peak_mem_gib": peak_gib}
     emit(record)
     return counts, slam, cfg, record
 
@@ -1317,9 +1684,10 @@ def phase_vis(dev, done):
     chunks = math.ceil(done.H * done.W / done.rcfg.ray_batch_size)
     if path is None or not os.path.exists(path):
         raise AssertionError(f"no panel written (got {path})")
-    want = {"trilinear_fwd": chunks, "decoder_fwd": chunks}
+    want = {"trilinear_fwd": chunks, "decoder_fwd": chunks, "integrate_fwd": chunks}
     if counts != {k: want.get(k, 0) for k in counts}:
-        raise AssertionError(f"the panel launched {counts}, not {chunks} K1 and K4 only")
+        raise AssertionError(f"the panel launched {counts}, not {chunks} K1, K4 and K7 "
+                             "only")
     emit({"phase": "vis", "ok": True, "path": path, "H": done.H, "W": done.W,
           "ray_chunks": chunks, "seconds": seconds, "launches": counts})
 
@@ -1429,8 +1797,6 @@ def threaded_run(dev, sync):
 
     import torch
 
-    from nice_slam_torch.ops import decoder_stage as DS
-    from nice_slam_torch.ops import interp
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import replica_synthetic_cfg
@@ -1466,7 +1832,7 @@ def threaded_run(dev, sync):
     with recorded_core(calls):
         slam.run()
     counts = all_counts()
-    by = {**interp.launches_by_stream, **DS.launches_by_stream}
+    by = all_by_stream()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n, t = slam.n_img, slam.timings
@@ -1515,8 +1881,11 @@ def threaded_run(dev, sync):
         if thread != "mapper":  # the mapper's stream also runs the meshes
             want[(k1, thread)] = tr + mp
         want[(k4, thread)] = by.get((k1, sid), 0)  # one K4 per lookup Function
+        fr = sum(c[5] for c in calls if c[0] == thread)
+        for k, v in k7_k10_want(tr + mp, fr).items():
+            want[(k, thread)] = v
     got = {(k, thread): by.get((k, sid), 0) for thread, sid in ids.items()
-           for k in (k1, k2, k3, k4, k5, k6)}
+           for k in (k1, k2, k3, k4, k5, k6, *K7_K10)}
     bad = {key: (got[key], v) for key, v in want.items() if got[key] != v}
     stray = {key: v for key, v in by.items() if key[1] not in ids.values()}
     if bad or stray or got[(k1, "mapper")] <= 0:
@@ -1956,7 +2325,7 @@ def phase_readers(dev):
     and are held to the generator; the OpenCV-written fixtures of
     tests/data/imageio decode to OpenCV's pixels; then the strict loop runs
     ten frames from a Replica-layout export through the CLI's entry point
-    (``nice_slam_torch.run.main``), launching K1-K6."""
+    (``nice_slam_torch.run.main``), launching K1-K10."""
     import hashlib
 
     import numpy as np
@@ -2195,9 +2564,12 @@ def phase_pretrain(dev):
     counts = all_counts()
     steps = PRETRAIN_SCENES * len(P.STAGES) * PRETRAIN_STEPS
     failed = []
-    # every step trains its decoder: one K4, one K5 and one K6
-    if counts != {**dict.fromkeys(counts, steps), "trilinear_bwd_dp": 0}:
-        failed.append(f"launches {counts}, not K3 = 0 and {steps} of each other")
+    # every step trains its decoder: one K4, one K5, one K6 and one K9; it
+    # renders nothing (no K7, K8) and selects no frustum (no K10)
+    want = {**dict.fromkeys(counts, steps), "trilinear_bwd_dp": 0,
+            **k7_k10_want(0, 0, adam=steps)}
+    if counts != want:
+        failed.append(f"launches {counts}, not {want}")
     if not np.isfinite(losses).all():
         failed.append("non-finite losses")
     first = losses[..., :PRETRAIN_WINDOW].mean(axis=-1)
@@ -2256,7 +2628,8 @@ def phase_envelope(dev):
     (tests/test_quality_gates.py:148-154): the largest motion the cf mode
     tracks below 10 cm is at least the default mode's.  K3 launches once
     per tracking iteration and K2 once per mapping iteration; K1 once per
-    both, plus the final meshes' chunks."""
+    both, plus the final meshes' chunks; K7, K8 and K9 once per both, and
+    K10's two kernels once per mapping call."""
     import math
 
     from nice_slam_torch.slam import mapper as M
@@ -2275,10 +2648,12 @@ def phase_envelope(dev):
     reset_counts()
     M.Mapper.optimize_map = counted
     t0 = time.perf_counter()
+    calls = []
     try:
-        rows = E.main(["--frames", str(ENVELOPE_FRAMES), "--deg", ENVELOPE_DEGS,
-                       "--cf_iters", ENVELOPE_CF[0], "--cf_mult", ENVELOPE_CF[1],
-                       "--out", out, "--device", "cuda:0"])
+        with recorded_core(calls):
+            rows = E.main(["--frames", str(ENVELOPE_FRAMES), "--deg", ENVELOPE_DEGS,
+                           "--cf_iters", ENVELOPE_CF[0], "--cf_mult", ENVELOPE_CF[1],
+                           "--out", out, "--device", "cuda:0"])
     finally:
         M.Mapper.optimize_map = inner
     seconds = time.perf_counter() - t0
@@ -2306,9 +2681,11 @@ def phase_envelope(dev):
             counts["trilinear_bwd_dgrid"] != iters["mapping"] or \
             counts["trilinear_fwd"] <= track_iters + iters["mapping"] or \
             counts["decoder_fwd"] != counts["trilinear_fwd"] or \
-            counts["decoder_bwd"] != track_iters + iters["mapping"]:
+            counts["decoder_bwd"] != track_iters + iters["mapping"] or \
+            {k: counts[k] for k in K7_K10} != k7_k10_want(
+                track_iters + iters["mapping"], sum(c[5] for c in calls)):
         failed.append(f"launches {counts} for {track_iters} tracking and "
-                      f"{iters['mapping']} mapping iterations")
+                      f"{iters['mapping']} mapping iterations in {len(calls)} calls")
     emit({"phase": "envelope", "ok": not failed, "frames": ENVELOPE_FRAMES,
           "H": cfg["cam"]["H"], "W": cfg["cam"]["W"],
           "iters_first": cfg["mapping"]["iters_first"], "cf": ENVELOPE_CF, "rows": rows,
@@ -2351,9 +2728,9 @@ def phase_landscape(dev):
             if len(r["losses"]) != len(LANDSCAPE_DELTAS_CM) or \
                     not all(math.isfinite(v) for v in r["losses"]):
                 failed.append(f"frame {frame} {dof}: losses {r['losses']}")
-    want = {"trilinear_fwd": evals, "decoder_fwd": evals}
+    want = {"trilinear_fwd": evals, "decoder_fwd": evals, "integrate_fwd": evals}
     if counts != {k: want.get(k, 0) for k in counts}:
-        failed.append(f"launches {counts}, not {evals} K1 and K4 only")
+        failed.append(f"launches {counts}, not {evals} K1, K4 and K7 only")
     emit({"phase": "landscape", "ok": not failed, "checkpoint_of": "gt_tour",
           "frames": list(LANDSCAPE_FRAMES), "deltas_cm": list(LANDSCAPE_DELTAS_CM),
           "pixels": int(LANDSCAPE_PIXELS), "evaluations": evals,
@@ -2706,7 +3083,11 @@ def sharded_loop(dev, devices, strict, out_name):
             "trilinear_bwd_dp": D * track_iters, "trilinear_bwd_dgrid": D * map_iters,
             "decoder_fwd": track_iters + map_iters + mesh_chunks,
             "decoder_bwd": track_iters + map_iters,
-            "decoder_wgrad_sum": sum(c[4] for c in calls)}
+            "decoder_wgrad_sum": sum(c[4] for c in calls),
+            # the integrator on the points' device; a mapping step's K9 once
+            # per card its slabs lie on, the tracker's on the pose's card
+            **k7_k10_want(track_iters + map_iters, sum(c[5] for c in calls),
+                          adam=track_iters + map_iters * len(set(devices)))}
     if counts != want:
         raise AssertionError(f"sharded loop launches {counts}, expected {want} "
                              f"(D = {D} per stage call)")
@@ -2978,7 +3359,7 @@ def chunk_sizes(n: int, chunk: int):
 
 
 def expected_launches(slam, devices, sharded, tracks, calls, meshes):
-    """The K1-K6 launches a run's recorded calls make, per (kernel, device
+    """The K1-K10 launches a run's recorded calls make, per (kernel, device
     index, thread): ``tracks`` (thread, lag) per tracked frame, ``calls``
     (thread, coarse, iterations, rays, K6 launches) per mapping call, ``meshes``
     (thread, path) per mesh written.  Returns them and each mesh's faces."""
@@ -2987,6 +3368,9 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     D = len(devices)
     k1, k2, k3 = "trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp"
     k4, k5, k6 = "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum"
+    k7, k8, k9 = "integrate_fwd", "integrate_bwd", "group_adam"
+    k10 = ("frustum_depth_max", "frustum_mask")
+    cards = list({d.index: d for d in devices}.values())
     want = collections.Counter()
 
     def add(kernels, th, devs, times):
@@ -2994,20 +3378,25 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
             for k in kernels:
                 want[(k, d.index, th)] += times
 
-    # K1-K3 run once per slab (sharded) or replica; the decoder stage once
-    # per replica, on the points' device when the grids are sharded
+    # K1-K3 run once per slab (sharded) or replica; the decoder stage and
+    # the integrator once per replica, on the points' device when the grids
+    # are sharded; K9 once per step on each card the trained leaves lie on
+    # (the slabs' cards; the first, where a replicated scene trains; the
+    # last for the pinned coarse mapper); K10 once per main-mapper call
     first = [devices[0]]
     for th, _ in tracks:
         add((k1, k3), th, devices if sharded else first, slam.tcfg.iters)
-        add((k4, k5), th, first, slam.tcfg.iters)
-    for th, coarse, iters, rays, k6_calls in calls:
+        add((k4, k5, k7, k8, k9), th, first, slam.tcfg.iters)
+    for th, coarse, iters, rays, k6_calls, frustum in calls:
         if sharded or (not coarse and rays % D == 0):
             devs = devices
         else:
             devs = [devices[-1]] if coarse else first
         add((k1, k2), th, devs, iters)
-        add((k4, k5), th, first if sharded else devs, iters)
+        add((k4, k5, k7, k8), th, first if sharded else devs, iters)
         add((k6,), th, first if sharded else devs, k6_calls)
+        add((k9,), th, cards if sharded else [devices[-1]] if coarse else first, iters)
+        add(k10, th, first, frustum)
     lattice = slam.mesher.resolution ** 3
     chunk = min(slam.rcfg.points_batch_size, lattice)
     faces = {}
@@ -3074,7 +3463,7 @@ def devices_run(devices, sync, mode, out_name):
     a main mapping iteration on every device when its rays divide evenly,
     a mesher chunk likewise, a coarse iteration on the pinned device, a
     tracking iteration on the first).  Every frame tracked with finite
-    poses and the last one mapped; K1-K6 launched exactly as the run's own
+    poses and the last one mapped; K1-K10 launched exactly as the run's own
     calls, recorded per thread, give per (kernel, device, stream): a
     thread's launches on its stream of that card, the warm-up's (and the
     strict loop's) on the card's default stream; each thread with a
@@ -3175,7 +3564,7 @@ def devices_run(devices, sync, mode, out_name):
     if diff:
         raise AssertionError(f"{tag}: the checkpoint restored differently: {diff}")
     iters = collections.Counter()
-    for th, coarse, it, _, _ in calls:
+    for th, coarse, it, *_ in calls:
         iters[f"{'coarse_' if coarse else ''}mapping@{th}"] += it
     for th, _ in tracks:
         iters[f"tracking@{th}"] += slam.tcfg.iters
@@ -3254,6 +3643,11 @@ def phase_threaded_sharded(dev, sharded_loop_rec, strict_median_cm):
 TRILINEAR_CU = "nice_slam_torch/csrc/trilinear.cu"
 DECODER_CU = "nice_slam_torch/csrc/decoder_stage.cu"
 DECODERS_PY = "nice_slam_tpu/models/decoders.py"
+INTEGRATOR_CU = "nice_slam_torch/csrc/integrator.cu"
+ADAM_CU = "nice_slam_torch/csrc/adam.cu"
+FRUSTUM_CU = "nice_slam_torch/csrc/frustum.cu"
+FRUSTUM_JAX = ("nice_slam_tpu/slam/mapper.py:328 frustum_mask, "
+               "nice_slam_tpu/ops/interp.py:335 bilinear_sample_2d")
 KERNEL_META = {
     "trilinear_fwd": ("nice_slam_tpu/ops/interp.py:141, "
                       "nice_slam_tpu/parallel/grid_sharding.py:108", "map_color", TRILINEAR_CU),
@@ -3269,6 +3663,15 @@ KERNEL_META = {
     "decoder_wgrad_sum": (f"{DECODERS_PY}:371 apply_nice_stage_batched (the weight "
                           "gradient's sum over points in its autodiff)", "map_color",
                           DECODER_CU),
+    "integrate_fwd": ("nice_slam_tpu/ops/geometry.py:259 raw2outputs_nerf_color",
+                      "map_color", INTEGRATOR_CU),
+    "integrate_bwd": ("nice_slam_tpu/ops/geometry.py:259 raw2outputs_nerf_color (its "
+                      "autodiff)", "map_color", INTEGRATOR_CU),
+    "group_adam": ("nice_slam_tpu/slam/optim.py:49 group_adam_update, "
+                   "nice_slam_tpu/slam/mapper.py:648-650 (the frustum mask multiply)",
+                   "map_color", ADAM_CU),
+    "frustum_depth_max": (FRUSTUM_JAX, "room", FRUSTUM_CU),
+    "frustum_mask": (FRUSTUM_JAX, "room", FRUSTUM_CU),
 }
 # K1 on the mesher's and renderer's paths; K1 and K2 on the pretrainer's
 NEW_PATH_CASES = ("mesh_fine", "render_color", "pretrain_coarse", "pretrain_fine")
@@ -3342,10 +3745,13 @@ def main() -> int:
             **({"new_paths": other} if other else {}),
             **({"window_cases": windows} if windows else {}),
             **({"main_path_cases": {x["case"]: {k: x[k] for k in (
-                "n", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err", "kink_points", "rows", "geometry") if k in x}
-                for x in rows if x["kernel"] == name and x["case"] in DEC_CASES}}
-               if name.startswith("decoder") else {}),
+                "n", "samples", "leaves", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms", "max_abs_err", "rel_err",
+                "eps_of_terms", "values_differing", "nodes_differing", "kink_points",
+                "rows", "geometry") if k in x}
+                for x in rows if x["kernel"] == name
+                and x["case"] in DEC_CASES + K78_CASES + ("room",)}}
+               if name.startswith("decoder") or name in K7_K10 else {}),
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     print(card, flush=True)

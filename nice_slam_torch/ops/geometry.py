@@ -2,9 +2,9 @@
 ``ops/geometry.py``.
 
 Camera rays, quaternion <-> matrix pose conversion (unnormalized-quaternion
-tolerant), the NeRF volume-rendering integrator in occupancy and density
-modes, inverse-CDF importance sampling (``sample_pdf``), and scene-bound
-coordinate normalization.  Random draws take an explicit
+tolerant), inverse-CDF importance sampling (``sample_pdf``), and
+scene-bound coordinate normalization.  The volume-rendering integrator
+is ``ops/integrator.py``.  Random draws take an explicit
 ``torch.Generator`` on the tensors' device.
 """
 
@@ -171,39 +171,6 @@ def ray_aabb_far(rays_o: torch.Tensor, rays_d: torch.Tensor,
     """Per-ray scene-box exit distance: min over axes of max(t_lo, t_hi)."""
     t = (bound[None, :, :] - rays_o[:, :, None]) / rays_d[:, :, None]
     return torch.amin(torch.amax(t, dim=2), dim=1)
-
-
-# ---------------------------------------------------------------------------
-# Volume-rendering integrator
-# ---------------------------------------------------------------------------
-
-def raw2outputs_nerf_color(raw: torch.Tensor, z_vals: torch.Tensor,
-                           rays_d: torch.Tensor, occupancy: bool = False):
-    """Integrate raw decoder outputs (N, S, 4) along rays.
-
-    occupancy mode: alpha = sigmoid(10 * raw[..., 3]); density mode:
-    alpha = 1 - exp(-relu(raw[..., 3]) * dist) with |rays_d|-scaled
-    intervals and a 1e10 last interval.  Weights w_i = a_i *
-    prod_{j<i}(1 - a_j + 1e-10).  Returns (depth, depth_var, rgb, weights).
-    """
-    rgb = raw[..., :3]
-    if occupancy:
-        alpha = torch.sigmoid(10.0 * raw[..., 3])
-    else:
-        dists = z_vals[..., 1:] - z_vals[..., :-1]
-        dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
-        dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
-        alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
-
-    ones = torch.ones_like(alpha[..., :1])
-    transmittance = torch.cumprod(
-        torch.cat([ones, 1.0 - alpha + 1e-10], dim=-1), dim=-1)[..., :-1]
-    weights = alpha * transmittance
-    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
-    depth_map = torch.sum(weights * z_vals, dim=-1)
-    tmp = z_vals - depth_map[..., None]
-    depth_var = torch.sum(weights * tmp * tmp, dim=-1)
-    return depth_map, depth_var, rgb_map, weights
 
 
 # ---------------------------------------------------------------------------

@@ -29,14 +29,16 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_D = ctypes.POINTER(ctypes.c_longlong)  # a per-grid descriptor table
+_F = ctypes.c_float
+_D = ctypes.POINTER(ctypes.c_longlong)  # a per-grid (or per-leaf) descriptor table
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the CUDA libraries' entries: name -> argtypes (all return
 # int, the launch's cudaGetLastError()); a host library's caller binds its
 # own (utils/meshlib.py)
 SIGNATURES = {
     "trilinear": {
         "trilinear_fwd": [_D, _I, _P, _I, _I, _I, _I, _P],
-        "trilinear_fwd_info": [_I, ctypes.POINTER(ctypes.c_int)],
+        "trilinear_fwd_info": [_I, _IP],
         "trilinear_bwd_dgrid": [_D, _I, _P, _I, _I, _P],
         "trilinear_bwd_dp": [_D, _I, _P, _P, _I, _I, _P],
     },
@@ -46,7 +48,21 @@ SIGNATURES = {
         "decoder_wgrad_sum": [_P, _I, _I, _P, _P],
         "decoder_fwd_smem": [_I, _I],
         "decoder_bwd_smem": [_I, _I],
-        "decoder_kernel_info": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+        "decoder_kernel_info": [_I, _I, _I, _IP],
+    },
+    "integrator": {
+        "integrate_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "integrate_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        "integrate_info": [_I, _I, _IP],
+    },
+    "adam": {
+        "group_adam": [_D, _I, _P],
+        "group_adam_capacity": [],
+        "group_adam_info": [_IP],
+    },
+    "frustum": {
+        "frustum_mask": [_D, _I, _P, _I, _I, _P, _P, _P, _F, _F, _F, _F, _P, _I, _P],
+        "frustum_info": [_I, _IP],
     },
 }
 

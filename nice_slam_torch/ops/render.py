@@ -21,13 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from nice_slam_torch.models.scene import SceneSpec, SceneState, eval_points
-from nice_slam_torch.ops.geometry import (
-    linspace,
-    ray_aabb_far,
-    rays_from_uv,
-    raw2outputs_nerf_color,
-    sample_pdf,
-)
+from nice_slam_torch.ops.geometry import linspace, ray_aabb_far, rays_from_uv, sample_pdf
+from nice_slam_torch.ops.integrator import raw2outputs_nerf_color
 
 
 @dataclasses.dataclass(frozen=True)

@@ -189,20 +189,17 @@ def fold_halo_grads(slab_grads: List[torch.Tensor]) -> List[torch.Tensor]:
     return slab_grads
 
 
-def fold_and_mask(grads: Sequence[Optional[torch.Tensor]],
-                  slabs: Sequence[torch.Tensor],
-                  masks: Optional[Sequence[torch.Tensor]] = None) -> List:
+def fold_slab_grads(grads: Sequence[Optional[torch.Tensor]],
+                    slabs: Sequence[torch.Tensor]) -> List:
     """A sharded grid's slab gradients (None: no gradient) with the halo
-    planes folded, then masked slab by slab (the JAX mapper's order):
-    both copies of a shared plane get the same gradient and the same mask
-    value."""
+    planes folded: both copies of a shared plane get the same gradient.
+    The frustum masks, cut into slabs by ``mask_to_slabs``, are applied
+    after this (the JAX mapper's order) by the Adam step, which gives both
+    copies the same mask value."""
     if all(g is None for g in grads):
         return list(grads)
-    out = fold_halo_grads([torch.zeros_like(s) if g is None else g
-                           for g, s in zip(grads, slabs)])
-    if masks is not None:
-        out = [g * m for g, m in zip(out, masks)]
-    return out
+    return fold_halo_grads([torch.zeros_like(s) if g is None else g
+                            for g, s in zip(grads, slabs)])
 
 
 def mask_to_slabs(mask: torch.Tensor, planes: int, D: int,
@@ -262,7 +259,7 @@ def make_grid_sharded_map_step(devices: Devices, spec, stage: str, rcfg,
         pos = 0
         for k in names:
             D = grids[k].D
-            flat[pos:pos + D] = fold_and_mask(flat[pos:pos + D], slabs[pos:pos + D])
+            flat[pos:pos + D] = fold_slab_grads(flat[pos:pos + D], slabs[pos:pos + D])
             pos += D
         adam.step({"grids": flat}, {"grids": lr}, {"grids": True})
         new = {k: g._replace([s.detach() for s in g.slabs]) for k, g in grids.items()}

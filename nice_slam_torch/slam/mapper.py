@@ -54,9 +54,9 @@ from nice_slam_torch.ops.geometry import (
     ray_aabb_far,
     tensor_from_pose,
 )
-from nice_slam_torch.ops.interp import bilinear_sample_2d
+from nice_slam_torch.ops.frustum import frustum_mask_plain, frustum_masks
 from nice_slam_torch.ops.render import RenderConfig, regulation, render_batch_ray
-from nice_slam_torch.parallel.grid_sharding import ShardedGrid, fold_and_mask, mask_to_slabs
+from nice_slam_torch.parallel.grid_sharding import ShardedGrid, fold_slab_grads, mask_to_slabs
 from nice_slam_torch.parallel.sharding import (
     data_parallel,
     over_blocks,
@@ -236,23 +236,12 @@ def frustum_mask(c2w: torch.Tensor, depth_img: torch.Tensor,
                  W: int, fx, fy, cx, cy) -> torch.Tensor:
     """Boolean (nx, ny, nz) mask of grid nodes the camera sees: inside the
     image, 0 <= camera depth <= sensor depth + 0.5 (zero depth lookups
-    replaced by the largest lookup), or within 0.5 m of the camera."""
-    nx, ny, nz = shape
-    axes = [linspace(bound[a, 0], bound[a, 1], n)
-            for a, n in enumerate((nx, ny, nz))]
-    X, Y, Z = torch.meshgrid(*axes, indexing="ij")
-    points = torch.stack([X, Y, Z], dim=-1).reshape(-1, 3)
-    w2c = invert(c2w)
-    cam = points @ w2c[:3, :3].T + w2c[:3, 3]
-    zc = cam[:, 2] + 1e-5
-    u = (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc
-    v = (fy * cam[:, 1] + cy * cam[:, 2]) / zc
-    depths = bilinear_sample_2d(depth_img, u, v)
-    depths = torch.where(depths == 0.0, torch.max(depths), depths)
-    in_img = (u < W) & (u > 0) & (v < H) & (v > 0)
-    mask = in_img & (-zc >= 0.0) & (-zc <= depths + 0.5)
-    dist2 = torch.sum((points - c2w[:3, 3]) ** 2, dim=-1)
-    return (mask | (dist2 < 0.25)).reshape(nx, ny, nz)
+    replaced by the largest lookup), or within 0.5 m of the camera.  K10
+    on the card (``ops/frustum.py``), its plain version on the CPU."""
+    if not c2w.is_cuda:
+        return frustum_mask_plain(c2w, depth_img, bound, shape, H, W, fx, fy, cx, cy)
+    return frustum_masks(c2w, depth_img, bound, [shape], H, W, fx, fy, cx, cy
+                         )[0][..., 0] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -419,23 +408,24 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
     otherwise they are drawn from ``gen``.  ``vis_hook(it, state)``, when given, is
     called with the pre-iteration scene state at every ``vis_every``-th
     iteration.  ``devices``: split each iteration's rays over them (dense
-    grids only).  A spatially sharded grid's slab gradients are folded
-    (``fold_halo_grads``) and then masked with the frustum mask cut into
-    slabs, so its duplicated planes stay bitwise equal.  Returns (new
+    grids only).  The frustum masks go to the Adam step as the grid
+    gradients' masks; a spatially sharded grid's slab gradients are folded
+    (``fold_slab_grads``) and masked with the frustum mask cut into slabs,
+    so its duplicated planes stay bitwise equal.  Returns (new
     state, new cam tensors, losses (num_iters,)), all on the device."""
-    masks: Dict[str, Any] = {}
-    if mcfg.frustum_feature_selection:
+    masks: Dict[str, List[torch.Tensor]] = {}  # group -> a mask per leaf
+    if mcfg.frustum_feature_selection and not mcfg.coarse_mapper:
         shapes = dict(spec.grid_shapes)
-        for name in ("grid_middle", "grid_fine", "grid_color"):
-            if name in shapes and not mcfg.coarse_mapper:
-                masks[name] = frustum_mask(
-                    fixed_c2w[-1], depths[-1], state.bound, shapes[name],
-                    mcfg.H, mcfg.W, mcfg.fx, mcfg.fy, mcfg.cx, mcfg.cy
-                )[..., None].to(torch.float32)
+        names = [k for k in ("grid_middle", "grid_fine", "grid_color") if k in shapes]
+        if names:
+            # K10 on the card: every grid's mask in one pair of launches
+            dense = frustum_masks(fixed_c2w[-1], depths[-1], state.bound,
+                                  [shapes[k] for k in names], mcfg.H, mcfg.W,
+                                  mcfg.fx, mcfg.fy, mcfg.cx, mcfg.cy)
+            for name, m in zip(names, dense):
                 grid = state.grids[name]
-                if isinstance(grid, ShardedGrid):
-                    masks[name] = mask_to_slabs(masks[name], grid.planes, grid.D,
-                                                grid.devices)
+                masks[name] = (mask_to_slabs(m, grid.planes, grid.D, grid.devices)
+                               if isinstance(grid, ShardedGrid) else [m])
     groups = _opt_param_groups(spec, state, mcfg, cam_tensors, BA)
     adam = GroupAdam(groups)
     losses = []
@@ -461,12 +451,11 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
                 grads[k] = list(flat[pos:pos + n])
                 pos += n
                 if isinstance(groups[k], ShardedGrid):
-                    grads[k] = fold_and_mask(grads[k], adam.params[k], masks.get(k))
-                elif k in masks and grads[k][0] is not None:
-                    grads[k][0] = grads[k][0] * masks[k]
+                    grads[k] = fold_slab_grads(grads[k], adam.params[k])
             if "dec" in groups:
                 lrs["dec"] = imap_lr(mcfg, it)
-            adam.step(grads, lrs, active)
+            # the frustum masks are applied to the grid gradients in the step
+            adam.step(grads, lrs, active, masks)
             losses.append(loss.detach())
             # drop the iteration's graph and gradients before the next
             # forward, not when the next iteration replaces them

@@ -15,12 +15,14 @@ ending in a synchronize), the device's busy time in a profiled run (union
 of its kernel, copy and memset intervals), the idle share (1 - busy /
 wall), the number of device operations, the operations taking the
 most device time, (``kernels``) the device ms and launch count of
-each hand-written kernel, the trilinear K1-K3 and the decoder stage's
-K4-K6, whether or not it ranks in ``top``, (``gemm_ms``) the device time
-of the cuBLAS GEMMs, and (``queued``) the device ms and calls of the
-plain PyTorch functions still queued for a kernel (the render
-integrator, the group Adam step and the frustum mask), each traced as a
-``record_function`` range.  Needs a CUDA device.
+each hand-written kernel, the trilinear K1-K3, the decoder stage's K4-K6,
+the integrator's K7-K8, the Adam step's K9 and the frustum mask's K10,
+whether or not it ranks in ``top``, (``gemm_ms``) the device time of the
+cuBLAS GEMMs, and (``items``) the device ms and calls of the integrator's,
+the Adam step's and the frustum mask's entry points, each traced as a
+``record_function`` range (the forward's range: the integrator's
+backward runs in autograd's), which also reads a port older than K7-K10,
+whose plain chains they were.  Needs a CUDA device.
 
 ``--imap`` profiles the iMAP* model instead (``replica_imap_cfg``, 17
 frames, the first mapping 300 iterations): one tracked frame (50
@@ -59,13 +61,17 @@ import os
 import time
 
 KERNELS = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp",
-           "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum")
-# the plain PyTorch functions still queued for a kernel of their own
-# (ROADMAP B.6-B.8): (module, attribute) each traced as a record_function
-# range named after it
-QUEUED = {"raw2outputs_nerf_color": ("nice_slam_torch.ops.render", "raw2outputs_nerf_color"),
-          "group_adam_step": ("nice_slam_torch.slam.optim", "GroupAdam.step"),
-          "frustum_mask": ("nice_slam_torch.slam.mapper", "frustum_mask")}
+           "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum",
+           "integrate_fwd", "integrate_bwd", "group_adam",
+           "frustum_depth_max", "frustum_mask")
+# the entry points of the integrator, the Adam step and the frustum mask
+# (K7-K10; plain PyTorch chains in a port older than them): (module,
+# attribute) each traced as a record_function range named after it, where
+# the port has it
+ITEMS = {"raw2outputs_nerf_color": ("nice_slam_torch.ops.render", "raw2outputs_nerf_color"),
+         "group_adam_step": ("nice_slam_torch.slam.optim", "GroupAdam.step"),
+         "frustum_mask": ("nice_slam_torch.slam.mapper", "frustum_mask"),
+         "frustum_masks": ("nice_slam_torch.slam.mapper", "frustum_masks")}
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
@@ -109,10 +115,13 @@ def _busy_us(evts) -> float:
 
 
 def _cuda_events(prof):
+    """The device's kernel, copy and memset events.  An ITEMS range also
+    shows on the device timeline, spanning its kernels and the gaps
+    between them; it is left out, or the busy time would count those gaps."""
     import torch
 
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ITEMS]
 
 
 def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
@@ -137,19 +146,22 @@ def _device_summary(prof, wall_ms: float, top: int = 12) -> dict:
             "gemm_ms": gemm / 1e3, "kernels": kernels}
 
 
-def _annotate_queued() -> None:
-    """Wrap each QUEUED function in a record_function range of its name."""
+def _annotate_items() -> None:
+    """Wrap each ITEMS function the port has in a record_function range of
+    its name."""
     import functools
     import importlib
 
     import torch
 
-    for name, (module, attr) in QUEUED.items():
+    for name, (module, attr) in ITEMS.items():
         owner = importlib.import_module(module)
         *path, leaf = attr.split(".")
         for part in path:
             owner = getattr(owner, part)
-        inner = getattr(owner, leaf)
+        inner = getattr(owner, leaf, None)
+        if inner is None:
+            continue
 
         def wrapped(*a, __inner=inner, __name=name, **k):
             with torch.profiler.record_function(__name):
@@ -158,15 +170,15 @@ def _annotate_queued() -> None:
         setattr(owner, leaf, functools.wraps(inner)(wrapped))
 
 
-def _queued_summary(prof) -> dict:
-    """Device ms and calls of each QUEUED function: the device time of the
+def _items_summary(prof) -> dict:
+    """Device ms and calls of each ITEMS function: the device time of the
     kernels launched inside its host-side range (the range's span on the
     device timeline would also count the gaps and other streams' work)."""
     import torch
 
     out = {}
     for e in prof.events():
-        if e.name in QUEUED and e.device_type == torch.autograd.DeviceType.CPU:
+        if e.name in ITEMS and e.device_type == torch.autograd.DeviceType.CPU:
             row = out.setdefault(e.name, {"device_ms": 0.0, "calls": 0})
             row["device_ms"] += e.device_time_total / 1e3
             row["calls"] += 1
@@ -285,7 +297,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
-    _annotate_queued()
+    _annotate_items()
     out = args.out or os.path.join(ROOT, "output",
                                    "profile_step_imap" if args.imap else "profile_step")
     if args.schedules:
@@ -362,7 +374,7 @@ def main() -> None:
         if name == "mapping_call":
             row["iterations"] = map_iters
         row.update(_device_summary(prof, wall))
-        row["queued"] = _queued_summary(prof)
+        row["items"] = _items_summary(prof)
         if not slam.nice and name in mlp_tflop:
             row["mlp_tflop"] = mlp_tflop[name] / 1e12
             row["mlp_bound_ms"] = 1e3 * mlp_tflop[name] / F32_FLOPS_PER_S

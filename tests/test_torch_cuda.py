@@ -1347,3 +1347,456 @@ def test_decoder_wrappers_reject_what_the_kernels_do_not_take(dev):
         DS.decoder_fwd(p, [feats[0].double()], weights, decs)
     with pytest.raises(ValueError):
         DS.decoder_bwd(p, feats, weights, decs, g[:50], False, [True], [False])
+
+
+# ---------------------------------------------------------------------------
+# K7 integrate_fwd and K8 integrate_bwd (ops/integrator.py)
+# ---------------------------------------------------------------------------
+
+# the main path's integrator calls: (rays, samples, occupancy) of a
+# tracking iteration, a mapping iteration, a coarse-mapping iteration, a
+# render chunk and an iMAP* iteration (32 + 12 samples, density); then
+# sample counts that are no multiple of anything
+INTEGRATOR_CASES = {"track": (200, 48, True), "map": (1000, 48, True),
+                    "coarse": (1000, 32, True), "render": (100_000, 48, True),
+                    "imap": (5000, 44, False), "one_sample": (37, 1, True),
+                    "odd_density": (333, 97, False)}
+
+
+def _integrator_inputs(dev, n, s, occupancy, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    raw = torch.randn((n, s, 4), generator=g)
+    if occupancy:
+        raw[: n // 4, s // 3:, 3] = 3.0 + 3.0 * torch.rand((n // 4, s - s // 3), generator=g)
+    else:
+        raw[..., 3] = raw[..., 3].abs() * 3.0
+        raw[: n // 4, ::3, 3] = 0.0
+        raw[n // 4: n // 2, s // 2:, 3] = 40.0
+    z = torch.sort(0.1 + 3.9 * torch.rand((n, s), generator=g), dim=-1).values
+    rays_d = torch.randn((n, 3), generator=g)
+    cot = torch.randn((n, 5), generator=g)
+    return [t.to(dev) for t in (raw, z, rays_d, cot)]
+
+
+@pytest.mark.parametrize("case", list(INTEGRATOR_CASES))
+def test_integrator_kernels_match_plain(dev, case):
+    """K7 within 1e-5 of the plain output's largest entry, K8 within 1e-4
+    of the plain gradient's largest entry (the plain backward's reverse
+    scan runs column by column, the kernel's ray by ray, in one order)."""
+    from nice_slam_torch.ops import integrator as I
+
+    n, s, occ = INTEGRATOR_CASES[case]
+    raw, z, rays_d, cot = _integrator_inputs(dev, n, s, occ)
+    I.reset_launch_counts()
+    got = I.integrate_fwd(raw, z, rays_d, occ)
+    ref = I.integrate_fwd_plain(raw, z, rays_d, occ)
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1.0)
+    gD, gV, gC = cot[:, 0].contiguous(), cot[:, 1].contiguous(), cot[:, 2:].contiguous()
+    g_raw, g_rays = I.integrate_bwd(raw, z, rays_d, got[0], gD, gV, gC, occ)
+    r_raw, r_rays = I.integrate_bwd_plain(raw, z, rays_d, got[0], gD, gV, gC, occ)
+    assert torch.isfinite(g_raw).all()
+    assert float((g_raw - r_raw).abs().max()) <= 1e-4 * float(r_raw.abs().max())
+    if occ:
+        assert g_rays is None
+    else:
+        assert float((g_rays - r_rays).abs().max()) <= 1e-4 * float(r_rays.abs().max())
+    assert I.launch_counts == {"integrate_fwd": 1, "integrate_bwd": 1}
+
+
+@pytest.mark.parametrize("occupancy", [True, False], ids=["occupancy", "density"])
+def test_integrator_function_on_cuda_matches_cpu(dev, occupancy):
+    from nice_slam_torch.ops import integrator as I
+
+    raw, z, rays_d, cot = _integrator_inputs(torch.device("cpu"), 300, 48, occupancy, 4)
+    out = {}
+    for where in ("cpu", dev):
+        r = raw.to(where).requires_grad_(True)
+        d = rays_d.to(where).requires_grad_(True)
+        depth, var, rgb, _ = I.raw2outputs_nerf_color(r, z.to(where), d, occupancy)
+        c = cot.to(where)
+        loss = (depth * c[:, 0]).sum() + (var * c[:, 1]).sum() + (rgb * c[:, 2:]).sum()
+        grads = torch.autograd.grad(loss, (r, d), allow_unused=True)
+        out[str(where)] = [x.detach().cpu() for x in (depth, var, rgb)] + \
+            [None if x is None else x.cpu() for x in grads]
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        if b is None:
+            assert a is None
+        else:
+            assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1.0)
+
+
+def test_integrator_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from nice_slam_torch.ops import integrator as I
+
+    raw, z, rays_d, _ = _integrator_inputs(dev, 8, 6, True)
+    with pytest.raises(TypeError):
+        I.integrate_fwd(raw.double(), z.double(), rays_d.double(), True)
+    with pytest.raises(ValueError):
+        I.integrate_fwd(raw, z[:, :5], rays_d, True)
+    with pytest.raises(ValueError):
+        I.integrate_fwd(raw, z, rays_d.cpu(), True)
+    with pytest.raises(ValueError):
+        I.raw2outputs_nerf_color(raw, z.clone().requires_grad_(True), rays_d, True)
+
+
+def test_integrator_kernels_use_no_local_memory(dev):
+    from nice_slam_torch.ops import integrator as I
+
+    for bwd in (False, True):
+        for occ in (False, True):
+            info = I.integrate_kernel_info(bwd, occ, dev)
+            assert info["local_bytes"] == 0, (bwd, occ, info)
+
+
+# ---------------------------------------------------------------------------
+# K9 group_adam (slam/optim.py)
+# ---------------------------------------------------------------------------
+
+def _rounded_adam(p, g, m, v, mask, bc1, bc2, lr):
+    """K9's arithmetic, each operation rounded to float32 on its own (in
+    float64, which rounds a float32 sum, product, quotient or square root
+    exactly once), so K9 must equal it bit for bit."""
+    f = torch.float32
+
+    def r(x):
+        return x.to(f).double()
+
+    b1, b2 = r(torch.tensor(0.9)), r(torch.tensor(0.999))
+    c1, c2 = r(torch.tensor(1.0 - 0.9)), r(torch.tensor(1.0 - 0.999))
+    g = torch.zeros_like(p.double()) if g is None else g.double()
+    if mask is not None:
+        g = r(g * mask.double())
+    m = r(r(m.double() * b1) + r(c1 * g))
+    v = r(r(v.double() * b2) + r(c2 * r(g * g)))
+    denom = r(r(torch.sqrt(r(v / float(np.float32(bc2))))) + r(torch.tensor(1e-8)))
+    u = r(r(m / float(np.float32(bc1))) / denom)
+    lr = lr.double() if isinstance(lr, torch.Tensor) else r(torch.tensor(lr))
+    return r(p.double() - r(lr * u)).to(f), m.to(f), v.to(f)
+
+
+def _adam_case(dev, seed=0):
+    """A color-stage-like step: three masked grids, a decoder's leaves
+    (one of them without a gradient, one of odd length) and the tracker's
+    pose with its per-entry lr vector."""
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32), (32, 35), (32,), (3,),
+              (7,)]
+    ps = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    gs = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    gs[4] = None
+    masks = [(torch.rand(s[:3] + (1,), generator=gen) < 0.5).float().to(dev)
+             for s in shapes[:3]] + [None] * 4
+    lrs = [0.1, 0.005, 0.005, 1e-3, 1e-3, 0.0,
+           torch.tensor([0.2] * 4 + [1.0] * 3, device=dev) * 1e-3]
+    return ps, gs, masks, lrs
+
+
+def test_group_adam_is_its_rounded_arithmetic_bit_for_bit(dev):
+    """K9 over 60 steps, each against its own arithmetic rounded op by op
+    (``_rounded_adam``) from the same state: equal bit for bit."""
+    from nice_slam_torch.slam import optim as O
+
+    ps, gs, masks, lrs = _adam_case(dev)
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for step in range(1, 61):
+        bc1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step))
+        bc2 = float(np.float32(1) - np.float32(0.999) ** np.float32(step))
+        want = [_rounded_adam(p, g, m, v, k, bc1, bc2, lr)
+                for p, g, m, v, k, lr in zip(ps, gs, ms, vs, masks, lrs)]
+        O.group_adam([(p, g, m, v, k, bc1, bc2, lr)
+                      for p, g, m, v, k, lr in zip(ps, gs, ms, vs, masks, lrs)])
+        for (wp, wm, wv), p, m, v in zip(want, ps, ms, vs):
+            assert torch.equal(p, wp) and torch.equal(m, wm) and torch.equal(v, wv), step
+        gs = [None if g is None else torch.randn(g.shape, generator=gen, device=dev)
+              for g in gs]
+
+
+def _ulps_of(a, b, scale):
+    """|a - b| in float32 epsilons of ``scale``."""
+    return float(((a - b).abs() / (scale * torch.finfo(torch.float32).eps)
+                  .clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def test_group_adam_matches_the_plain_step_on_the_card(dev):
+    """K9 against ``_adam_update`` (torch._foreach, whose adds PyTorch's
+    CUDA build may contract into fused multiply-adds) over 60 steps, each
+    from the same state: m and v within 2 epsilons of their terms'
+    magnitudes, p within 2 epsilons of |p| + lr (|u| + the update's
+    sensitivity to m's rounding); prints how many elements differ at all."""
+    from nice_slam_torch.slam import optim as O
+
+    ps, gs, masks, lrs = _adam_case(dev, seed=1)
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    differ = total = 0
+    worst = 0.0
+    for step in range(1, 61):
+        bc1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step))
+        bc2 = float(np.float32(1) - np.float32(0.999) ** np.float32(step))
+        mine = [[t.clone() for t in (p, m, v)] for p, m, v in zip(ps, ms, vs)]
+        O.group_adam([(p, g, m, v, k, bc1, bc2, lr) for (p, m, v), g, k, lr
+                      in zip(mine, gs, masks, lrs)])
+        for i, (g, k, lr) in enumerate(zip(gs, masks, lrs)):
+            g = torch.zeros_like(ps[i]) if g is None else g
+            g = g if k is None else g * k
+            p0, m0, v0 = ps[i].clone(), ms[i].clone(), vs[i].clone()
+            O._adam_update([ps[i]], [g], [ms[i]], [vs[i]], bc1, bc2, lr)
+            sm = (0.9 * m0).abs() + (0.1 * g).abs()
+            sv = (0.999 * v0).abs() + (0.001 * g * g).abs()
+            denom = torch.sqrt(vs[i] / bc2) + 1e-8
+            u = (ms[i] / bc1) / denom
+            lr_t = lr if isinstance(lr, torch.Tensor) else torch.tensor(lr, device=dev)
+            sp = p0.abs() + lr_t.abs() * (u.abs() + sm / (bc1 * denom))
+            for got, want, scale in zip(mine[i], (ps[i], ms[i], vs[i]), (sp, sm, sv)):
+                worst = max(worst, _ulps_of(got, want, scale))
+                differ += int((got != want).sum())
+                total += got.numel()
+        # the next step starts from the plain state, with new gradients
+        gs = [None if g is None else torch.randn(g.shape, generator=gen, device=dev)
+              for g in gs]
+    print(f"K9 vs _adam_update: {differ} of {total} values differ, "
+          f"worst {worst:.3f} eps of the scale")
+    assert worst <= 2.0
+
+
+def test_group_adam_one_launch_per_device_and_step(dev):
+    """GroupAdam.step over several groups, one inactive, one with lr 0:
+    one K9 launch on the current stream, and the result of the plain
+    step on the CPU."""
+    from nice_slam_torch.slam import optim as O
+
+    gen = torch.Generator().manual_seed(3)
+    init = {"a": torch.randn((4, 5, 6, 8), generator=gen),
+            "b": [torch.randn(10, generator=gen), torch.randn((3, 3), generator=gen)],
+            "c": torch.randn(7, generator=gen), "off": torch.randn(5, generator=gen)}
+    mask = (torch.rand((4, 5, 6, 1), generator=gen) < 0.5).float()
+    on = {k: O.tree_map(lambda t: t.clone().to(dev), v) for k, v in init.items()}
+    cpu = {k: O.tree_map(lambda t: t.clone(), v) for k, v in init.items()}
+    opt_d, opt_c = O.GroupAdam(on), O.GroupAdam(cpu)
+    lrs = {"a": 0.01, "b": 0.0, "c": torch.tensor([0.2] * 4 + [1.0] * 3) * 0.01,
+           "off": 0.5}
+    active = {"a": True, "b": True, "c": True, "off": False}
+    O.reset_launch_counts()
+    for step in range(5):
+        grads = {k: [torch.randn(t.shape, generator=gen) for t in O.tree_leaves(v)]
+                 for k, v in init.items()}
+        grads["b"][0] = None
+        for opt, where in ((opt_d, dev), (opt_c, "cpu")):
+            opt.step({k: [None if g is None else g.to(where) for g in v]
+                      for k, v in grads.items()},
+                     {k: v.to(where) if isinstance(v, torch.Tensor) else v
+                      for k, v in lrs.items()},
+                     active, {"a": [mask.to(where)]})
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert O.launch_counts == {"group_adam": 5}
+    assert O.launches_by_stream == {("group_adam", stream): 5}
+    for k in init:
+        for a, b in zip(O.tree_leaves(on[k]), O.tree_leaves(cpu[k])):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=1e-5)
+    assert torch.equal(on["off"].cpu(), init["off"])
+    assert opt_d.steps == opt_c.steps == {"a": 5, "b": 5, "c": 5, "off": 0}
+
+
+def test_group_adam_uses_no_local_memory(dev):
+    from nice_slam_torch.slam import optim as O
+
+    assert O.group_adam_kernel_info(dev)["local_bytes"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K10 frustum_depth_max + frustum_mask (ops/frustum.py)
+# ---------------------------------------------------------------------------
+
+def _mask_f64(points, c2w, depth, max_depth, H, W, fx, fy, cx, cy):
+    """The plain mask's tests in float64 at given world points, with the
+    grid's largest lookup ``max_depth``."""
+    from nice_slam_torch.ops.interp import bilinear_sample_2d
+
+    w2c = torch.linalg.inv(c2w.double())
+    cam = points @ w2c[:3, :3].T + w2c[:3, 3]
+    zc = cam[:, 2] + 1e-5
+    u = (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc
+    v = (fy * cam[:, 1] + cy * cam[:, 2]) / zc
+    d = bilinear_sample_2d(depth.double(), u, v)
+    d = torch.where(d == 0.0, torch.full_like(d, max_depth), d)
+    seen = (u < W) & (u > 0) & (v < H) & (v > 0) & (-zc >= 0) & (-zc <= d + 0.5)
+    return seen | (torch.sum((points - c2w[:3, 3].double()) ** 2, dim=-1) < 0.25)
+
+
+def _room_camera(dev, seed=0):
+    """The Replica room's three grids (bound and shapes of
+    tools/workloads.replica_synthetic_cfg) and a 680x1200 camera looking
+    into it with a smooth depth image (zero where the sensor has no
+    return)."""
+    from nice_slam_torch.ops.geometry import c2w44
+
+    gen = torch.Generator().manual_seed(seed)
+    bound = torch.tensor([[-2.9, 8.94], [-3.2, 5.76], [-3.5, 3.54]])
+    shapes = [(37, 28, 21), (74, 56, 43), (74, 56, 43)]
+    H, W, fx, fy, cx, cy = 680, 1200, 600.0, 600.0, 599.5, 339.5
+    ang = 0.4
+    R = torch.tensor([[np.cos(ang), 0.0, np.sin(ang)], [0.0, 1.0, 0.0],
+                      [-np.sin(ang), 0.0, np.cos(ang)]], dtype=torch.float32)
+    c2w = c2w44(torch.cat([R, torch.tensor([[2.0], [0.5], [0.3]])], dim=1))
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    depth = 2.0 + 1.5 * torch.sin(xx / 97.0) * torch.cos(yy / 61.0) \
+        + 0.1 * torch.rand((H, W), generator=gen)
+    depth[torch.rand((H, W), generator=gen) < 0.05] = 0.0
+    return (c2w.to(dev), depth.to(dev), bound.to(dev), shapes, H, W, fx, fy, cx, cy)
+
+
+def test_frustum_kernel_matches_plain(dev):
+    """K10's masks against the plain version's at the Replica room's grids
+    and a 680x1200 frame: equal, except nodes within 1e-5 m of a test
+    boundary (the plain mask in float64 flips when the node moves 1e-5 m
+    along an axis), at most 1e-4 of the nodes."""
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.ops.geometry import linspace
+
+    c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = _room_camera(dev)
+    Fm.reset_launch_counts()
+    got = Fm.frustum_masks(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy)
+    assert Fm.launch_counts == {"frustum_depth_max": 1, "frustum_mask": 1}
+    for shape, m in zip(shapes, got):
+        ref = Fm.frustum_mask_plain(c2w, depth, bound, shape, H, W, fx, fy, cx, cy)
+        assert 0 < int(ref.sum()) < ref.numel()
+        bad = torch.nonzero((m[..., 0] > 0) != ref).cpu()
+        assert len(bad) <= 1e-4 * ref.numel(), (shape, len(bad))
+        if not len(bad):
+            continue
+        axes = [linspace(bound[a, 0], bound[a, 1], n).double().cpu()
+                for a, n in enumerate(shape)]
+        pts = torch.stack([axes[a][bad[:, a]] for a in range(3)], dim=-1)
+        # the grid's largest lookup, as the plain version takes it
+        nodes = torch.stack(torch.meshgrid(*[x.float() for x in axes], indexing="ij"),
+                            dim=-1).reshape(-1, 3).to(dev)
+        w2c = torch.linalg.inv(c2w)
+        cam = nodes @ w2c[:3, :3].T + w2c[:3, 3]
+        zc = cam[:, 2] + 1e-5
+        from nice_slam_torch.ops.interp import bilinear_sample_2d
+        top = float(bilinear_sample_2d(depth, (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc,
+                                       (fy * cam[:, 1] + cy * cam[:, 2]) / zc).max())
+        args = (c2w.cpu(), depth.cpu(), top, H, W, fx, fy, cx, cy)
+        base = _mask_f64(pts, *args)
+        flips = torch.zeros_like(base)
+        for a in range(3):
+            for sgn in (-1.0, 1.0):
+                moved = pts.clone()
+                moved[:, a] += sgn * 1e-5
+                flips |= _mask_f64(moved, *args) != base
+        assert bool(flips.all()), (shape, pts[~flips][:5])
+
+
+def test_frustum_mask_dispatcher_on_the_card(dev):
+    """The mapper's ``frustum_mask`` on the card is K10's mask as booleans."""
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.slam import mapper as M
+
+    c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = _room_camera(dev, seed=1)
+    Fm.reset_launch_counts()
+    got = M.frustum_mask(c2w, depth, bound, shapes[0], H, W, fx, fy, cx, cy)
+    assert got.dtype == torch.bool and tuple(got.shape) == shapes[0]
+    assert Fm.launch_counts == {"frustum_depth_max": 1, "frustum_mask": 1}
+    ref = Fm.frustum_masks(c2w, depth, bound, shapes[:1], H, W, fx, fy, cx, cy)[0]
+    assert torch.equal(got, ref[..., 0] > 0)
+
+
+def test_frustum_kernels_use_no_local_memory(dev):
+    from nice_slam_torch.ops import frustum as Fm
+
+    for which in ("frustum_depth_max", "frustum_mask"):
+        assert Fm.frustum_kernel_info(which, dev)["local_bytes"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K7-K10 on the main path: a tiny strict loop must launch each of them
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_loop_counts(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.ops import integrator as I
+    from nice_slam_torch.slam import optim as O
+    from nice_slam_torch.slam.slam import NiceSLAM
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    cfg.update(coarse=True, verbose=False, meshing=None)
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(
+            ROOT, cfg["pretrained_decoders"][k])
+    cfg["data"].update({"n_frames": 6, "output": str(tmp_path_factory.mktemp("k7k10"))})
+    cfg["mapping"].update({"iters_first": 30, "iters": 10})
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
+    for mod in (I, O, Fm):
+        mod.reset_launch_counts()
+    slam.run()
+    torch.cuda.synchronize()
+    return {**I.launch_counts, **O.launch_counts, **Fm.launch_counts}, slam
+
+
+@pytest.mark.parametrize("kernel", ["integrate_fwd", "integrate_bwd", "group_adam",
+                                    "frustum_depth_max", "frustum_mask"])
+def test_tiny_loop_goes_through_k7_to_k10(tiny_loop_counts, kernel):
+    """Each of K7-K10 launched on the slice's loop (0 if the path bypassed
+    it): the integrator and the Adam step once per iteration, the frustum
+    mask's two launches once per main-mapper call."""
+    counts, slam = tiny_loop_counts
+    assert counts[kernel] > 0, counts
+    iters = counts["integrate_bwd"]
+    assert counts["integrate_fwd"] == iters and counts["group_adam"] == iters
+    assert counts["frustum_depth_max"] == counts["frustum_mask"]
+    assert torch.isfinite(slam.estimate_c2w_list).all()
+
+
+def test_k7_to_k10_follow_the_current_stream(dev):
+    """K7-K10 launched on a side stream right after it writes their inputs
+    (after a spin) give the results of the default stream's launches."""
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.ops import integrator as I
+    from nice_slam_torch.slam import optim as O
+
+    raw, z, rays_d, cot = _integrator_inputs(dev, 1000, 48, True)
+    cam = _room_camera(dev)
+    p0 = torch.randn((74, 56, 43, 32), device=dev)
+    g0 = torch.randn_like(p0)
+    ref_fwd = I.integrate_fwd(raw, z, rays_d, True)
+    ref_bwd = I.integrate_bwd(raw, z, rays_d, ref_fwd[0], cot[:, 0].contiguous(),
+                              cot[:, 1].contiguous(), cot[:, 2:].contiguous(), True)[0]
+    ref_mask = Fm.frustum_masks(*cam)
+    ref_p, m, v = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+    O.group_adam([(ref_p, g0, m, v, ref_mask[1], 0.1, 0.001, 0.01)])
+    host = [t.cpu().pin_memory() for t in (raw, z, rays_d, cot, p0, g0)]
+    side = torch.cuda.Stream()
+    for mod in (I, O, Fm):
+        mod.reset_launch_counts()
+    with torch.cuda.stream(side):
+        raw2, z2, d2, cot2, p2, g2 = (torch.empty_like(t, device=dev) for t in host)
+        torch.cuda._sleep(100_000_000)
+        for dst, src in zip((raw2, z2, d2, cot2, p2, g2), host):
+            dst.copy_(src, non_blocking=True)
+        fwd = I.integrate_fwd(raw2, z2, d2, True)
+        bwd = I.integrate_bwd(raw2, z2, d2, fwd[0], cot2[:, 0].contiguous(),
+                              cot2[:, 1].contiguous(), cot2[:, 2:].contiguous(), True)[0]
+        masks = Fm.frustum_masks(*cam)
+        O.group_adam([(p2, g2, torch.zeros_like(p2), torch.zeros_like(p2), masks[1],
+                       0.1, 0.001, 0.01)])
+    side.synchronize()
+    sid = side.cuda_stream
+    assert I.launches_by_stream == {("integrate_fwd", sid): 1, ("integrate_bwd", sid): 1}
+    assert O.launches_by_stream == {("group_adam", sid): 1}
+    assert Fm.launches_by_stream == {("frustum_depth_max", sid): 1, ("frustum_mask", sid): 1}
+    for a, b in zip(fwd, ref_fwd):
+        assert torch.equal(a, b)
+    assert torch.equal(bwd, ref_bwd)
+    for a, b in zip(masks, ref_mask):
+        assert torch.equal(a, b)
+    assert torch.equal(p2, ref_p)

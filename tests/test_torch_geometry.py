@@ -16,6 +16,7 @@ from nice_slam_tpu.slam import tracker as jtracker
 from nice_slam_torch import config as tconfig
 from nice_slam_torch.models import grids as tgrids
 from nice_slam_torch.ops import geometry as tgeo
+from nice_slam_torch.ops import integrator
 from nice_slam_torch.slam import tracker as ttracker
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -29,8 +30,8 @@ def test_raw2outputs_matches_jax(occupancy):
     rays_d = rng.standard_normal((40, 3)).astype(np.float32)
     ref = jgeo.raw2outputs_nerf_color(jnp.asarray(raw), jnp.asarray(z),
                                       jnp.asarray(rays_d), occupancy=occupancy)
-    got = tgeo.raw2outputs_nerf_color(torch.tensor(raw), torch.tensor(z),
-                                      torch.tensor(rays_d), occupancy=occupancy)
+    got = integrator.raw2outputs_nerf_color(torch.tensor(raw), torch.tensor(z),
+                                            torch.tensor(rays_d), occupancy=occupancy)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5)

@@ -107,6 +107,28 @@ def test_frustum_mask_matches_jax(setup):
             np.testing.assert_array_equal(got, ref)
 
 
+def test_frustum_masks_dispatcher_matches_jax(setup):
+    """The mapper's entry (``frustum_masks``: every grid of a call at once,
+    K10 on the card, its plain version on the CPU) gives the float masks
+    the Adam step reads: the JAX masks as (nx, ny, nz, 1) floats."""
+    s = setup
+    bound = np.asarray(s["jstate"].bound)
+    cam = s["cfg"]["cam"]
+    shapes = [shape for name, shape in s["jspec"].grid_shapes if name != "grid_coarse"]
+    for f in range(3):
+        got = tm.frustum_masks(torch.tensor(s["c2w"][f]), torch.tensor(s["depths"][f]),
+                               torch.tensor(bound), shapes, H, W, cam["fx"], cam["fy"],
+                               cam["cx"], cam["cy"])
+        assert len(got) == len(shapes)
+        for shape, m in zip(shapes, got):
+            ref = np.asarray(jm.frustum_mask(
+                jnp.asarray(s["c2w"][f]), jnp.asarray(s["depths"][f]),
+                jnp.asarray(bound), shape, H, W, cam["fx"], cam["fy"],
+                cam["cx"], cam["cy"]))
+            assert m.dtype == torch.float32 and tuple(m.shape) == (*shape, 1)
+            np.testing.assert_array_equal(m[..., 0].numpy(), ref.astype(np.float32))
+
+
 def _jax_pixel_draws(key, n_iters, F, n):
     """The flat pixel indices optimize_map_jit draws: per global iteration
     i, fold_in(key, i) -> split -> split(F) -> randint over H*W."""
