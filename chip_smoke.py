@@ -28,10 +28,15 @@ Phases, each printing one JSON line:
            call (the room's middle, fine and color grids, a 680x1200
            depth frame);
   kernels  K7 integrate_fwd and K8 integrate_bwd on the captured
-           tracking, color-stage and coarse calls and on the render chunk's
-           call (100k rays x 48 samples; seeded cotangents for K8) against
+           tracking, color-stage and coarse calls, on the render chunk's
+           call (100k rays x 48 samples; seeded cotangents for K8) and on
+           iMAP*'s density-mode calls drawn at its shapes (5000 rays x 44
+           samples, K7 and K8; 5000 x 32, the importance pass's K7) against
            their plain versions (K7 within 1e-5, K8 within 1e-4 of the
-           plain output's largest entry), K9 group_adam on the captured
+           plain output's largest entry; both, and the plain version, also
+           against the plain version in float64, a diagnostic), each row
+           with integrate_geometry's launch (lanes per ray, samples a lane
+           holds, tiles, CTAs), K9 group_adam on the captured
            tracker and color-stage steps against the plain step from the
            same state (within 2 float32 epsilons of each value's terms;
            library_ms torch._fused_adam_ on the same leaves, a yardstick
@@ -1143,6 +1148,11 @@ def wgrad_sum_geometry(cols, dev):
 # ---------------------------------------------------------------------------
 
 K78_CASES = ("track", "map_color", "map_coarse", "render_color")
+# iMAP*'s integrator calls, drawn at its shapes (density mode, 5000 rays):
+# (rays, samples, kernels) of an iteration (32 + 12 samples, K7 and K8) and
+# of the importance pass (32 samples, K7 alone, no graph)
+K78_IMAP_CASES = {"imap": (5000, 44, ("integrate_fwd", "integrate_bwd")),
+                  "imap_importance": (5000, 32, ("integrate_fwd",))}
 K9_CASES = ("track", "map_color")
 K7_RTOL = 1e-5   # K7's outputs, of the plain output's largest entry
 K8_RTOL = 1e-4   # K8's gradients, of the plain gradient's largest entry
@@ -1228,10 +1238,43 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max()) / scale if scale else float((got - ref).abs().max())
 
 
-def k7_k8_rows(label, c, dev):
-    """K7 and K8 on one captured integrator call: errors against the plain
-    versions, times, bound and launch geometry.  A call without a
-    backward (the render chunk) gets seeded cotangents for K8."""
+def integrator_inputs(n, s, dev, seed=0):
+    """Density-mode rays as tests/test_torch_cuda.py draws them: relu at
+    exactly 0 on a quarter of the rays, alpha saturated (density 40) on
+    the second half of another quarter's samples."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    raw = torch.randn((n, s, 4), generator=g)
+    raw[..., 3] = raw[..., 3].abs() * 3.0
+    raw[: n // 4, ::3, 3] = 0.0
+    raw[n // 4: n // 2, s // 2:, 3] = 40.0
+    z = torch.sort(0.1 + 3.9 * torch.rand((n, s), generator=g), dim=-1).values
+    rays_d = torch.randn((n, 3), generator=g)
+    return {"raw": raw.to(dev), "z": z.to(dev), "rays_d": rays_d.to(dev), "occ": False}
+
+
+def integrator_launch_geometry(n, s, occ, kernel, dev):
+    """K7's or K8's launch on a call: integrate_geometry's lanes per ray,
+    samples a lane holds, tiles, rays per CTA and CTAs, and the instance's
+    registers, local (spill) bytes and resident CTAs per SM."""
+    import torch
+
+    from nice_slam_torch.ops import integrator as I
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geom = I.launch_geometry(n, s, dev)
+    info = I.integrate_kernel_info(kernel == "integrate_bwd", occ, dev, geom.lanes)
+    return {**geom._asdict(), "sms": sms, **info,
+            **resident(info, geom.ctas, geom.threads // 32, sms)}
+
+
+def k7_k8_rows(label, c, dev, kernels=("integrate_fwd", "integrate_bwd")):
+    """K7 and K8 on one captured (or drawn) integrator call: errors against
+    the plain versions (gated), and as a diagnostic both the kernel's and
+    the plain version's against the plain version in float64; times, bound
+    and launch geometry.  A call without a backward (the render chunk, a
+    drawn call) gets seeded cotangents for K8."""
     import torch
 
     from nice_slam_torch.ops import integrator as I
@@ -1260,6 +1303,17 @@ def k7_k8_rows(label, c, dev):
     if not (rel7 <= K7_RTOL and rel8 <= K8_RTOL and torch.isfinite(g8[0]).all()):
         raise AssertionError(f"K7/K8 {label}: errors {rel7}, {rel8} of the plain "
                              f"outputs' largest entries > {K7_RTOL}, {K8_RTOL}")
+    # the diagnostic: which of the kernel and the float32 plain version
+    # carries the error, against the plain version in float64
+    d64 = [t.double() for t in (raw, z, rays_d)]
+    ref64 = I.integrate_fwd_plain(*d64, occ)
+    r8_64 = I.integrate_bwd_plain(*d64, *(t.double() for t in cot), occ)
+    f64 = {"integrate_fwd": (max(rel_err(a.double(), b) for a, b in zip(got, ref64)),
+                             max(rel_err(a.double(), b) for a, b in zip(ref, ref64))),
+           "integrate_bwd": tuple(
+               max([rel_err(x[0].double(), r8_64[0])]
+                   + ([rel_err(x[1].double(), r8_64[1])] if need else []))
+               for x in (g8, r8))}
     rays_b = n * 12 if not occ else 0
     samples_b = n * s * 20  # raw and z
     rows = []
@@ -1271,16 +1325,18 @@ def k7_k8_rows(label, c, dev):
              samples_b + rays_b + n * 24 + n * s * 16 + (n * 12 if need else 0),
              lambda: I.integrate_bwd(raw, z, rays_d, *cot, occ, need),
              lambda: I.integrate_bwd_plain(raw, z, rays_d, *cot, occ))):
-        info = I.integrate_kernel_info(kernel == "integrate_bwd", occ, dev)
-        if info["local_bytes"]:
-            raise AssertionError(f"{kernel}: {info['local_bytes']} bytes of local memory")
+        if kernel not in kernels:
+            continue
+        geometry = integrator_launch_geometry(n, s, occ, kernel, dev)
+        if geometry["local_bytes"]:
+            raise AssertionError(f"{kernel}: {geometry['local_bytes']} bytes of local memory")
         rows.append(dict(case=label, kernel=kernel, n=n, samples=s, occupancy=occ,
-                         max_abs_err=err, rel_err=rel, tol=tol, bytes=bytes_,
-                         flops=n * s * (20 if kernel == "integrate_fwd" else 40),
+                         max_abs_err=err, rel_err=rel, tol=tol,
+                         rel_err_f64=f64[kernel][0], plain_rel_err_f64=f64[kernel][1],
+                         bytes=bytes_, flops=n * s * (20 if kernel == "integrate_fwd" else 40),
                          ms=cuda_time_ms(fn), device_ms=device_time_ms(fn, kernel + "_kernel"),
                          plain_ms=cuda_time_ms(plain, 5), library_ms=None,
-                         library_device_ms=None,
-                         geometry={"ctas": -(-n // info["threads"]), **info}))
+                         library_device_ms=None, geometry=geometry))
     return rows
 
 
@@ -1408,6 +1464,8 @@ def k7_k10_all_rows(cap, dev):
     rows = []
     for label in K78_CASES:
         rows += k7_k8_rows(label, cap["integrate"][label], dev)
+    for label, (n, s, kernels) in K78_IMAP_CASES.items():
+        rows += k7_k8_rows(label, integrator_inputs(n, s, dev), dev, kernels)
     for label in K9_CASES:
         rows += k9_row(label, cap["adam"][label], dev)
     rows += k10_rows(cap["frustum"], dev)
@@ -3747,10 +3805,10 @@ def main() -> int:
             **({"main_path_cases": {x["case"]: {k: x[k] for k in (
                 "n", "samples", "leaves", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms", "max_abs_err", "rel_err",
-                "eps_of_terms", "values_differing", "nodes_differing", "kink_points",
-                "rows", "geometry") if k in x}
+                "rel_err_f64", "plain_rel_err_f64", "eps_of_terms", "values_differing",
+                "nodes_differing", "kink_points", "rows", "geometry") if k in x}
                 for x in rows if x["kernel"] == name
-                and x["case"] in DEC_CASES + K78_CASES + ("room",)}}
+                and x["case"] in DEC_CASES + K78_CASES + tuple(K78_IMAP_CASES) + ("room",)}}
                if name.startswith("decoder") or name in K7_K10 else {}),
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})

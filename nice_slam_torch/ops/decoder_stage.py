@@ -50,7 +50,6 @@ stream.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -447,13 +446,6 @@ def fwd_geometry(n: int, sms: int) -> FwdGeometry:
                        tiles=tiles)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    """The SM count of card ``index``, read once: K4 and K5 size their
-    launches from it on every call."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def decoder_fwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
                 weights: Sequence[torch.Tensor], decs: Sequence[Dec]
                 ) -> torch.Tensor:
@@ -465,7 +457,7 @@ def decoder_fwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
     out = torch.empty((n, 4), dtype=torch.float32, device=p.device)
     if n:
         desc = _desc(decs, feats, weights, [None] * len(decs), [None] * len(feats), c)
-        geom = fwd_geometry(n, _sms(p.device.index))
+        geom = fwd_geometry(n, kernels.sm_count(p.device.index))
         _launch("decoder_fwd", p.device, desc, len(decs), c, p.data_ptr(),
                 out.data_ptr(), geom.warps, geom.grid, n)
     return out
@@ -549,7 +541,7 @@ def decoder_bwd(p: torch.Tensor, feats: Sequence[torch.Tensor],
                 df.zero_()
         return dp, dfeats, [torch.zeros(size(d, c), device=dev) if need_w[i] else None
                             for i, d in enumerate(decs)]
-    geom = bwd_geometry(n, _sms(dev.index),
+    geom = bwd_geometry(n, kernels.sm_count(dev.index),
                         train, len(decs))
     dpart = torch.empty((len(decs), n, 3), dtype=torch.float32, device=dev) if split else None
     counter = torch.zeros((geom.tiles,), dtype=torch.int32, device=dev) if split else None

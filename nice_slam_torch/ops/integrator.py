@@ -11,6 +11,13 @@ version beside it:
                         of ``rays_d`` (the intervals scale by |rays_d|),
                         by a reverse scan without division.
 
+Both walk a ray with a group of 16 or 32 lanes, which hold its samples
+in blocks of that many (coalesced loads, each sample read once) and
+combine with warp shuffles: a product scan for the transmittance, a scan
+of affine maps for K8's reverse recurrence, butterflies for the sums.
+``integrate_geometry`` chooses the group per launch; a ray longer than a
+tile (``INTEGRATE_RUN`` blocks) walks tiles, carrying the scans.
+
 Occupancy mode: alpha = sigmoid(10 * raw[..., 3]); density mode: alpha =
 1 - exp(-relu(raw[..., 3]) * dist) with |rays_d|-scaled intervals and a
 1e10 last interval.  Weights w_i = a_i * prod_{j<i}(1 - a_j + 1e-10).
@@ -27,7 +34,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,7 +47,39 @@ launches_by_stream = _launches.by_stream
 launches_by_device = _launches.by_device
 reset_launch_counts = _launches.reset
 
-K7_THREADS = 128  # rays per CTA of K7 and K8 (kThreads in integrator.cu)
+INTEGRATE_LANES = (16, 32)  # lanes per ray of K7's and K8's instances
+INTEGRATE_RUN = 4  # blocks of a ray a lane holds, a tile (kRun in integrator.cu)
+INTEGRATE_THREADS = 128  # threads per CTA (kThreads)
+
+
+class IntegrateGeometry(NamedTuple):
+    lanes: int         # lanes per ray; lane k holds sample b * lanes + k of block b
+    per_lane: int      # samples a lane holds at once (blocks in a tile)
+    tiles: int         # tiles a ray walks; above 1, the tiled path
+    rays_per_cta: int
+    threads: int
+    ctas: int
+
+
+def integrate_geometry(n: int, s: int, sms: int) -> IntegrateGeometry:
+    """K7's and K8's launch geometry for ``n`` rays of ``s`` samples on a
+    card of ``sms`` SMs: 16 lanes per ray where a tile of them holds the
+    ray (64 samples) and the launch fills the SMs, else 32 (a render chunk
+    and an iMAP* batch take 16; tracking's 200 and mapping's 1000 rays 32,
+    50 and 250 CTAs; rays past 128 samples walk tiles)."""
+    narrow = INTEGRATE_LANES[0]
+    fills = -(-n // (INTEGRATE_THREADS // narrow)) >= sms
+    lanes = narrow if s <= narrow * INTEGRATE_RUN and fills else INTEGRATE_LANES[-1]
+    blocks = -(-s // lanes)
+    rays = INTEGRATE_THREADS // lanes
+    return IntegrateGeometry(lanes=lanes, per_lane=min(blocks, INTEGRATE_RUN),
+                             tiles=-(-blocks // INTEGRATE_RUN), rays_per_cta=rays,
+                             threads=INTEGRATE_THREADS, ctas=-(-n // rays))
+
+
+def launch_geometry(n: int, s: int, device: torch.device) -> IntegrateGeometry:
+    """``integrate_geometry`` of a launch on ``device``."""
+    return integrate_geometry(n, s, kernels.sm_count(device.index))
 
 
 # ---------------------------------------------------------------------------
@@ -173,9 +212,10 @@ def integrate_fwd(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
     weights = torch.empty((n, s), dtype=torch.float32, device=dev)
     if n and s:
+        geom = launch_geometry(n, s, dev)
         _launch("integrate_fwd", dev, raw.data_ptr(), z_vals.data_ptr(),
-                rays_d.data_ptr(), n, s, int(occupancy), depth.data_ptr(),
-                var.data_ptr(), rgb.data_ptr(), weights.data_ptr())
+                rays_d.data_ptr(), n, s, int(occupancy), geom.lanes, geom.ctas,
+                depth.data_ptr(), var.data_ptr(), rgb.data_ptr(), weights.data_ptr())
     return depth, var, rgb, weights
 
 
@@ -199,22 +239,30 @@ def integrate_bwd(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     g_rays = (torch.empty((n, 3), dtype=torch.float32, device=dev)
               if need_rays and not occupancy else None)
     if n and s:
+        geom = launch_geometry(n, s, dev)
+        # the tiled path's scratch: each tile's transmittance carry
+        carry = (torch.empty((n, geom.tiles), dtype=torch.float32, device=dev)
+                 if geom.tiles > 1 else None)
         _launch("integrate_bwd", dev, raw.data_ptr(), z_vals.data_ptr(),
                 rays_d.data_ptr(), depth.data_ptr(), g_depth.data_ptr(),
-                g_var.data_ptr(), g_rgb.data_ptr(), n, s, int(occupancy),
-                g_raw.data_ptr(), 0 if g_rays is None else g_rays.data_ptr())
+                g_var.data_ptr(), g_rgb.data_ptr(), n, s, int(occupancy), geom.lanes,
+                geom.ctas, g_raw.data_ptr(), 0 if g_rays is None else g_rays.data_ptr(),
+                0 if carry is None else carry.data_ptr())
     return g_raw, g_rays
 
 
-def integrate_kernel_info(bwd: bool, occupancy: bool,
-                          device: torch.device) -> Dict[str, int]:
-    """K7's (or K8's) compiled resources in one mode, read with
-    cudaFuncGetAttributes: registers, local (spill) bytes, threads."""
-    out = (ctypes.c_int * 3)()
+def integrate_kernel_info(bwd: bool, occupancy: bool, device: torch.device,
+                          lanes: int) -> Dict[str, int]:
+    """K7's (or K8's) compiled resources at ``lanes`` lanes per ray in one
+    mode, read with cudaFuncGetAttributes and the occupancy API: registers,
+    local (spill) bytes, threads, resident CTAs per SM and the blocks a
+    lane holds."""
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = kernels.library("integrator").integrate_info(int(bwd), int(occupancy), out)
+        rc = kernels.library("integrator").integrate_info(int(bwd), int(occupancy),
+                                                          lanes, out)
     kernels.check(rc, "integrate_info")
-    return dict(zip(("registers", "local_bytes", "threads"), out))
+    return dict(zip(("registers", "local_bytes", "threads", "ctas_per_sm", "run"), out))
 
 
 class _Integrate(torch.autograd.Function):

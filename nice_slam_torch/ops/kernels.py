@@ -13,6 +13,7 @@ lock, so threads that first call a kernel together build it once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,9 +52,9 @@ SIGNATURES = {
         "decoder_kernel_info": [_I, _I, _I, _IP],
     },
     "integrator": {
-        "integrate_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-        "integrate_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-        "integrate_info": [_I, _I, _IP],
+        "integrate_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "integrate_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "integrate_info": [_I, _I, _I, _IP],
     },
     "adam": {
         "group_adam": [_D, _I, _P],
@@ -188,6 +189,15 @@ class LaunchCounter:
             if device is not None:
                 key = (name, device, stream)
                 self.by_device[key] = self.by_device.get(key, 0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of card ``index``, read once: K4, K5, K7 and K8 size
+    their launches from it on every call."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

@@ -1356,14 +1356,30 @@ def test_decoder_wrappers_reject_what_the_kernels_do_not_take(dev):
 # the main path's integrator calls: (rays, samples, occupancy) of a
 # tracking iteration, a mapping iteration, a coarse-mapping iteration, a
 # render chunk and an iMAP* iteration (32 + 12 samples, density); then
-# sample counts that are no multiple of anything
+# sample counts that are no multiple of anything, and each side of a
+# block of 16 lanes and of a tile of 16 x 4 at 1500 rays (which fill the
+# card at 16 lanes a ray; 65 samples take 32), the tiled path (300), one
+# ray, and 203 rays, whose last CTA (4 rays of 32 lanes) holds 3
 INTEGRATOR_CASES = {"track": (200, 48, True), "map": (1000, 48, True),
                     "coarse": (1000, 32, True), "render": (100_000, 48, True),
                     "imap": (5000, 44, False), "one_sample": (37, 1, True),
-                    "odd_density": (333, 97, False)}
+                    "odd_density": (333, 97, False),
+                    "s15": (1500, 15, True), "s16": (1500, 16, False),
+                    "s17": (1500, 17, True), "s31": (1500, 31, False),
+                    "s32": (1500, 32, True), "s33": (1500, 33, False),
+                    "s64": (1500, 64, True), "s65": (1500, 65, False),
+                    "tiled": (64, 300, True), "tiled_density": (64, 300, False),
+                    "one_ray": (1, 48, True), "ragged_cta": (203, 44, False)}
+# the sample counts each side of a block of 32 lanes, at 100 rays (too few
+# to fill the card at 16 lanes a ray)
+NARROW_SAMPLES = (15, 16, 17, 31, 32, 33, 64, 65, 128, 129)
 
 
-def _integrator_inputs(dev, n, s, occupancy, seed=0):
+def _integrator_inputs(dev, n, s, occupancy, seed=0, across=False):
+    """Rays with saturated alpha and (density) relu at 0; ``across``: the
+    second half of the rays saturated from sample s // 5 + 1 to 3 s // 4,
+    a run that starts and ends inside blocks of every lane count (and
+    crosses tiles at S = 300)."""
     g = torch.Generator().manual_seed(seed)
     raw = torch.randn((n, s, 4), generator=g)
     if occupancy:
@@ -1372,21 +1388,23 @@ def _integrator_inputs(dev, n, s, occupancy, seed=0):
         raw[..., 3] = raw[..., 3].abs() * 3.0
         raw[: n // 4, ::3, 3] = 0.0
         raw[n // 4: n // 2, s // 2:, 3] = 40.0
+    if across:
+        raw[n // 2:, s // 5 + 1: 3 * s // 4 + 1, 3] = 3.0 if occupancy else 40.0
     z = torch.sort(0.1 + 3.9 * torch.rand((n, s), generator=g), dim=-1).values
     rays_d = torch.randn((n, 3), generator=g)
     cot = torch.randn((n, 5), generator=g)
     return [t.to(dev) for t in (raw, z, rays_d, cot)]
 
 
-@pytest.mark.parametrize("case", list(INTEGRATOR_CASES))
-def test_integrator_kernels_match_plain(dev, case):
+def _check_integrator(dev, n, s, occ, lanes, across=False):
     """K7 within 1e-5 of the plain output's largest entry, K8 within 1e-4
-    of the plain gradient's largest entry (the plain backward's reverse
-    scan runs column by column, the kernel's ray by ray, in one order)."""
+    of the plain gradient's largest entry (the kernels sum and scan in a
+    tree order over a ray's lanes, the plain versions in sequence), one
+    launch each, at the ``lanes`` ``integrate_geometry`` chooses."""
     from nice_slam_torch.ops import integrator as I
 
-    n, s, occ = INTEGRATOR_CASES[case]
-    raw, z, rays_d, cot = _integrator_inputs(dev, n, s, occ)
+    assert I.launch_geometry(n, s, dev).lanes == lanes
+    raw, z, rays_d, cot = _integrator_inputs(dev, n, s, occ, across=across)
     I.reset_launch_counts()
     got = I.integrate_fwd(raw, z, rays_d, occ)
     ref = I.integrate_fwd_plain(raw, z, rays_d, occ)
@@ -1402,6 +1420,34 @@ def test_integrator_kernels_match_plain(dev, case):
     else:
         assert float((g_rays - r_rays).abs().max()) <= 1e-4 * float(r_rays.abs().max())
     assert I.launch_counts == {"integrate_fwd": 1, "integrate_bwd": 1}
+
+
+def _lanes(n, s):
+    """The lanes per ray ``integrate_geometry`` gives an H100 (132 SMs)."""
+    return 16 if s <= 64 and -(-n // 8) >= 132 else 32
+
+
+@pytest.mark.parametrize("case", list(INTEGRATOR_CASES))
+def test_integrator_kernels_match_plain(dev, case):
+    n, s, occ = INTEGRATOR_CASES[case]
+    _check_integrator(dev, n, s, occ, _lanes(n, s))
+
+
+@pytest.mark.parametrize("s", NARROW_SAMPLES)
+def test_integrator_kernels_match_plain_at_32_lanes(dev, s):
+    """Each side of a block of 32 lanes, density mode (occupancy in the
+    odd sample counts), one tile up to 128 samples, then two."""
+    _check_integrator(dev, 100, s, bool(s % 2), 32)
+
+
+@pytest.mark.parametrize("n", [96, 1500], ids=["32_lanes", "16_lanes"])
+@pytest.mark.parametrize("s", [48, 300])
+@pytest.mark.parametrize("occupancy", [True, False], ids=["occupancy", "density"])
+def test_integrator_saturated_run_across_lanes_and_tiles(dev, occupancy, s, n):
+    """A saturated run (f = 1e-10) that starts inside one block and ends
+    inside another, across tiles at S = 300: the scans' carries hold it
+    without dividing by f, so K8's gradient stays finite and in its gate."""
+    _check_integrator(dev, n, s, occupancy, _lanes(n, s), across=True)
 
 
 @pytest.mark.parametrize("occupancy", [True, False], ids=["occupancy", "density"])
@@ -1441,12 +1487,15 @@ def test_integrator_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 def test_integrator_kernels_use_no_local_memory(dev):
+    """Every template instance: K7 and K8, both modes, each lane count."""
     from nice_slam_torch.ops import integrator as I
 
     for bwd in (False, True):
         for occ in (False, True):
-            info = I.integrate_kernel_info(bwd, occ, dev)
-            assert info["local_bytes"] == 0, (bwd, occ, info)
+            for lanes in I.INTEGRATE_LANES:
+                info = I.integrate_kernel_info(bwd, occ, dev, lanes)
+                assert info["local_bytes"] == 0, (bwd, occ, lanes, info)
+                assert info["ctas_per_sm"] >= 1 and info["run"] == I.INTEGRATE_RUN
 
 
 # ---------------------------------------------------------------------------

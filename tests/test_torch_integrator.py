@@ -114,3 +114,50 @@ def test_function_without_a_graph_matches_plain():
         got = integrator.raw2outputs_nerf_color(*args, occupancy=False)
     for a, b in zip(got, integrator.integrate_fwd_plain(*args, occupancy=False)):
         assert torch.equal(a, b)
+
+
+# K7's and K8's launch geometry (integrator.cu indexes its samples so):
+# (rays, samples) of tracking, a mapping and a coarse-mapping iteration, an
+# iMAP* batch, a render chunk, and shapes off every multiple
+GEOMETRY_CASES = [(200, 48), (1000, 48), (1000, 32), (5000, 44), (100_000, 48),
+                  (37, 1), (333, 97), (64, 300)]
+
+
+def _walk(g, n, s):
+    """How often K7's and K8's threads reach each (ray, sample) under
+    geometry ``g``: thread x of the launch takes ray x // lanes as lane
+    x % lanes, which holds sample (t * run + j) * lanes + lane of block j
+    of tile t."""
+    x = np.arange(g.ctas * g.threads)
+    ray, lane = x // g.lanes, x % g.lanes
+    blocks = -(-s // g.lanes)
+    hits = []
+    for t in range(g.tiles):
+        for j in range(min(integrator.INTEGRATE_RUN, blocks - t * integrator.INTEGRATE_RUN)):
+            i = (t * integrator.INTEGRATE_RUN + j) * g.lanes + lane
+            live = (ray < n) & (i < s)
+            hits.append(ray[live] * s + i[live])
+    return np.bincount(np.concatenate(hits), minlength=n * s)
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("n,s", GEOMETRY_CASES)
+def test_integrate_geometry_covers_every_sample_once(n, s, sms):
+    """At an H100's 132 SMs, and at 16, where more calls fill the card
+    and take 16 lanes a ray."""
+    g = integrator.integrate_geometry(n, s, sms)
+    assert g.lanes in integrator.INTEGRATE_LANES
+    assert g.threads % 32 == 0 and g.rays_per_cta * g.lanes == g.threads
+    counts = _walk(g, n, s)
+    assert counts.shape == (n * s,) and (counts == 1).all()
+    # no lane holds more than the largest template's run, and the tiled
+    # path is taken exactly past it
+    largest = max(integrator.INTEGRATE_LANES) * integrator.INTEGRATE_RUN
+    assert g.per_lane <= integrator.INTEGRATE_RUN
+    assert (g.tiles > 1) == (s > largest)
+
+
+def test_integrate_geometry_spreads_tracking_over_ctas():
+    """Tracking's 200 rays x 48 samples: at least 7 CTAs (a thread per
+    ray gave 2)."""
+    assert integrator.integrate_geometry(200, 48, 132).ctas >= 7
