@@ -40,10 +40,11 @@ Phases, each printing one JSON line:
            tracker and color-stage steps against the plain step from the
            same state (within 2 float32 epsilons of each value's terms;
            library_ms torch._fused_adam_ on the same leaves, a yardstick
-           only), K10's two kernels on the captured frustum call (the
-           largest lookups within 1e-5 of the depth range, at most 1e-4
-           of the nodes' masks differing: nodes within rounding of a
-           test's boundary); each row with its registers and local bytes
+           only), K10's one launch on the captured frustum call (the
+           largest lookups, its own output, within 1e-5 of the depth
+           range, at most 1e-4 of the nodes' masks differing: nodes within
+           rounding of a test's boundary; fine's and color's masks one
+           tensor); each row with its registers and local bytes
            (none allowed) and its bound; then
            K4 decoder_fwd, K5 decoder_bwd and K6 decoder_wgrad_sum on each
            captured decoder-stage call against their plain versions (the
@@ -89,8 +90,8 @@ Phases, each printing one JSON line:
            tracking iteration, K2 once per mapping iteration; K4 once per
            K1, K5 once per iteration, K6 once per iteration and decoder
            that trains: the color decoder's color-stage iterations; K7, K8
-           and K9 once per iteration, K10's two kernels once per
-           frustum-selecting main-mapper call); it writes
+           and K9 once per iteration, K10 once per frustum-selecting
+           main-mapper call); it writes
            the final checkpoint, final_mesh.ply and final_mesh_eval_rec.ply
            at resolution 256, and each mesh must have faces;
   resume   a fresh system on the slice's config resumes from its final
@@ -760,8 +761,7 @@ DEC_PLAIN_CHUNK = 1_000_000  # points per plain-chain call (a render chunk's who
                              # activations, ~70 GB at 4.8M points, would not fit)
 
 
-K7_K10 = ("integrate_fwd", "integrate_bwd", "group_adam", "frustum_depth_max",
-          "frustum_mask")
+K7_K10 = ("integrate_fwd", "integrate_bwd", "group_adam", "frustum_mask")
 
 
 def counters():
@@ -800,17 +800,16 @@ def all_by_stream() -> dict:
 def k7_k10_want(iters: int, frustum_calls: int, adam=None) -> dict:
     """K7-K10's launches of a run on one card: one K7, one K8 and one K9
     per tracking or mapping iteration (``adam``: K9's count, where it
-    differs), and K10's two kernels once per main-mapper call that
-    selects features by the frustum."""
+    differs), and K10 once per main-mapper call that selects features by
+    the frustum."""
     return {"integrate_fwd": iters, "integrate_bwd": iters,
             "group_adam": iters if adam is None else adam,
-            "frustum_depth_max": frustum_calls, "frustum_mask": frustum_calls}
+            "frustum_mask": frustum_calls}
 
 
 def frustum_per_call(mcfg, spec) -> int:
-    """K10's launches (of each of its two kernels) in a mapping call: one
-    where the main mapper of a NICE scene selects features by the
-    frustum."""
+    """K10's launches in a mapping call: one where the main mapper of a
+    NICE scene selects features by the frustum."""
     return int(bool(mcfg.frustum_feature_selection) and not mcfg.coarse_mapper
                and spec.nice)
 
@@ -829,8 +828,7 @@ def k6_per_call(mcfg, plan) -> int:
 @contextlib.contextmanager
 def recorded_core(sink):
     """Append each optimize_map_core call to ``sink`` as (thread, coarse,
-    iterations, rays, K6 launches per device it runs on, K10 launches of
-    each of its kernels)."""
+    iterations, rays, K6 launches per device it runs on, K10 launches)."""
     import inspect
     import threading
 
@@ -1143,8 +1141,7 @@ def wgrad_sum_geometry(cols, dev):
 
 
 # ---------------------------------------------------------------------------
-# K7 integrate_fwd, K8 integrate_bwd, K9 group_adam, K10 frustum_depth_max and
-# frustum_mask
+# K7 integrate_fwd, K8 integrate_bwd, K9 group_adam, K10 frustum_mask
 # ---------------------------------------------------------------------------
 
 K78_CASES = ("track", "map_color", "map_coarse", "render_color")
@@ -1219,8 +1216,11 @@ def k7_k10_captures():
         return saved[(O, "group_adam")](leaves)
 
     def masks(*a):
-        if rec["frustum"] is None:
-            rec["frustum"] = tuple(clone(x) for x in a)
+        # the camera, depth, bound, shapes and intrinsics; a dense call's
+        # rows are each grid's nx, the default
+        dense = len(a) < 11 or a[10] is None or list(a[10]) == [s[0] for s in a[3]]
+        if rec["frustum"] is None and dense:
+            rec["frustum"] = tuple(clone(x) for x in a[:10])
         return saved[(M, "frustum_masks")](*a)
 
     for (mod, name), fn in zip(saved, (fwd, bwd, adam, masks, track_loss, map_loss)):
@@ -1407,10 +1407,13 @@ def k9_row(label, leaves, dev):
 
 def k10_rows(args, dev):
     """K10 on the captured frustum call (the Replica room's middle, fine
-    and color grids and a 680x1200 depth frame): each grid's largest
-    lookup against the plain version's, each mask equal but for at most
-    K10_SHARE of the nodes (a node within rounding of a test's boundary;
-    tests/test_torch_cuda.py checks that they are), times and bounds."""
+    and color grids and a 680x1200 depth frame): one launch over the
+    distinct grids (fine's and color's masks one tensor), each grid's
+    largest lookup (the kernel's own output) against the plain version's,
+    each mask equal but for at most K10_SHARE of the nodes (a node within
+    rounding of a test's boundary; tests/test_torch_cuda.py checks that
+    they are), times and bound: the depth image read once and each
+    distinct mask written once."""
     import torch
 
     from nice_slam_torch.ops import frustum as Fm
@@ -1419,44 +1422,46 @@ def k10_rows(args, dev):
 
     c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = args
     got = Fm.frustum_masks(*args)
+    if any((a is b) != (sa == sb) for a, sa in zip(got, shapes) for b, sb in zip(got, shapes)):
+        raise AssertionError("K10: grids of one shape did not get one mask tensor")
+    tops = Fm.frustum_depth_max(*args).cpu()
     nodes = sum(a * b * c for a, b, c in shapes)
+    distinct = sorted(set(map(tuple, shapes)))
+    items = sum(a * b * c for a, b, c in distinct)
     differ = 0
     max_err = 0.0
     w2c = invert(c2w)
-    for shape, m in zip(shapes, got):
+    for shape, m, top in zip(shapes, got, tops):
         ref = Fm.frustum_mask_plain(*args[:3], shape, *args[4:])
         differ += int(((m[..., 0] > 0) != ref).sum())
-        # the largest lookup, as K10's first kernel reduces it
+        # the largest lookup, as the plain version takes it
         axes = [linspace(bound[a, 0], bound[a, 1], n) for a, n in enumerate(shape)]
         pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
         cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
         zc = cam[:, 2] + 1e-5
         look = bilinear_sample_2d(depth, (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc,
                                   (fy * cam[:, 1] + cy * cam[:, 2]) / zc)
-        top = Fm.frustum_depth_max(*args[:3], [shape], *args[4:])
-        max_err = max(max_err, abs(float(look.max()) - float(top[0])))
+        max_err = max(max_err, abs(float(look.max()) - float(top)))
     if differ > K10_SHARE * nodes or max_err > 1e-5 * float(depth.max()):
         raise AssertionError(f"K10: {differ} of {nodes} nodes differ from the plain "
                              f"masks, largest lookups off by {max_err}")
-    rows = []
     fn = lambda: Fm.frustum_masks(*args)  # noqa: E731
-    ms = cuda_time_ms(fn)
-    plain_ms = cuda_time_ms(lambda: [Fm.frustum_mask_plain(*args[:3], s, *args[4:])
-                                     for s in shapes], 5)
-    img_b = H * W * 4
-    for kernel, bytes_, err in (("frustum_depth_max", img_b + 4 * len(shapes), max_err),
-                                ("frustum_mask", img_b + 4 * nodes, float(differ > 0))):
-        info = Fm.frustum_kernel_info(kernel, dev)
-        if info["local_bytes"]:
-            raise AssertionError(f"{kernel}: {info['local_bytes']} bytes of local memory")
-        rows.append(dict(case="room", kernel=kernel, n=nodes, grids=len(shapes),
-                         shapes=[list(s) for s in shapes], H=H, W=W, max_abs_err=err,
-                         nodes_differing=differ, tol=K10_SHARE, bytes=bytes_,
-                         flops=nodes * 60, ms=ms, device_ms=device_time_ms(fn, kernel + "_kernel"),
-                         plain_ms=plain_ms, library_ms=None, library_device_ms=None,
-                         geometry={"ctas": sum(-(-(a * b * c) // info["threads"])
-                                               for a, b, c in shapes), **info}))
-    return rows
+    info = Fm.frustum_kernel_info(dev)
+    if info["local_bytes"]:
+        raise AssertionError(f"frustum_mask: {info['local_bytes']} bytes of local memory")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = Fm.frustum_geometry([a * b * c for a, b, c in distinct], sms, info["ctas_per_sm"])
+    return [dict(case="room", kernel="frustum_mask", n=nodes, grids=len(shapes),
+                 distinct_grids=len(distinct), items=items,
+                 shapes=[list(s) for s in shapes], H=H, W=W, max_abs_err=max_err,
+                 nodes_differing=differ, tol=K10_SHARE, bytes=H * W * 4 + 4 * items,
+                 flops=items * 60, ms=cuda_time_ms(fn),
+                 device_ms=device_time_ms(fn, "frustum_mask_kernel"),
+                 plain_ms=cuda_time_ms(lambda: [Fm.frustum_mask_plain(*args[:3], s, *args[4:])
+                                                for s in shapes], 5),
+                 library_ms=None, library_device_ms=None,
+                 geometry={"ctas": geo.ctas, "per_thread": geo.per_thread, **info,
+                           **resident(info, geo.ctas, info["threads"] // 32, sms)})]
 
 
 def k7_k10_all_rows(cap, dev):
@@ -2687,7 +2692,7 @@ def phase_envelope(dev):
     tracks below 10 cm is at least the default mode's.  K3 launches once
     per tracking iteration and K2 once per mapping iteration; K1 once per
     both, plus the final meshes' chunks; K7, K8 and K9 once per both, and
-    K10's two kernels once per mapping call."""
+    K10 once per mapping call."""
     import math
 
     from nice_slam_torch.slam import mapper as M
@@ -3427,7 +3432,7 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     k1, k2, k3 = "trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp"
     k4, k5, k6 = "decoder_fwd", "decoder_bwd", "decoder_wgrad_sum"
     k7, k8, k9 = "integrate_fwd", "integrate_bwd", "group_adam"
-    k10 = ("frustum_depth_max", "frustum_mask")
+    k10 = ("frustum_mask",)
     cards = list({d.index: d for d in devices}.values())
     want = collections.Counter()
 
@@ -3728,7 +3733,6 @@ KERNEL_META = {
     "group_adam": ("nice_slam_tpu/slam/optim.py:49 group_adam_update, "
                    "nice_slam_tpu/slam/mapper.py:648-650 (the frustum mask multiply)",
                    "map_color", ADAM_CU),
-    "frustum_depth_max": (FRUSTUM_JAX, "room", FRUSTUM_CU),
     "frustum_mask": (FRUSTUM_JAX, "room", FRUSTUM_CU),
 }
 # K1 on the mesher's and renderer's paths; K1 and K2 on the pretrainer's

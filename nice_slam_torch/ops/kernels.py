@@ -62,8 +62,8 @@ SIGNATURES = {
         "group_adam_info": [_IP],
     },
     "frustum": {
-        "frustum_mask": [_D, _I, _P, _I, _I, _P, _P, _P, _F, _F, _F, _F, _P, _I, _P],
-        "frustum_info": [_I, _IP],
+        "frustum_mask": [_D, _I, _P, _I, _I, _P, _P, _P, _F, _F, _F, _F, _P, _P, _I, _P],
+        "frustum_info": [_IP],
     },
 }
 

@@ -204,12 +204,16 @@ def fold_slab_grads(grads: Sequence[Optional[torch.Tensor]],
 
 def mask_to_slabs(mask: torch.Tensor, planes: int, D: int,
                   devices: Optional[Devices] = None) -> List[torch.Tensor]:
-    """Slice a dense per-node mask (nx, ny, nz, ...) into the slab layout,
-    one (planes + 1, ny, nz, ...) per slab, as ``shard_grid`` slices the
-    grid (each on ``devices[d]`` when given): the shared planes get the
-    same values in both copies."""
-    padded = _edge_pad(mask, planes * D + 1)
-    out = [padded[d * planes:d * planes + planes + 1] for d in range(D)]
+    """Cut a per-node mask already laid out for the slabs (planes x D + 1
+    x-planes, the grid's last plane repeated past nx, as K10 writes it:
+    ``ops/frustum.py`` ``frustum_masks`` with ``rows``) into one (planes +
+    1, ny, nz, ...) view per slab, as ``shard_grid`` slices the grid; each
+    is copied to ``devices[d]`` where given and elsewhere.  The shared
+    planes are one plane of ``mask``, so both copies hold its values."""
+    if mask.shape[0] != planes * D + 1:
+        raise ValueError(f"a mask of {mask.shape[0]} x-planes for {D} slabs of "
+                         f"{planes} planes (want {planes * D + 1})")
+    out = [mask[d * planes:d * planes + planes + 1] for d in range(D)]
     if devices is not None:
         out = [m.to(dev) for m, dev in zip(out, devices)]
     return out

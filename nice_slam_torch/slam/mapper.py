@@ -418,12 +418,15 @@ def optimize_map_core(spec: SceneSpec, state: SceneState, colors, depths,
         shapes = dict(spec.grid_shapes)
         names = [k for k in ("grid_middle", "grid_fine", "grid_color") if k in shapes]
         if names:
-            # K10 on the card: every grid's mask in one pair of launches
-            dense = frustum_masks(fixed_c2w[-1], depths[-1], state.bound,
-                                  [shapes[k] for k in names], mcfg.H, mcfg.W,
-                                  mcfg.fx, mcfg.fy, mcfg.cx, mcfg.cy)
-            for name, m in zip(names, dense):
-                grid = state.grids[name]
+            # K10 on the card: every distinct grid's mask in one launch, a
+            # sharded grid's already in the slab layout
+            grids = [state.grids[k] for k in names]
+            rows = [g.planes * g.D + 1 if isinstance(g, ShardedGrid) else shapes[k][0]
+                    for k, g in zip(names, grids)]
+            got = frustum_masks(fixed_c2w[-1], depths[-1], state.bound,
+                                [shapes[k] for k in names], mcfg.H, mcfg.W,
+                                mcfg.fx, mcfg.fy, mcfg.cx, mcfg.cy, rows)
+            for name, grid, m in zip(names, grids, got):
                 masks[name] = (mask_to_slabs(m, grid.planes, grid.D, grid.devices)
                                if isinstance(grid, ShardedGrid) else [m])
     groups = _opt_param_groups(spec, state, mcfg, cam_tensors, BA)

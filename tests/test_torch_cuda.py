@@ -1658,7 +1658,7 @@ def test_group_adam_uses_no_local_memory(dev):
 
 
 # ---------------------------------------------------------------------------
-# K10 frustum_depth_max + frustum_mask (ops/frustum.py)
+# K10 frustum_mask (ops/frustum.py): one cooperative launch a call
 # ---------------------------------------------------------------------------
 
 def _mask_f64(points, c2w, depth, max_depth, H, W, fx, fy, cx, cy):
@@ -1677,16 +1677,24 @@ def _mask_f64(points, c2w, depth, max_depth, H, W, fx, fy, cx, cy):
     return seen | (torch.sum((points - c2w[:3, 3].double()) ** 2, dim=-1) < 0.25)
 
 
-def _room_camera(dev, seed=0):
-    """The Replica room's three grids (bound and shapes of
-    tools/workloads.replica_synthetic_cfg) and a 680x1200 camera looking
-    into it with a smooth depth image (zero where the sensor has no
-    return)."""
+# the Replica room's bound and grids (tools/workloads.replica_synthetic_cfg),
+# and Apartment's (configs/Apartment/apartment.yaml's bound rounded as the
+# port rounds it, the default grid_len): its ~0.51M distinct nodes take
+# more than one round of threads
+K10_SCENES = {"room": ([[-2.9, 8.94], [-3.2, 5.76], [-3.5, 3.54]],
+                       [(37, 28, 21), (74, 56, 43), (74, 56, 43)]),
+              "apartment": ([[-5.8, 11.48], [-4.0, 4.64], [-7.9, 5.22]],
+                            [(53, 26, 40), (107, 53, 81), (107, 53, 81)])}
+
+
+def _room_camera(dev, seed=0, zeros=0.05, scene="room"):
+    """A scene's three grids and a 680x1200 camera looking into it with a
+    smooth depth image, ``zeros`` of its pixels zero (no sensor return)."""
     from nice_slam_torch.ops.geometry import c2w44
 
     gen = torch.Generator().manual_seed(seed)
-    bound = torch.tensor([[-2.9, 8.94], [-3.2, 5.76], [-3.5, 3.54]])
-    shapes = [(37, 28, 21), (74, 56, 43), (74, 56, 43)]
+    bound = torch.tensor(K10_SCENES[scene][0])
+    shapes = list(K10_SCENES[scene][1])
     H, W, fx, fy, cx, cy = 680, 1200, 600.0, 600.0, 599.5, 339.5
     ang = 0.4
     R = torch.tensor([[np.cos(ang), 0.0, np.sin(ang)], [0.0, 1.0, 0.0],
@@ -1695,23 +1703,50 @@ def _room_camera(dev, seed=0):
     yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     depth = 2.0 + 1.5 * torch.sin(xx / 97.0) * torch.cos(yy / 61.0) \
         + 0.1 * torch.rand((H, W), generator=gen)
-    depth[torch.rand((H, W), generator=gen) < 0.05] = 0.0
+    depth[torch.rand((H, W), generator=gen) < zeros] = 0.0
     return (c2w.to(dev), depth.to(dev), bound.to(dev), shapes, H, W, fx, fy, cx, cy)
 
 
-def test_frustum_kernel_matches_plain(dev):
-    """K10's masks against the plain version's at the Replica room's grids
-    and a 680x1200 frame: equal, except nodes within 1e-5 m of a test
-    boundary (the plain mask in float64 flips when the node moves 1e-5 m
-    along an axis), at most 1e-4 of the nodes."""
+def _plain_top(c2w, depth, bound, shape, H, W, fx, fy, cx, cy):
+    """A grid's largest depth lookup, as the plain version takes it."""
+    from nice_slam_torch.ops.geometry import linspace
+    from nice_slam_torch.ops.interp import bilinear_sample_2d
+
+    axes = [linspace(bound[a, 0], bound[a, 1], n) for a, n in enumerate(shape)]
+    nodes = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
+    w2c = torch.linalg.inv(c2w)
+    cam = nodes @ w2c[:3, :3].T + w2c[:3, 3]
+    zc = cam[:, 2] + 1e-5
+    return float(bilinear_sample_2d(depth, (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc,
+                                    (fy * cam[:, 1] + cy * cam[:, 2]) / zc).max())
+
+
+@pytest.mark.parametrize("scene,zeros", [("room", 0.05), ("room", 0.0), ("room", 1.0),
+                                         ("apartment", 0.05), ("apartment", 1.0)])
+def test_frustum_kernel_matches_plain(dev, scene, zeros):
+    """K10's masks against the plain version's at a scene's three grids
+    and a 680x1200 frame with no zero depth, 5 % zeros, or every pixel
+    zero (every node in the image then waits for the largest lookup, 0):
+    equal, except nodes within 1e-5 m of a test boundary (the plain mask
+    in float64 flips when the node moves 1e-5 m along an axis), at most
+    1e-4 of the nodes; each grid's largest lookup (K10's own output)
+    within 1e-5 of the depth's largest; fine's and color's masks one
+    tensor; one launch."""
     from nice_slam_torch.ops import frustum as Fm
     from nice_slam_torch.ops.geometry import linspace
 
-    c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = _room_camera(dev)
+    c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = _room_camera(dev, zeros=zeros,
+                                                                    scene=scene)
     Fm.reset_launch_counts()
     got = Fm.frustum_masks(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy)
-    assert Fm.launch_counts == {"frustum_depth_max": 1, "frustum_mask": 1}
-    for shape, m in zip(shapes, got):
+    assert Fm.launch_counts == {"frustum_mask": 1}
+    assert got[1] is got[2] and got[0] is not got[1]
+    tops = Fm.frustum_depth_max(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy).cpu()
+    assert Fm.launch_counts == {"frustum_mask": 2} and tops.shape == (3,)
+    for shape, m, t in zip(shapes, got, tops):
+        assert m.shape == (*shape, 1)
+        top = _plain_top(c2w, depth, bound, shape, H, W, fx, fy, cx, cy)
+        assert abs(float(t) - top) <= 1e-5 * max(float(depth.max()), 1.0), (shape, t, top)
         ref = Fm.frustum_mask_plain(c2w, depth, bound, shape, H, W, fx, fy, cx, cy)
         assert 0 < int(ref.sum()) < ref.numel()
         bad = torch.nonzero((m[..., 0] > 0) != ref).cpu()
@@ -1721,15 +1756,6 @@ def test_frustum_kernel_matches_plain(dev):
         axes = [linspace(bound[a, 0], bound[a, 1], n).double().cpu()
                 for a, n in enumerate(shape)]
         pts = torch.stack([axes[a][bad[:, a]] for a in range(3)], dim=-1)
-        # the grid's largest lookup, as the plain version takes it
-        nodes = torch.stack(torch.meshgrid(*[x.float() for x in axes], indexing="ij"),
-                            dim=-1).reshape(-1, 3).to(dev)
-        w2c = torch.linalg.inv(c2w)
-        cam = nodes @ w2c[:3, :3].T + w2c[:3, 3]
-        zc = cam[:, 2] + 1e-5
-        from nice_slam_torch.ops.interp import bilinear_sample_2d
-        top = float(bilinear_sample_2d(depth, (fx * (-cam[:, 0]) + cx * cam[:, 2]) / zc,
-                                       (fy * cam[:, 1] + cy * cam[:, 2]) / zc).max())
         args = (c2w.cpu(), depth.cpu(), top, H, W, fx, fy, cx, cy)
         base = _mask_f64(pts, *args)
         flips = torch.zeros_like(base)
@@ -1750,7 +1776,7 @@ def test_frustum_mask_dispatcher_on_the_card(dev):
     Fm.reset_launch_counts()
     got = M.frustum_mask(c2w, depth, bound, shapes[0], H, W, fx, fy, cx, cy)
     assert got.dtype == torch.bool and tuple(got.shape) == shapes[0]
-    assert Fm.launch_counts == {"frustum_depth_max": 1, "frustum_mask": 1}
+    assert Fm.launch_counts == {"frustum_mask": 1}
     ref = Fm.frustum_masks(c2w, depth, bound, shapes[:1], H, W, fx, fy, cx, cy)[0]
     assert torch.equal(got, ref[..., 0] > 0)
 
@@ -1758,8 +1784,55 @@ def test_frustum_mask_dispatcher_on_the_card(dev):
 def test_frustum_kernels_use_no_local_memory(dev):
     from nice_slam_torch.ops import frustum as Fm
 
-    for which in ("frustum_depth_max", "frustum_mask"):
-        assert Fm.frustum_kernel_info(which, dev)["local_bytes"] == 0
+    info = Fm.frustum_kernel_info(dev)
+    assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 1
+
+
+def test_frustum_slab_layout_on_the_card(dev):
+    """K10 writing the slab layout (rows > nx) gives the dense mask with
+    its last plane repeated, bit for bit, and ``mask_to_slabs`` cuts it
+    into views on the camera's card."""
+    from nice_slam_torch.ops import frustum as Fm
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    c2w, depth, bound, shapes, H, W, fx, fy, cx, cy = _room_camera(dev)
+    dense = Fm.frustum_masks(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy)
+    rows = [gs._planes(s[0], 4) * 4 + 1 for s in shapes]
+    assert rows[1] > shapes[1][0]  # fine's 74 planes into 4 slabs of 19 (middle's 37 fit 4 x 9)
+    padded = Fm.frustum_masks(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy, rows)
+    assert padded[1] is padded[2]
+    for m, d, r, s in zip(padded, dense, rows, shapes):
+        assert torch.equal(m, gs._edge_pad(d, r))
+        slabs = gs.mask_to_slabs(m, gs._planes(s[0], 4), 4, [dev] * 4)
+        assert all(x.data_ptr() >= m.data_ptr() and x.is_cuda for x in slabs)
+        assert sum(x.shape[0] for x in slabs) == r + 3
+
+
+def test_frustum_kernel_beside_a_busy_stream(dev):
+    """K10's cooperative launch on one stream while another stream keeps
+    every SM busy (large matrix products after a spin): the launch waits
+    for room to hold all its CTAs at once, completes, and gives the
+    masks of a launch on an idle card (the co-residency the threaded
+    schedules need, where the tracker's kernels run on their own stream).
+    The Apartment grids take every resident-CTA slot."""
+    from nice_slam_torch.ops import frustum as Fm
+
+    for scene in ("room", "apartment"):
+        cam = _room_camera(dev, scene=scene)
+        ref = Fm.frustum_masks(*cam)
+        a = torch.randn((4096, 4096), device=dev)
+        torch.cuda.synchronize()
+        busy, side = torch.cuda.Stream(), torch.cuda.Stream()
+        with torch.cuda.stream(busy):
+            torch.cuda._sleep(50_000_000)
+            for _ in range(8):
+                a = a @ a / 64.0
+        with torch.cuda.stream(side):
+            got = Fm.frustum_masks(*cam)
+        side.synchronize()
+        busy.synchronize()
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -1773,6 +1846,7 @@ def tiny_loop_counts(tmp_path_factory):
     from nice_slam_torch.config import load_config
     from nice_slam_torch.ops import frustum as Fm
     from nice_slam_torch.ops import integrator as I
+    from nice_slam_torch.slam import mapper as M
     from nice_slam_torch.slam import optim as O
     from nice_slam_torch.slam.slam import NiceSLAM
 
@@ -1787,22 +1861,35 @@ def tiny_loop_counts(tmp_path_factory):
     slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda")
     for mod in (I, O, Fm):
         mod.reset_launch_counts()
-    slam.run()
+    inner, calls = M.optimize_map_core, []
+
+    def core(spec, state, colors, depths, fixed_c2w, cam_tensors, opt_cam_mask,
+             frame_valid, lr_factor, mcfg, *a, **k):
+        calls.append(bool(mcfg.frustum_feature_selection and not mcfg.coarse_mapper))
+        return inner(spec, state, colors, depths, fixed_c2w, cam_tensors, opt_cam_mask,
+                     frame_valid, lr_factor, mcfg, *a, **k)
+
+    M.optimize_map_core = core
+    try:
+        slam.run()
+    finally:
+        M.optimize_map_core = inner
     torch.cuda.synchronize()
-    return {**I.launch_counts, **O.launch_counts, **Fm.launch_counts}, slam
+    return {**I.launch_counts, **O.launch_counts, **Fm.launch_counts,
+            "frustum_calls": sum(calls)}, slam
 
 
 @pytest.mark.parametrize("kernel", ["integrate_fwd", "integrate_bwd", "group_adam",
-                                    "frustum_depth_max", "frustum_mask"])
+                                    "frustum_mask"])
 def test_tiny_loop_goes_through_k7_to_k10(tiny_loop_counts, kernel):
     """Each of K7-K10 launched on the slice's loop (0 if the path bypassed
     it): the integrator and the Adam step once per iteration, the frustum
-    mask's two launches once per main-mapper call."""
+    mask's one launch once per frustum-selecting main-mapper call."""
     counts, slam = tiny_loop_counts
     assert counts[kernel] > 0, counts
     iters = counts["integrate_bwd"]
     assert counts["integrate_fwd"] == iters and counts["group_adam"] == iters
-    assert counts["frustum_depth_max"] == counts["frustum_mask"]
+    assert counts["frustum_mask"] == counts["frustum_calls"]
     assert torch.isfinite(slam.estimate_c2w_list).all()
 
 
@@ -1842,7 +1929,7 @@ def test_k7_to_k10_follow_the_current_stream(dev):
     sid = side.cuda_stream
     assert I.launches_by_stream == {("integrate_fwd", sid): 1, ("integrate_bwd", sid): 1}
     assert O.launches_by_stream == {("group_adam", sid): 1}
-    assert Fm.launches_by_stream == {("frustum_depth_max", sid): 1, ("frustum_mask", sid): 1}
+    assert Fm.launches_by_stream == {("frustum_mask", sid): 1}
     for a, b in zip(fwd, ref_fwd):
         assert torch.equal(a, b)
     assert torch.equal(bwd, ref_bwd)

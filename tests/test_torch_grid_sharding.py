@@ -188,6 +188,48 @@ def test_sharded_store_is_differentiable(D, monkeypatch):
     np.testing.assert_allclose(dense_t.numpy(), np.asarray(jdense), atol=1e-5)
 
 
+def _small_camera(seed=0):
+    """A 24x32 camera looking down -z into a box's grids, its depth image
+    with a tenth of the pixels 0 (no return)."""
+    gen = torch.Generator().manual_seed(seed)
+    c2w = torch.eye(4)
+    c2w[:3, 3] = torch.tensor([0.1, 0.2, 2.2])
+    depth = 1.5 + 2.0 * torch.rand((24, 32), generator=gen)
+    depth[torch.rand((24, 32), generator=gen) < 0.1] = 0.0
+    bound = torch.tensor([[-1.8, 1.8]] * 3)
+    return c2w, depth, bound, 24, 32, 18.0, 18.0, 15.5, 11.5
+
+
+@pytest.mark.parametrize("D", [2, 3, 4])
+def test_frustum_masks_in_the_slab_layout(D):
+    """K10's mask asked for in the slab layout (rows = planes x D + 1 >
+    nx; here its plain version) is the dense mask edge-padded as
+    ``shard_grid`` pads a grid, and ``mask_to_slabs`` cuts it into the
+    slabs it cut from the dense mask before, as views of that one tensor
+    (copied only to another device)."""
+    from nice_slam_torch.ops.frustum import frustum_masks
+
+    c2w, depth, bound, H, W, fx, fy, cx, cy = _small_camera()
+    shapes = [(8, 9, 9), (18, 17, 17), (18, 17, 17)]  # nx - 1 a multiple of no D
+    dense = frustum_masks(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy)
+    planes = [tgs._planes(s[0], D) for s in shapes]
+    rows = [p * D + 1 for p in planes]
+    assert all(r > s[0] for r, s in zip(rows, shapes))
+    padded = frustum_masks(c2w, depth, bound, shapes, H, W, fx, fy, cx, cy, rows)
+    assert padded[1] is padded[2]
+    for m, p, d, r in zip(padded, planes, dense, rows):
+        assert 0 < float(d.sum()) < d.numel()
+        assert torch.equal(m, tgs._edge_pad(d, r))
+        slabs = tgs.mask_to_slabs(m, p, D, [CPU] * D)
+        before = [tgs._edge_pad(d, r)[i * p:i * p + p + 1] for i in range(D)]
+        for i, (a, b) in enumerate(zip(slabs, before)):
+            assert torch.equal(a, b)
+            assert a._base is m or a._base is m._base
+            assert a.data_ptr() == m.data_ptr() + i * p * a[0].numel() * 4
+    with pytest.raises(ValueError):
+        tgs.mask_to_slabs(dense[1], planes[1], D)
+
+
 def _rays(n, seed=0):
     rng = np.random.default_rng(seed)
     dirs = rng.normal(size=(n, 3)).astype(np.float32)

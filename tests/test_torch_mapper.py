@@ -120,6 +120,9 @@ def test_frustum_masks_dispatcher_matches_jax(setup):
                                torch.tensor(bound), shapes, H, W, cam["fx"], cam["fy"],
                                cam["cx"], cam["cy"])
         assert len(got) == len(shapes)
+        # grids of one shape share the camera and the bound: one mask, one tensor
+        for i, j in [(i, j) for i in range(len(shapes)) for j in range(i)]:
+            assert (got[i] is got[j]) == (shapes[i] == shapes[j])
         for shape, m in zip(shapes, got):
             ref = np.asarray(jm.frustum_mask(
                 jnp.asarray(s["c2w"][f]), jnp.asarray(s["depths"][f]),
@@ -127,6 +130,92 @@ def test_frustum_masks_dispatcher_matches_jax(setup):
                 cam["cx"], cam["cy"]))
             assert m.dtype == torch.float32 and tuple(m.shape) == (*shape, 1)
             np.testing.assert_array_equal(m[..., 0].numpy(), ref.astype(np.float32))
+
+
+def test_frustum_masks_fine_and_color_are_one_tensor(setup):
+    """The mapper's middle, fine and color grids (fine and color of one
+    shape, as every config of the repo has them): fine's and color's masks
+    are one tensor object, and each still equals the JAX mask."""
+    s = setup
+    bound = np.asarray(s["jstate"].bound)
+    cam = s["cfg"]["cam"]
+    shapes = dict(s["jspec"].grid_shapes)
+    names = ("grid_middle", "grid_fine", "grid_color")
+    assert shapes["grid_fine"] == shapes["grid_color"] != shapes["grid_middle"]
+    got = tm.frustum_masks(torch.tensor(s["c2w"][1]), torch.tensor(s["depths"][1]),
+                           torch.tensor(bound), [shapes[k] for k in names], H, W,
+                           cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+    assert got[1] is got[2] and got[0] is not got[1]
+    for name, m in zip(names, got):
+        ref = np.asarray(jm.frustum_mask(
+            jnp.asarray(s["c2w"][1]), jnp.asarray(s["depths"][1]), jnp.asarray(bound),
+            shapes[name], H, W, cam["fx"], cam["fy"], cam["cx"], cam["cy"]))
+        np.testing.assert_array_equal(m[..., 0].numpy(), ref.astype(np.float32))
+
+
+# K10's launch geometry: the room's grids, Apartment's (configs/Apartment/
+# apartment.yaml's bound at the default grid_len: more than one round of
+# threads at 132 SMs), shapes off every multiple, and slab layouts (rows > nx)
+FRUSTUM_GRID_SETS = {
+    "room": [((37, 28, 21), 37), ((74, 56, 43), 74)],
+    "apartment": [((53, 26, 40), 53), ((107, 53, 81), 107)],
+    "odd": [((3, 5, 7), 3), ((1, 1, 1), 1), ((13, 17, 19), 13), ((2, 3, 251), 2)],
+    "slabs": [((37, 28, 21), 37), ((74, 56, 43), 77)],
+    "one": [((1, 1, 1), 1)],
+}
+
+
+def _frustum_walk(g, grids):
+    """How often K10's threads reach each node of each grid under
+    geometry ``g``, as frustum.cu walks them: thread x takes items x, x +
+    S, ...; item k belongs to the grid whose items (rows x ny x nz, grid
+    after grid) hold it, and its element j to node plane min(j // (ny nz),
+    nx - 1).  Returns per grid (node visits, element visits)."""
+    from nice_slam_torch.ops import frustum as Fm
+
+    sizes = [r * s[1] * s[2] for s, r in grids]
+    first = np.concatenate([[0], np.cumsum(sizes)])
+    stride = g.ctas * g.threads
+    x = np.arange(stride)
+    items = np.concatenate([x + i * stride for i in range(g.per_thread)])
+    items = items[items < first[-1]]
+    grid = np.searchsorted(first, items, side="right") - 1
+    out = []
+    for gi, ((nx, ny, nz), rows) in enumerate(grids):
+        j = items[grid == gi] - first[gi]
+        plane = np.minimum(j // (ny * nz), nx - 1)
+        node = plane * ny * nz + j % (ny * nz)
+        out.append((np.bincount(node, minlength=nx * ny * nz),
+                    np.bincount(j, minlength=rows * ny * nz)))
+    assert Fm.FRUSTUM_THREADS == g.threads
+    return out
+
+
+@pytest.mark.parametrize("ctas_per_sm", [6, 3])  # 6: K10's on an H100 (38 registers)
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("case", sorted(FRUSTUM_GRID_SETS))
+def test_frustum_geometry_covers_every_node_once(case, sms, ctas_per_sm):
+    """At an H100's 132 SMs and at 16: one round of resident CTAs (the
+    cooperative launch's grid barrier needs them all resident), every
+    element of every distinct grid's mask written once, every node once
+    (more only where a slab layout repeats the last plane)."""
+    from nice_slam_torch.ops import frustum as Fm
+
+    grids = FRUSTUM_GRID_SETS[case]
+    sizes = [r * s[1] * s[2] for s, r in grids]
+    g = Fm.frustum_geometry(sizes, sms, ctas_per_sm)
+    assert g.items == sum(sizes) and 1 <= g.ctas <= sms * ctas_per_sm
+    assert g.ctas * g.threads * g.per_thread >= g.items
+    assert g.ctas * g.threads * (g.per_thread - 1) < g.items
+    for ((nx, ny, nz), rows), (nodes, elems) in zip(grids, _frustum_walk(g, grids)):
+        assert (elems == 1).all()
+        want = np.ones((nx, ny * nz), np.int64)
+        want[-1] += rows - nx
+        np.testing.assert_array_equal(nodes.reshape(nx, -1), want)
+    if case == "room" and sms == 132 and ctas_per_sm == 6:
+        assert (g.ctas, g.per_thread) == (782, 1)
+    if case == "apartment" and sms == 132 and ctas_per_sm == 6:
+        assert (g.ctas, g.per_thread) == (792, 3)
 
 
 def _jax_pixel_draws(key, n_iters, F, n):
