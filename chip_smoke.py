@@ -27,6 +27,17 @@ Phases, each printing one JSON line:
            gradient, moment and frustum mask) and the first frustum-mask
            call (the room's middle, fine and color grids, a 680x1200
            depth frame);
+  ba_capture  the same for bundle adjustment (BA): a 7-frame run of the
+           room with BA, a keyframe and a mapping event every frame (BA
+           engages at frame 5), records the BA cases' arguments: K3 and K5
+           of the middle, fine and color stages (48k points over 1, 2 and
+           3 grids, the points' gradient), K8 of the color stage (rays_d
+           requires a gradient; occupancy mode computes none), K9's
+           color-stage step (the camera leaf at BA_cam_lr) and middle-stage
+           step (at lr 0); the kernels phase times them as rows of their
+           own (``*_ba``, ``ba_cases`` in the kernels line), each under its
+           gate and bound, early in the process where the card's profiler
+           records every kernel of a window;
   kernels  K7 integrate_fwd and K8 integrate_bwd on the captured
            tracking, color-stage and coarse calls, on the render chunk's
            call (100k rays x 48 samples; seeded cotangents for K8) and on
@@ -108,6 +119,22 @@ Phases, each printing one JSON line:
            final mesh (resolution 128), the family median of each mesh's
            median | max(|x|,|y|,|z|) - 2 | over its vertices (the walls are
            at +-2 m) against 0.15 m;
+  ba       bundle adjustment (BA), the NICE default: the Replica-scale room
+           with BA for 30 frames (replica_ba_cfg; BA needs five keyframes,
+           so it engages at frames 25 and 29, the last in the final
+           refinement's 5 calls): every frame tracked; BA in exactly the
+           calls len(keyframes) > 4 gives and in no coarse call; K3 once
+           per tracking and BA mapping iteration, the other kernels the
+           slice's rule; each BA call writes back every valid window
+           keyframe but the oldest, leaves the others (the oldest too) bit
+           for bit and ends its frame at the refined pose; fps, tracking
+           ms/frame, mapping ms/event and ATE beside the slice's.  Then
+           the 30-frame box with BA for the
+           quality seeds under the quality phase's gates, beside its
+           BA-off median, and one loose BA draw (seed 42, a keyframe per
+           mapping event): every frame tracked, lag <= every + every // 2,
+           ATE <= 20 cm, BA engaged, the write-backs checked as in the
+           room;
   threaded the loose and then the free schedule on the slice's workload
            (the same 12 frames at full width, coarse mapper on): after a
            warm-up on the main thread the tracker, the mapper and the
@@ -260,6 +287,15 @@ Phases, each printing one JSON line:
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
+
+    python3 chip_smoke.py --tracked_tour
+
+builds, then runs only the 750-frame tracked tour with BA (QUALITY.json's
+tracked_tour knobs: the box, hash texture, 2000 tracking pixels, a full
+orbit) for the quality seeds, each draw a process of its own and all at
+once, and holds the medians to its gates: ATE <= 40 cm, completion ratio
+>= 25 %, depth L1 <= 3 cm.  It is left out of the default run for time
+(368 s for the five draws on an H100 80GB HBM3 at 700 W).
 """
 
 from __future__ import annotations
@@ -321,8 +357,32 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-# profiling windows retried because they did not record every kernel of the name
-PROFILER_RETRIES = {"windows": 0}
+# profiling windows retried because they did not record every kernel of the
+# name, and for each (``lost``) the kernel, its records and the iterations
+# (the L2 flushes, in order) that no record of it followed
+PROFILER_RETRIES = {"windows": 0, "lost": []}
+PROFILER_WINDOWS = 20  # windows tried per measurement before the run fails
+
+
+def lost_window(prof, match: str, records: int) -> dict:
+    """Which iterations of a window lost their ``match`` records: the CUDA
+    events in device order, each ``flush.sum()`` reduction opening an
+    iteration."""
+    import torch
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    followed = []
+    for e in events:
+        if match in e.name:
+            if followed:
+                followed[-1] = True
+        elif "reduce_kernel" in e.name:
+            followed.append(False)
+    return {"kernel": match, "records": records, "flushes": len(followed),
+            "events": len(events),
+            "iterations_without": [i for i, f in enumerate(followed) if not f]}
 
 
 def device_time_ms(fn, match: str, reps: int = 20, warmup: int = 3,
@@ -337,7 +397,10 @@ def device_time_ms(fn, match: str, reps: int = 20, warmup: int = 3,
     (seen on an H100), and one that records only some of them reads as a
     time below the bound; so a window is kept only if it holds exactly
     ``reps * per_call`` kernels of the name, each of positive duration,
-    and is retried up to 5 times, then the run fails."""
+    and is tried up to PROFILER_WINDOWS times, then the run fails.  The
+    card's profiler drops whole iterations' records (the flush's with the
+    kernel's) in stretches of windows: five in a row lost two iterations
+    each once, and one run lost 20 windows in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -346,7 +409,7 @@ def device_time_ms(fn, match: str, reps: int = 20, warmup: int = 3,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 flush.sum()
@@ -357,8 +420,10 @@ def device_time_ms(fn, match: str, reps: int = 20, warmup: int = 3,
         if len(us) == reps * per_call and min(us) > 0:
             return sum(us) / 1e3 / reps
         PROFILER_RETRIES["windows"] += 1
+        PROFILER_RETRIES["lost"].append(lost_window(prof, match, len(us)))
     raise RuntimeError(f"torch.profiler recorded {len(us)} {match} kernels, not "
-                       f"{reps * per_call}, in each of 5 windows")
+                       f"{reps * per_call}, in each of {PROFILER_WINDOWS} windows: "
+                       f"{PROFILER_RETRIES['lost'][-5:]}")
 
 
 def ray_points(n_rays: int, gen, device):
@@ -418,22 +483,18 @@ def phase_capture(dev):
         return dgrid_multi(p, gs, shapes)
 
     def rec_dp(grids, p, gs):
-        seen["track"] = dict(keep(p, gs), grids=[g.detach().clone() for g in grids])
+        if k7_k10["state"]["label"] == "track":  # BA is off: no other K3 call
+            seen["track"] = dict(keep(p, gs), grids=[g.detach().clone() for g in grids])
         return dp_multi(grids, p, gs)
 
     dec_bwd = DS.decoder_bwd
     dec_seen = {}
 
-    def rec_dec(p, feats, weights, decs, g, need_p, need_f, need_w):
-        label = dec_case_of(decs, need_p, need_w)
-        if label and label not in dec_seen:
-            dec_seen[label] = {
-                "p": p.detach().clone(), "feats": [f.detach().clone() for f in feats],
-                "weights": [w.detach().clone() for w in weights], "decs": decs,
-                "g": g.detach().clone(), "need_p": bool(need_p),
-                "need_f": tuple(bool(x) for x in need_f),
-                "need_w": tuple(bool(x) for x in need_w)}
-        return dec_bwd(p, feats, weights, decs, g, need_p, need_f, need_w)
+    def rec_dec(*args):
+        label = dec_case_of(k7_k10["state"]["label"], args[5])
+        if label in DEC_CASES and label not in dec_seen:
+            dec_seen[label] = dec_bwd_case(*args)
+        return dec_bwd(*args)
 
     interp.trilinear_bwd_dgrid_multi = rec_dgrid
     interp.trilinear_bwd_dp_multi = rec_dp
@@ -709,27 +770,35 @@ def kernel_rows(label, grids, p, gs):
     itself must move, each once: the points, the cotangents or features,
     the grid rows the points touch (K1, K3 read them; K2 reads and writes
     them) and dp."""
+    pts_b, gather_b, feat_b, _, _, lib_fwd, timed, held = case_tools(label, grids, p)
+    return [k1_row(label, grids, p, gather_b + pts_b + feat_b, timed, held, lib_fwd),
+            k2_row(label, grids, p, gs), k3_row(label, grids, p, gs)]
+
+
+def k3_row(label, grids, p, gs):
+    """K3 over the grids of one case, one launch: error against its plain
+    version (1e-4 of the plain gradient's largest entry) and its times.
+    Bytes: the touched grid rows, the points and the cotangents read, dp
+    written."""
     from nice_slam_torch.ops import interp
 
-    n = p.shape[0]
-    C = grids[0].shape[3]
-    pts_b, gather_b, feat_b, lib, lib_pts, lib_fwd, timed, held = case_tools(
-        label, grids, p)
-    rows = [k1_row(label, grids, p, gather_b + pts_b + feat_b, timed, held, lib_fwd),
-            k2_row(label, grids, p, gs)]
-    # K3
+    n, C = p.shape[0], grids[0].shape[3]
+    pts_b, gather_b, feat_b, lib, lib_pts, _, timed, held = case_tools(label, grids, p)
+    before = interp.launch_counts["trilinear_bwd_dp"]
     dp = interp.trilinear_bwd_dp_multi(grids, p, gs)
+    if interp.launch_counts["trilinear_bwd_dp"] != before + 1:
+        raise AssertionError(f"K3 {label}: the point gradient over {len(grids)} grids "
+                             "was not one launch")
     ref = sum(interp.trilinear_bwd_dp_plain(gr, p, g) for gr, g in zip(grids, gs))
     err = float((dp - ref).abs().max())
-    rows.append(dict(held("trilinear_bwd_dp", err, 1e-4 * float(ref.abs().max())),
-                     bytes=gather_b + pts_b + feat_b + pts_b,
-                     flops=n * 8 * C * 2 * len(grids),
-                     **timed(lambda: interp.trilinear_bwd_dp_multi(grids, p, gs),
-                             lambda: sum(interp.trilinear_bwd_dp_plain(gr, p, g)
-                                         for gr, g in zip(grids, gs)),
-                             lib_bwd(lib, lib_pts, gs, [False, True]), "grid_sampler_3d",
-                             "trilinear_bwd_dp")))
-    return rows
+    return dict(held("trilinear_bwd_dp", err, 1e-4 * float(ref.abs().max())),
+                bytes=gather_b + pts_b + feat_b + pts_b,
+                flops=n * 8 * C * 2 * len(grids),
+                **timed(lambda: interp.trilinear_bwd_dp_multi(grids, p, gs),
+                        lambda: sum(interp.trilinear_bwd_dp_plain(gr, p, g)
+                                    for gr, g in zip(grids, gs)),
+                        lib_bwd(lib, lib_pts, gs, [False, True]), "grid_sampler_3d",
+                        "trilinear_bwd_dp"))
 
 
 def with_bounds(rows):
@@ -873,13 +942,26 @@ def device_total_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return sum(us) / 1e3 / reps
 
 
-def dec_case_of(decs, need_p, need_w):
-    """The main-path row a decoder-stage backward belongs to."""
-    if len(decs) == 3:
-        return "map_color" if any(need_w) else ("track" if need_p else None)
-    if len(decs) == 2:
-        return "map_fine"
-    return "map_middle" if decs[0].emb else "map_coarse"
+def dec_case_of(label, need_p):
+    """The main-path row a decoder-stage backward belongs to: the label of
+    the loss that made it (``k7_k10_captures``: ``track`` or
+    ``map_<stage>``, ``_ba`` under bundle adjustment, where a mapping
+    stage needs the points' gradient), or None outside a loss."""
+    if label is not None and label.startswith("map_") and need_p \
+            and not label.endswith("_ba"):
+        raise AssertionError(f"a {label} backward needs the points' gradient, "
+                             "but its call trains no window pose")
+    return label
+
+
+def dec_bwd_case(p, feats, weights, decs, g, need_p, need_f, need_w) -> dict:
+    """A copy of one decoder_bwd call's arguments, as ``decoder_rows``
+    takes them."""
+    return {"p": p.detach().clone(), "feats": [f.detach().clone() for f in feats],
+            "weights": [w.detach().clone() for w in weights], "decs": decs,
+            "g": g.detach().clone(), "need_p": bool(need_p),
+            "need_f": tuple(bool(x) for x in need_f),
+            "need_w": tuple(bool(x) for x in need_w)}
 
 
 def dec_work(c, decs, need_p, need_f, need_w):
@@ -1157,13 +1239,16 @@ K9_EPS = 2.0     # K9 against the plain step, in float32 epsilons of each value'
 K10_SHARE = 1e-4  # of the nodes, those whose mask may differ (within rounding of a test)
 
 
-def k7_k10_captures():
+def k7_k10_captures(k78_cases=None, k9_cases=None):
     """Record K7-K10's arguments on the capture run: the integrator's
     forward and its cotangents per case (the label of the loss that
-    called it: tracking, or a mapping stage), the first Adam step of the
-    tracker and of the color stage (clones of every leaf, gradient,
-    moment and mask), and the first frustum-mask call.  Returns the record
-    and a function that undoes the hooks."""
+    called it: ``track``, or ``map_<stage>``, with ``_ba`` where the call
+    trains the window poses) for the labels ``k78_cases`` (K78_CASES),
+    the first Adam step of each label of ``k9_cases`` (K9_CASES: the
+    tracker's and the color stage's; clones of every leaf, gradient,
+    moment and mask), and the first frustum-mask call.  ``rec["state"]``
+    holds the label of the loss running now.  Returns the record and a
+    function that undoes the hooks."""
     import inspect
 
     import torch
@@ -1173,8 +1258,10 @@ def k7_k10_captures():
     from nice_slam_torch.slam import optim as O
     from nice_slam_torch.slam import tracker as T
 
-    rec = {"integrate": {}, "adam": {}, "frustum": None}
+    k78_cases = K78_CASES if k78_cases is None else k78_cases
+    k9_cases = K9_CASES if k9_cases is None else k9_cases
     state = {"label": None, "pending": None}
+    rec = {"integrate": {}, "adam": {}, "frustum": None, "state": state}
     saved = {(I, "integrate_fwd"): I.integrate_fwd, (I, "integrate_bwd"): I.integrate_bwd,
              (O, "group_adam"): O.group_adam, (M, "frustum_masks"): M.frustum_masks,
              (T, "tracking_loss_sampled"): T.tracking_loss_sampled,
@@ -1189,14 +1276,17 @@ def k7_k10_captures():
         return saved[(T, "tracking_loss_sampled")](*a, **k)
 
     def map_loss(*a, **k):
-        state["label"] = "map_" + map_sig.bind(*a, **k).arguments["stage"]
+        b = map_sig.bind(*a, **k).arguments
+        # a BA call trains the window poses: its cases have labels of their own
+        state["label"] = "map_" + b["stage"] + ("_ba" if "cams" in b["groups"] else "")
         return saved[(M, "mapping_loss")](*a, **k)
 
     def fwd(raw, z, rays_d, occupancy=False):
         label = state["label"]
-        if label in K78_CASES and label not in rec["integrate"]:
+        if label in k78_cases and label not in rec["integrate"]:
             rec["integrate"][label] = {"raw": clone(raw), "z": clone(z),
-                                       "rays_d": clone(rays_d), "occ": bool(occupancy)}
+                                       "rays_d": clone(rays_d), "occ": bool(occupancy),
+                                       "rays_d_requires_grad": bool(rays_d.requires_grad)}
             state["pending"] = label
         return saved[(I, "integrate_fwd")](raw, z, rays_d, occupancy)
 
@@ -1211,7 +1301,7 @@ def k7_k10_captures():
 
     def adam(leaves):
         label = state["label"]
-        if label in K9_CASES and label not in rec["adam"]:
+        if label in k9_cases and label not in rec["adam"]:
             rec["adam"][label] = [tuple(clone(x) for x in leaf) for leaf in leaves]
         return saved[(O, "group_adam")](leaves)
 
@@ -1331,6 +1421,9 @@ def k7_k8_rows(label, c, dev, kernels=("integrate_fwd", "integrate_bwd")):
         if geometry["local_bytes"]:
             raise AssertionError(f"{kernel}: {geometry['local_bytes']} bytes of local memory")
         rows.append(dict(case=label, kernel=kernel, n=n, samples=s, occupancy=occ,
+                         rays_d_grad=bool(need) if kernel == "integrate_bwd" else None,
+                         **({"rays_d_requires_grad": c["rays_d_requires_grad"]}
+                            if "rays_d_requires_grad" in c else {}),
                          max_abs_err=err, rel_err=rel, tol=tol,
                          rel_err_f64=f64[kernel][0], plain_rel_err_f64=f64[kernel][1],
                          bytes=bytes_, flops=n * s * (20 if kernel == "integrate_fwd" else 40),
@@ -1488,7 +1581,10 @@ def phase_kernels(dev, cases, lookups):
     gen = torch.Generator().manual_seed(0)
     rows = []
     dec_cases = cases.pop("decoder")
+    ba_cases = cases.pop("ba")
     rows += k7_k10_all_rows(cases.pop("k7_k10"), dev)
+    rows += ba_kernel_rows(ba_cases, dev)
+    del ba_cases
     for label in DEC_CASES:
         rows += decoder_rows(label, dec_cases[label])
     for label, shape, n_rays in RANDOM_CASES:
@@ -1510,6 +1606,7 @@ def phase_kernels(dev, cases, lookups):
     with_bounds(rows)
     emit({"phase": "kernels", "ok": True, "rows": rows,
           "profiler_retries": PROFILER_RETRIES["windows"],
+          "profiler_lost": PROFILER_RETRIES["lost"],
           "stack_max_abs_err": stack_check(dev)})
     return rows
 
@@ -1572,9 +1669,65 @@ def mesh_stats(path):
     return verts, faces
 
 
-def phase_slice(dev):
+def loop_launch_checks(slam, counts, calls, out, track_iters, map_iters, k3_want):
+    """The launch rule of a strict loop on one card (the slice's, and the
+    BA room's), checked on its counts: one lookup Function per decoder
+    stage, so one K1 per iteration, one K3 per iteration whose points need
+    a gradient (``k3_want``: tracking, and mapping under BA), one K2 per
+    mapping iteration; meshing adds K1 only; K4 once per K1, K5 once per
+    iteration, K6 once per iteration and decoder that trains; K7, K8 and
+    K9 once per iteration, K10 once per frustum-selecting main-mapper call.
+    Also checks the final meshes and checkpoint.  Returns (meshes, mesher
+    K1 launches, K6 launches, frustum calls)."""
     import math
 
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # the meshes: final_mesh.ply (copied to its frame's name) and the
+    # eval_rec variant; each is one K1 per lattice chunk and one per
+    # vertex-colour chunk of points_batch_size points
+    mesh_dir = os.path.join(out, "mesh")
+    chunk = slam.rcfg.points_batch_size
+    lattice = slam.mesher.resolution ** 3
+    meshes, mesh_chunks = [], 0
+    for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
+        verts, faces = mesh_stats(os.path.join(mesh_dir, name))
+        rec = next(m for m in slam.meshes if m["path"].endswith(name))
+        mesh_chunks += math.ceil(lattice / chunk) + math.ceil(len(verts) / chunk)
+        meshes.append({"mesh": name, "vertices": len(verts), "faces": len(faces),
+                       "seconds": rec["seconds"],
+                       "steps_s": {k: v for k, v in rec.items() if k.endswith("_s")}})
+    ckpt = os.path.join(out, "ckpts", f"{slam.n_img - 1:05d}.tar")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"no final checkpoint at {ckpt}")
+    if counts["trilinear_fwd"] != track_iters + map_iters + mesh_chunks:
+        raise AssertionError(f"K1 launched {counts['trilinear_fwd']} times for "
+                             f"{track_iters} tracking + {map_iters} mapping iterations "
+                             f"+ {mesh_chunks} mesher chunks")
+    if counts["trilinear_bwd_dp"] != k3_want:
+        raise AssertionError(f"K3 launched {counts['trilinear_bwd_dp']} times for "
+                             f"{k3_want} iterations whose points need a gradient "
+                             f"({track_iters} tracking)")
+    if counts["trilinear_bwd_dgrid"] != map_iters:
+        raise AssertionError(f"K2 launched {counts['trilinear_bwd_dgrid']} times "
+                             f"for {map_iters} mapping iterations")
+    k6 = sum(c[4] for c in calls)
+    if (counts["decoder_fwd"], counts["decoder_bwd"], counts["decoder_wgrad_sum"]) != \
+            (counts["trilinear_fwd"], track_iters + map_iters, k6):
+        raise AssertionError(f"K4-K6 launched {counts} for {counts['trilinear_fwd']} "
+                             f"lookups, {track_iters + map_iters} iterations and {k6} "
+                             "training decoder-iterations")
+    frustum = sum(c[5] for c in calls)
+    want = k7_k10_want(track_iters + map_iters, frustum)
+    if {k: counts[k] for k in K7_K10} != want:
+        raise AssertionError(f"K7-K10 launched {counts}, expected {want} for "
+                             f"{track_iters + map_iters} iterations and {frustum} "
+                             "frustum-selecting mapping calls")
+    return meshes, mesh_chunks, k6, frustum
+
+
+def phase_slice(dev):
     import torch
 
     from nice_slam_torch.slam.slam import NiceSLAM
@@ -1601,58 +1754,13 @@ def phase_slice(dev):
     est = slam.estimate_c2w_list.cpu().numpy()
     if not torch.isfinite(slam.estimate_c2w_list).all():
         raise AssertionError("non-finite poses in the slice run")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     t = slam.timings
     track_iters = t["tracked_frames"] * slam.tcfg.iters
     map_iters = iters["mapping"] + iters["coarse_mapping"]
-    # the meshes: final_mesh.ply (copied to its frame's name) and the
-    # eval_rec variant; each is one K1 per lattice chunk and one per
-    # vertex-colour chunk of points_batch_size points
-    mesh_dir = os.path.join(out, "mesh")
-    chunk = slam.rcfg.points_batch_size
-    lattice = slam.mesher.resolution ** 3
-    meshes, mesh_chunks = [], 0
-    for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
-        verts, faces = mesh_stats(os.path.join(mesh_dir, name))
-        rec = next(m for m in slam.meshes if m["path"].endswith(name))
-        mesh_chunks += math.ceil(lattice / chunk) + math.ceil(len(verts) / chunk)
-        meshes.append({"mesh": name, "vertices": len(verts), "faces": len(faces),
-                       "seconds": rec["seconds"],
-                       "steps_s": {k: v for k, v in rec.items() if k.endswith("_s")}})
+    # BA off: mapping never needs the points' gradient
+    meshes, mesh_chunks, k6, frustum = loop_launch_checks(
+        slam, counts, calls, out, track_iters, map_iters, track_iters)
     ckpt = os.path.join(out, "ckpts", f"{slam.n_img - 1:05d}.tar")
-    if not os.path.exists(ckpt):
-        raise AssertionError(f"no final checkpoint at {ckpt}")
-    # one lookup Function per decoder stage: one K1 per iteration, one K3
-    # per tracking iteration (BA off: mapping never needs the points'
-    # gradient), one K2 per mapping iteration; meshing adds K1 only
-    if counts["trilinear_fwd"] != track_iters + map_iters + mesh_chunks:
-        raise AssertionError(f"K1 launched {counts['trilinear_fwd']} times for "
-                             f"{track_iters} tracking + {map_iters} mapping iterations "
-                             f"+ {mesh_chunks} mesher chunks")
-    if counts["trilinear_bwd_dp"] != track_iters:
-        raise AssertionError(f"K3 launched {counts['trilinear_bwd_dp']} times "
-                             f"for {track_iters} tracking iterations")
-    if counts["trilinear_bwd_dgrid"] != map_iters:
-        raise AssertionError(f"K2 launched {counts['trilinear_bwd_dgrid']} times "
-                             f"for {map_iters} mapping iterations")
-    # the decoder stage: one K4 per lookup Function, one K5 per iteration,
-    # one K6 per iteration and decoder that trains
-    k6 = sum(c[4] for c in calls)
-    if (counts["decoder_fwd"], counts["decoder_bwd"], counts["decoder_wgrad_sum"]) != \
-            (counts["trilinear_fwd"], track_iters + map_iters, k6):
-        raise AssertionError(f"K4-K6 launched {counts} for {counts['trilinear_fwd']} "
-                             f"lookups, {track_iters + map_iters} iterations and {k6} "
-                             "training decoder-iterations")
-    # the integrator, the Adam step and the frustum mask: K7, K8 and K9 once
-    # per iteration, K10's two kernels once per main-mapper call
-    frustum = sum(c[5] for c in calls)
-    want = k7_k10_want(track_iters + map_iters, frustum)
-    if {k: counts[k] for k in K7_K10} != want:
-        raise AssertionError(f"K7-K10 launched {counts}, expected {want} for "
-                             f"{track_iters + map_iters} iterations and {frustum} "
-                             "frustum-selecting mapping calls")
     grids = {k: list(v.shape) for k, v in slam.state.grids.items()}
     record = {"phase": "slice", "ok": True, "frames": slam.n_img,
           "H": slam.H, "W": slam.W, "grids": grids,
@@ -1796,26 +1904,23 @@ data: {{n_frames: 3, output: {out}/run}}
           "kernel_events": found, "seconds": time.perf_counter() - t0})
 
 
-def phase_quality(dev):
-    """The 30-frame tracked box run over a family of pixel seeds
-    (``cfg["seed"]`` feeds the tracker's pixel draws).  One draw is too
-    noisy to gate: K2 sums with atomics in a run-dependent order and 30
-    frames of tracking amplify the last ulps (single draws spread
-    1.84-12.67 cm on one H100 and exceeded 9.5 cm about once in 15).  So
-    the median of the family
-    is gated at ATE_GATE_CM and every draw at ATE_DIVERGED_CM, which only a
-    diverged run exceeds."""
+def box_family(dev, label, ba=False):
+    """The 30-frame tracked box run (``box_quality_cfg``, BA on where
+    ``ba``) for each of QUALITY_SEEDS (``cfg["seed"]`` feeds the
+    tracker's pixel draws), each draw's ATE and final mesh: the record of
+    the draws, the family's medians, and whether the strict family's gates
+    hold (median ATE <= ATE_GATE_CM, every draw <= ATE_DIVERGED_CM, median
+    wall distance <= BOX_MESH_GATE_M)."""
     import numpy as np
 
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import box_quality_cfg
 
-    t0 = time.perf_counter()
     draws = []
     for seed in QUALITY_SEEDS:
-        out = os.path.join(HERE, "output", "chip_smoke", f"quality_s{seed}")
-        cfg = box_quality_cfg(out)
+        out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
+        cfg = box_quality_cfg(out, ba=ba)
         cfg["seed"] = seed
         slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
         slam.run()
@@ -1830,18 +1935,37 @@ def phase_quality(dev):
     wall_median = float(np.median(walls))
     ok = (median <= ATE_GATE_CM and max(ates) <= ATE_DIVERGED_CM
           and wall_median <= BOX_MESH_GATE_M)
-    emit({"phase": "quality", "ok": ok, "frames": 30, "draws": draws,
-          "median_ate_cm": median, "gate_cm": ATE_GATE_CM,
-          "draw_gate_cm": ATE_DIVERGED_CM,
-          "within_jax_median_gate": median <= JAX_MEDIAN_GATE_CM,
-          "median_mesh_wall_m": wall_median, "mesh_gate_m": BOX_MESH_GATE_M,
-          "seconds": time.perf_counter() - t0})
+    record = {"frames": 30, "draws": draws, "median_ate_cm": median,
+              "gate_cm": ATE_GATE_CM, "draw_gate_cm": ATE_DIVERGED_CM,
+              "within_jax_median_gate": median <= JAX_MEDIAN_GATE_CM,
+              "median_mesh_wall_m": wall_median, "mesh_gate_m": BOX_MESH_GATE_M}
+    return record, ok
+
+
+def strict_family_failure(label, rec) -> AssertionError:
+    ates = [d["ate_rmse_cm"] for d in rec["draws"]]
+    walls = [d["mesh_wall_m"] for d in rec["draws"]]
+    return AssertionError(f"{label}: tracked ATE over seeds {QUALITY_SEEDS}: {ates} cm; "
+                          f"median {rec['median_ate_cm']:.3f} (gate {ATE_GATE_CM}), worst "
+                          f"draw gate {ATE_DIVERGED_CM}; box mesh wall distance {walls} m, "
+                          f"median {rec['median_mesh_wall_m']:.4f} (gate {BOX_MESH_GATE_M})")
+
+
+def phase_quality(dev):
+    """The 30-frame tracked box run over a family of pixel seeds
+    (``box_family``).  One draw is too
+    noisy to gate: K2 sums with atomics in a run-dependent order and 30
+    frames of tracking amplify the last ulps (single draws spread
+    1.84-12.67 cm on one H100 and exceeded 9.5 cm about once in 15).  So
+    the median of the family
+    is gated at ATE_GATE_CM and every draw at ATE_DIVERGED_CM, which only a
+    diverged run exceeds."""
+    t0 = time.perf_counter()
+    rec, ok = box_family(dev, "quality")
+    emit({"phase": "quality", "ok": ok, **rec, "seconds": time.perf_counter() - t0})
     if not ok:
-        raise AssertionError(f"tracked ATE over seeds {QUALITY_SEEDS}: {ates} cm; median "
-                             f"{median:.3f} (gate {ATE_GATE_CM}), worst draw gate "
-                             f"{ATE_DIVERGED_CM}; box mesh wall distance {walls} m, "
-                             f"median {wall_median:.4f} (gate {BOX_MESH_GATE_M})")
-    return median
+        raise strict_family_failure("quality", rec)
+    return rec["median_ate_cm"]
 
 
 def box_wall_distance(verts) -> float:
@@ -1850,6 +1974,375 @@ def box_wall_distance(verts) -> float:
     import numpy as np
 
     return float(np.median(np.abs(np.abs(verts).max(axis=1) - 2.0)))
+
+
+BA_FRAMES = 30               # the BA room: five keyframes (0-20) first at frame 25
+BA_EVENTS = [25] + [29] * 5  # its BA calls: frame 25, and the last frame's refinement
+BA_K3_CASES = ("map_middle_ba", "map_fine_ba", "map_color_ba")  # 1, 2 and 3 grids
+BA_K9_CASES = ("map_color_ba", "map_middle_ba")  # the camera leaf at BA_cam_lr, at lr 0
+BA_LOOSE_SEED = 42
+
+
+@contextlib.contextmanager
+def ba_recorder(slam):
+    """Record each optimize_map call of ``slam``'s mappers: frame, coarse,
+    BA, keyframes in the store, the overlap window's positions and their
+    validity (``prepare_window``'s), the keyframe poses before and after
+    the call, the poses written back (position, pose) and the refined
+    current pose; and each main mapping event's wall (``map_one`` ends in a
+    synchronize).  Yields the record."""
+    from nice_slam_torch.slam import mapper as M
+
+    rec = {"calls": [], "events": []}
+    windows = []
+    inner_window = M.prepare_window
+
+    def prepare_window(*a, **k):
+        out = inner_window(*a, **k)
+        windows.append((out[6].clone(), out[5][:-1].clone()))  # read after the run
+        return out
+
+    def watch(mapper, coarse):
+        inner = mapper.optimize_map
+
+        def wrapped(state, iters, lr_factor, color, depth, keyframes, cur_c2w, BA, **k):
+            n_kf = len(keyframes)
+            arrays = keyframes.arrays
+            before = arrays.est_c2w[:n_kf].clone()
+            seen, writes = len(windows), []
+            if BA:
+                set_inner = keyframes.set_est_c2w
+                keyframes.set_est_c2w = lambda pos, c2w: (
+                    writes.append((int(pos), c2w.clone())), set_inner(pos, c2w))[1]
+            try:
+                out = inner(state, iters, lr_factor, color, depth, keyframes, cur_c2w, BA,
+                            **k)
+            finally:
+                if BA:
+                    del keyframes.set_est_c2w
+            rec["calls"].append({
+                "idx": k.get("idx"), "coarse": coarse, "BA": bool(BA), "n_kf": n_kf,
+                "iters": int(out[2].shape[0]),
+                "window": windows[-1] if len(windows) > seen else None,
+                "before": before, "after": keyframes.arrays.est_c2w[:n_kf].clone(),
+                "writes": writes, "cur": None if out[1] is None else out[1].clone()})
+            return out
+
+        mapper.optimize_map = wrapped
+
+    inner_map = slam.map_one
+
+    def map_one(idx, *a, **k):
+        t0 = time.perf_counter()
+        n = len(rec["calls"])
+        out = inner_map(idx, *a, **k)
+        calls = rec["calls"][n:]
+        rec["events"].append({"idx": idx, "coarse": bool(k.get("coarse", False)),
+                              "ba": any(c["BA"] for c in calls),
+                              "ms": 1e3 * (time.perf_counter() - t0)})
+        return out
+
+    watch(slam.mapper, False)
+    if slam.coarse_mapper is not None:
+        watch(slam.coarse_mapper, True)
+    slam.map_one = map_one
+    M.prepare_window = prepare_window
+    try:
+        yield rec
+    finally:
+        M.prepare_window = inner_window
+
+
+def check_ba_calls(rec, final_poses, tag):
+    """BA's rule on the recorded calls (``ba_recorder``): BA in exactly the
+    main-mapper calls made with more than four keyframes in the store and
+    in no coarse call; each BA call writes back every valid window keyframe
+    but the oldest, once, leaves every other keyframe's pose (the
+    oldest's included) equal bit for bit, and returns a refined current
+    pose, which is the pose the run ends with for that frame.  Returns the
+    frames of the BA calls."""
+    import torch
+
+    calls = rec["calls"]
+    bad = [(c["idx"], c["n_kf"], c["BA"]) for c in calls
+           if c["BA"] != (not c["coarse"] and c["n_kf"] > 4)]
+    if bad:
+        raise AssertionError(f"{tag}: BA engaged against the rule len(keyframes) > 4 "
+                             f"(frame, keyframes, BA): {bad}")
+    last = {}
+    for c in calls:
+        if not c["BA"]:
+            if c["writes"] or not torch.equal(c["before"], c["after"]):
+                raise AssertionError(f"{tag}: a call without BA at frame {c['idx']} "
+                                     "changed a keyframe pose")
+            continue
+        window = None
+        if c["window"] is not None:
+            positions, valid = (x.tolist() for x in c["window"])
+            window = sorted(p for p, v in zip(positions, valid) if v)
+        if not window or window[-1] != c["n_kf"] - 1:
+            raise AssertionError(f"{tag}: frame {c['idx']}: window {window} lacks the "
+                                 f"last keyframe {c['n_kf'] - 1}")
+        written = sorted(pos for pos, _ in c["writes"])
+        if written != window[1:]:
+            raise AssertionError(f"{tag}: frame {c['idx']}: wrote back {written}, not the "
+                                 f"window {window} but its oldest")
+        want = c["before"].clone()
+        for pos, pose in c["writes"]:
+            want[pos] = pose
+        if not torch.equal(c["after"], want):
+            raise AssertionError(f"{tag}: frame {c['idx']}: the store's poses after the "
+                                 "call are not those before it with the written ones")
+        if c["cur"] is None:
+            raise AssertionError(f"{tag}: frame {c['idx']}: no refined current pose")
+        last[c["idx"]] = c["cur"]
+    for idx, pose in last.items():
+        if not torch.equal(final_poses[idx], pose):
+            raise AssertionError(f"{tag}: frame {idx} does not end at its refined pose")
+    return [c["idx"] for c in calls if c["BA"]]
+
+
+def ba_capture(dev):
+    """The BA cases' kernel arguments, as a BA mapping call hands them to
+    the kernels: K3 and K5 of each stage, K8 of the color stage, K9's
+    color-stage and lr-0 camera steps (the first of each).  From a
+    7-frame run of the BA room with a keyframe and a mapping event every
+    frame, so BA engages at frame 5 in a call with all three stages (frame
+    6, the last, is the color-only refinement); the shapes are the room's
+    (1000 rays x 48 samples a mapping iteration).  Run early in the
+    process: the card's profiler records fewer of a window's kernels the
+    later it runs (PERF.md §7), and the kernels phase times these cases."""
+    from nice_slam_torch.ops import decoder_stage as DS
+    from nice_slam_torch.ops import interp
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.workloads import replica_ba_cfg
+
+    t0 = time.perf_counter()
+    cfg = replica_ba_cfg(os.path.join(HERE, "output", "chip_smoke", "ba_capture"),
+                         n_frames=7, iters_first=CAPTURE_ITERS_FIRST)
+    cfg.pop("meshing")
+    cfg["mapping"].update(every_frame=1, keyframe_every=1)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+    cap, restore = k7_k10_captures(("map_color_ba",), BA_K9_CASES)
+    label = cap["state"]
+    k3_seen, dec_seen = {}, {}
+    dp_multi, dec_bwd = interp.trilinear_bwd_dp_multi, DS.decoder_bwd
+
+    def rec_dp(grids, p, gs):
+        if label["label"] in BA_K3_CASES and label["label"] not in k3_seen:
+            k3_seen[label["label"]] = {"grids": [g.detach().clone() for g in grids],
+                                       "p": p.detach().clone(),
+                                       "gs": [g.detach().clone() for g in gs]}
+        return dp_multi(grids, p, gs)
+
+    def rec_dec(*args):
+        case = dec_case_of(label["label"], args[5])
+        if case in BA_K3_CASES and case not in dec_seen:
+            dec_seen[case] = dec_bwd_case(*args)
+        return dec_bwd(*args)
+
+    interp.trilinear_bwd_dp_multi, DS.decoder_bwd = rec_dp, rec_dec
+    try:
+        slam.run()
+    finally:
+        interp.trilinear_bwd_dp_multi, DS.decoder_bwd = dp_multi, dec_bwd
+        restore()
+    missing = [f"K3/K5 {k}" for k in BA_K3_CASES if k not in k3_seen or k not in dec_seen]
+    missing += [f"K8 {k}" for k in ("map_color_ba",)
+                if "g_depth" not in cap["integrate"].get(k, {})]
+    missing += [f"K9 {k}" for k in BA_K9_CASES if k not in cap["adam"]]
+    if missing:
+        raise AssertionError(f"BA capture: no BA call captured for {missing}")
+    emit({"phase": "ba_capture", "ok": True, "seconds": time.perf_counter() - t0,
+          "cases": {k: {"n": v["p"].shape[0], "grids": len(v["grids"])}
+                    for k, v in k3_seen.items()},
+          "decoder_cases": {k: {"decoders": len(v["decs"]), "need_p": v["need_p"],
+                                "need_w": v["need_w"]} for k, v in dec_seen.items()}})
+    return {"k3": k3_seen, "decoder": dec_seen, "k7_k10": cap}
+
+
+def ba_room(dev):
+    """The BA room run (``replica_ba_cfg``, 30 frames) with its launches
+    and BA's calls recorded and checked; returns the record and the
+    counts."""
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import replica_ba_cfg
+
+    out = os.path.join(HERE, "output", "chip_smoke", "ba_room")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_ba_cfg(out, n_frames=BA_FRAMES, iters_first=SLICE_ITERS_FIRST)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+    for i in range(slam.n_img):  # frame synthesis is not part of the timing
+        slam.frame_reader[i]
+    iters = {"mapping": 0, "coarse_mapping": 0}
+    count_iterations(slam.mapper, iters, "mapping")
+    count_iterations(slam.coarse_mapper, iters, "coarse_mapping")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    calls = []
+    with recorded_core(calls), ba_recorder(slam) as ba:
+        slam.run()
+    counts = all_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n, t = slam.n_img, slam.timings
+    if not torch.isfinite(slam.estimate_c2w_list).all() or t["tracked_frames"] != n - 1:
+        raise AssertionError(f"BA room: tracked {t['tracked_frames']} of {n - 1} frames, "
+                             "or a pose is not finite")
+    ba_frames = check_ba_calls(ba, slam.estimate_c2w_list, "BA room")
+    if ba_frames != BA_EVENTS:
+        raise AssertionError(f"BA room: BA calls at frames {ba_frames}, not {BA_EVENTS}")
+    track_iters = t["tracked_frames"] * slam.tcfg.iters
+    map_iters = iters["mapping"] + iters["coarse_mapping"]
+    ba_iters = sum(c["iters"] for c in ba["calls"] if c["BA"])
+    # K3 once per iteration whose points need a gradient: every tracking
+    # iteration and every BA mapping iteration, each stage's
+    meshes, mesh_chunks, k6, frustum = loop_launch_checks(
+        slam, counts, calls, out, track_iters, map_iters, track_iters + ba_iters)
+    events = [e for e in ba["events"] if not e["coarse"]]
+    regular = [e for e in events if 0 < e["idx"] < n - 1]  # not the first, not the refinement
+    est = slam.estimate_c2w_list.cpu().numpy()
+    return {
+        "frames": n, "H": slam.H, "W": slam.W, "iters_first": SLICE_ITERS_FIRST,
+        "grids": {k: list(v.shape) for k, v in slam.state.grids.items()},
+        "fps": t.get("fps"), "total_s": t["total_s"], "meshing_s": t["meshing_s"],
+        "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+        "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+        "coarse_mapping_ms_per_event": t.get("coarse_mapping_ms_per_event"),
+        "mapping_ms_per_event_ba": [e["ms"] for e in regular if e["ba"]],
+        "mapping_ms_per_event_without_ba": [e["ms"] for e in regular if not e["ba"]],
+        "refinement_ms": [e["ms"] for e in events if e["idx"] == n - 1],
+        "ate_cm": 100 * ate_rmse(est, slam.gt_c2w_list),
+        "ba_calls": ba_frames, "ba_iterations": ba_iters, "tracking_iters": track_iters,
+        "mapping_iters": iters, "launches": counts, "k6_launches": k6,
+        "frustum_calls": frustum, "mesher_k1_launches": mesh_chunks, "meshes": meshes,
+        "peak_mem_gib": peak_gib,
+        "write_backs": sum(len(c["writes"]) for c in ba["calls"])}, counts
+
+
+def ba_kernel_rows(cases, dev):
+    """The BA cases' kernel rows: K3 over the middle stage's one grid, the
+    fine stage's two and the color stage's three (48k points); K4, K5 and
+    K6 on each stage's decoder call with the points' gradient; K8 on the
+    color stage's integrator call; K9 on the color stage's step (the
+    camera leaf at BA_cam_lr) and the middle stage's (at lr 0); each
+    against its plain version under its gate, with its bound."""
+    rows = []
+    for label in BA_K3_CASES:
+        c = cases["k3"][label]
+        rows.append(k3_row(label, c["grids"], c["p"], c["gs"]))
+    for label in BA_K3_CASES:
+        rows += decoder_rows(label, cases["decoder"][label])
+    cap = cases["k7_k10"]
+    rows += k7_k8_rows("map_color_ba", cap["integrate"]["map_color_ba"], dev,
+                       kernels=("integrate_bwd",))
+    for label in BA_K9_CASES:
+        leaves = cap["adam"][label]
+        cams = [x for x in leaves if tuple(x[0].shape[1:]) == (7,)]
+        if len(cams) != 1:
+            raise AssertionError(f"K9 {label}: {len(cams)} camera leaves in the step")
+        row = k9_row(label, leaves, dev)[0]
+        lr = cams[0][7]
+        row["camera_lr"] = float(lr)
+        row["camera_rows"] = int(cams[0][0].shape[0])
+        rows.append(row)
+    return rows
+
+
+def ba_loose_draw(dev):
+    """The box run with BA under loose (seed BA_LOOSE_SEED, a keyframe per
+    mapping event): every frame tracked, the last mapped, the loose lag,
+    the ATE, BA's rule and
+    write-backs (``check_ba_calls``: every pose the mapper refines is the
+    one the run ends with, though the tracker writes the pose list
+    concurrently)."""
+    import threading
+
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import box_quality_cfg
+
+    out = os.path.join(HERE, "output", "chip_smoke", "ba_loose")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = box_quality_cfg(out, ba=True)
+    cfg.update(seed=BA_LOOSE_SEED, sync_method="loose")
+    # a keyframe at every mapping event: the loose mapper maps the latest
+    # tracked frame, so with the box's keyframe every 5th frame it keeps one
+    # only when a mapped frame falls on a multiple of 5, and BA (five
+    # keyframes) did not engage in 30 frames on an H100 (3 keyframes)
+    cfg["mapping"]["keyframe_every"] = 1
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
+    lags, threads = [], set()
+    inner_track = slam.track_one
+
+    def tracked(idx, *a, **k):
+        lags.append(idx - slam.mapping_idx)
+        return inner_track(idx, *a, **k)
+
+    slam.track_one = tracked
+    inner_set = slam._set_pose
+
+    def set_pose(idx, c2w):
+        threads.add(threading.current_thread().name)
+        return inner_set(idx, c2w)
+
+    slam._set_pose = set_pose
+    with ba_recorder(slam) as ba:
+        slam.run()
+    n, t = slam.n_img, slam.timings
+    if t["tracked_frames"] != n - 1 or slam.mapping_idx != n - 1 or \
+            not torch.isfinite(slam.estimate_c2w_list).all():
+        raise AssertionError(f"loose BA: tracked {t['tracked_frames']} frames, "
+                             f"mapping_idx {slam.mapping_idx}; expected {n - 1} each")
+    ba_frames = check_ba_calls(ba, slam.estimate_c2w_list, "loose BA")
+    every = slam.mcfg.every_frame
+    ate = 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list)
+    record = {"seed": BA_LOOSE_SEED, "frames": n, "fps": t.get("fps"),
+              "mapping_events": t["mapping_events"], "ba_calls": ba_frames,
+              "write_backs": sum(len(c["writes"]) for c in ba["calls"]),
+              "max_lag": max(lags), "lag_gate": every + every // 2, "ate_rmse_cm": ate,
+              "draw_gate_cm": ATE_DIVERGED_CM, "pose_writers": sorted(threads)}
+    failed = []
+    if not ba_frames:
+        failed.append("BA never engaged")
+    if max(lags) > every + every // 2:
+        failed.append(f"lag {max(lags)} > {every + every // 2}")
+    if not ate <= ATE_DIVERGED_CM:
+        failed.append(f"ATE {ate:.3f} cm > {ATE_DIVERGED_CM}")
+    return record, failed
+
+
+def phase_ba(dev, strict, strict_median_cm):
+    """Bundle adjustment, the NICE default, on the card: the BA room (its
+    launches, BA's calls and write-backs), the BA box family under the
+    strict family's gates beside the BA-off family's median, and one
+    loose BA draw (the BA cases' kernel rows come from ``ba_capture``, in
+    the kernels phase).  Returns the BA room's launch counts."""
+    t0 = time.perf_counter()
+    room, counts = ba_room(dev)
+    t1 = time.perf_counter()
+    family, family_ok = box_family(dev, "ba_quality", ba=True)
+    t2 = time.perf_counter()
+    loose, loose_failed = ba_loose_draw(dev)
+    t3 = time.perf_counter()
+    keys = ("fps", "tracking_ms_per_frame", "mapping_ms_per_event",
+            "coarse_mapping_ms_per_event", "ate_cm", "frames")
+    emit({"phase": "ba", "ok": family_ok and not loose_failed, "room": room,
+          "slice_without_ba": {k: strict.get(k) for k in keys},
+          "box_family": family, "box_family_without_ba_median_cm": strict_median_cm,
+          "loose": loose, "loose_failed": loose_failed,
+          "seconds": {"room": t1 - t0, "box_family": t2 - t1, "loose": t3 - t2,
+                      "total": t3 - t0}})
+    if not family_ok:
+        raise strict_family_failure("BA box family", family)
+    if loose_failed:
+        raise AssertionError(f"loose BA draw failed: {loose_failed}")
+    return counts
 
 
 def threaded_run(dev, sync):
@@ -2541,6 +3034,92 @@ def phase_tour(dev, imap: bool):
           "seconds": seconds})
     if failed:
         raise AssertionError(f"{name} failed its gates: {failed}")
+
+
+# QUALITY.json's tracked_tour record (tests/test_quality_gates.py:59-61): the
+# box with BA, the hash texture and 2000 tracking pixels over a full orbit
+TRACKED_TOUR_FLAGS = ["--ba", "--texture", "hash", "--track_pixels", "2000", "--frames",
+                      "750", "--orbit_radians", "6.283"]
+TRACKED_TOUR_GATES = {"ate_rmse_cm": 40.0, "depth_l1_cm": 3.0}
+TRACKED_TOUR_RATIO_PCT = 25.0
+TRACKED_TOUR_SEEDS = QUALITY_SEEDS  # a family, as the box's: one draw is too noisy
+TRACKED_TOUR_TIMEOUT_S = 1500       # per draw; one alone took 283 s (H100 80GB HBM3, 700 W)
+
+
+def tour_draw(seed: int, dev) -> dict:
+    """One tracked-tour draw in this process (``--tour_draw SEED``): the
+    port's ``selfcheck`` with TRACKED_TOUR_FLAGS and pixel seed ``seed``;
+    returns its summary with K1-K10's launches and its seconds."""
+    from nice_slam_torch.tools import selfcheck
+
+    out = os.path.join(HERE, "output", "chip_smoke", f"tracked_tour_s{seed}")
+    shutil.rmtree(out, ignore_errors=True)
+    flags = TRACKED_TOUR_FLAGS + ["--seed", str(seed), "--out", out, "--device", str(dev)]
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = selfcheck.run(selfcheck.parser().parse_args(flags))
+    return {"seed": seed, "flags": flags, "summary": summary, "launches": all_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_tracked_tour(dev):
+    """The tracked tour (``python3 chip_smoke.py --tracked_tour``): a draw
+    for each of TRACKED_TOUR_SEEDS, each in a process of its own, all at
+    once (the tour is host-bound: four at once took 1.6x one alone on an
+    H100 80GB HBM3 at 700 W), held
+    to the tracked_tour record's gates, copied unchanged, on the family's
+    medians: ATE <= 40 cm, depth L1 <= 3 cm, completion ratio >= 25 %.
+    One draw is not gated: the runs are nondeterministic (K2 sums with
+    atomics) and four single draws on one H100 read ATE 21.8-44.8 cm and
+    completion ratio 19.7-45.3 %.  Every draw must track every frame and
+    launch K3 (tracking, and every BA mapping iteration)."""
+    import numpy as np
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for seed in TRACKED_TOUR_SEEDS:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--tour_draw",
+                 str(seed)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=HERE))
+        outs = [p.communicate(timeout=TRACKED_TOUR_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:  # a failure or a timeout leaves no draw running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    draws, failed = [], []
+    for seed, p, (stdout, stderr) in zip(TRACKED_TOUR_SEEDS, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"tracked tour draw {seed} exited {p.returncode}: "
+                                 f"{stderr[-3000:]}")
+        draws.append(json.loads(stdout.strip().splitlines()[-1]))
+    for d in draws:
+        t = d["summary"]["timings"]
+        if t["tracked_frames"] != d["summary"]["frames"] - 1 or \
+                d["launches"]["trilinear_bwd_dp"] <= 0:
+            failed.append(f"draw {d['seed']}: tracked {t['tracked_frames']} frames, "
+                          f"launches {d['launches']}")
+    medians = {k: float(np.median([d["summary"][k] for d in draws]))
+               for k in ("ate_rmse_cm", "depth_l1_cm", "completion_ratio_pct",
+                         "accuracy_cm", "completion_cm")}
+    failed += [k for k, bound in TRACKED_TOUR_GATES.items() if not medians[k] <= bound]
+    if not medians["completion_ratio_pct"] >= TRACKED_TOUR_RATIO_PCT:
+        failed.append("completion_ratio_pct")
+    emit({"phase": "tracked_tour", "ok": not failed, "flags": TRACKED_TOUR_FLAGS,
+          "seeds": list(TRACKED_TOUR_SEEDS), "medians": medians, "gates": TRACKED_TOUR_GATES,
+          "completion_ratio_floor_pct": TRACKED_TOUR_RATIO_PCT,
+          "jax_record_tpu_v5e": {"ate_rmse_cm": 27.109, "completion_ratio_pct": 40.2,
+                                 "depth_l1_cm": 1.579},
+          "draws": [{"seed": d["seed"], "seconds": d["seconds"], "launches": d["launches"],
+                     **{k: v for k, v in d["summary"].items() if k != "timings"},
+                     "timings": d["summary"]["timings"]} for d in draws],
+          "seconds": seconds})
+    if failed:
+        raise AssertionError(f"tracked_tour failed its gates: {failed}")
 
 
 PRETRAIN_SCENES = 2            # the recipe's 40 scenes, cut for time
@@ -3739,19 +4318,47 @@ KERNEL_META = {
 NEW_PATH_CASES = ("mesh_fine", "render_color", "pretrain_coarse", "pretrain_fine")
 
 
-def main() -> int:
+def device_line(torch) -> dict:
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
+
+
+def main(argv=None) -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tracked_tour", action="store_true",
+                        help="build, then run only the tracked tour (QUALITY.json's "
+                             "tracked_tour gates), which the smoke leaves out for time")
+    parser.add_argument("--tour_draw", type=int, default=None, metavar="SEED",
+                        help="one draw of the tracked tour, its record as the last line "
+                             "(the processes --tracked_tour starts)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)  # one card; the sharded phase adds logical devices
+    if args.tour_draw is not None:
+        emit(tour_draw(args.tour_draw, dev))
+        return 0
     card = smi()
     t0 = time.perf_counter()
+    if args.tracked_tour:
+        try:
+            phase_build()
+            phase_tracked_tour(dev)
+        except Exception:  # the tour's failure fails the command, with its traceback
+            traceback.print_exc()
+            return 1
+        emit({"phase": "total", "seconds": time.perf_counter() - t0})
+        print(card, flush=True)
+        emit(device_line(torch))
+        return 0
     try:
         phase_build()
         cases, lookups, cap = phase_capture(dev)
+        cases["ba"] = ba_capture(dev)
         rows = phase_kernels(dev, cases, lookups)
         counts, done, cfg, strict = phase_slice(dev)
         phase_resume(dev, done, cfg)
@@ -3759,6 +4366,7 @@ def main() -> int:
         del done
         phase_profile(dev)
         strict_median = phase_quality(dev)
+        ba_counts = phase_ba(dev, strict, strict_median)
         phase_threaded(dev, strict)
         phase_threaded_quality(dev, strict_median)
         done, cfg = phase_imap_slice(dev, card)
@@ -3774,7 +4382,7 @@ def main() -> int:
         phase_tour(dev, imap=True)
         pretrain_rows, pretrain_counts = phase_pretrain(dev)
         rows += pretrain_rows
-        phase_counts = {"slice": counts, "pretrain": pretrain_counts,
+        phase_counts = {"slice": counts, "ba": ba_counts, "pretrain": pretrain_counts,
                         "sharded": sharded_counts, "threaded_sharded": ts_counts,
                         "envelope": phase_envelope(dev),
                         "landscape": phase_landscape(dev)}
@@ -3814,13 +4422,19 @@ def main() -> int:
                 for x in rows if x["kernel"] == name
                 and x["case"] in DEC_CASES + K78_CASES + tuple(K78_IMAP_CASES) + ("room",)}}
                if name.startswith("decoder") or name in K7_K10 else {}),
+            **({"ba_cases": {x["case"]: {k: x[k] for k in (
+                "n", "grids", "decoders", "samples", "leaves", "camera_lr", "rays_d_grad",
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms", "max_abs_err", "eps_of_terms", "kink_points",
+                "geometry") if k in x}
+                for x in rows if x["kernel"] == name and x["case"].endswith("_ba")}}
+               if any(x["kernel"] == name and x["case"].endswith("_ba") for x in rows)
+               else {}),
             "launches_by_phase": {k: v[name] for k, v in phase_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit(device_line(torch))
     return 0
 
 

@@ -1,6 +1,6 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
-    python -m nice_slam_torch.tools.profile_step [--out DIR]
+    python -m nice_slam_torch.tools.profile_step [--out DIR] [--ba]
         [--imap | --schedules [strict,loose,free] [--devices LIST]]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
@@ -23,6 +23,12 @@ the Adam step's and the frustum mask's entry points, each traced as a
 ``record_function`` range (the forward's range: the integrator's
 backward runs in autograd's), which also reads a port older than K7-K10,
 whose plain chains they were.  Needs a CUDA device.
+
+``--ba`` adds a row for the same main-mapper call with bundle adjustment
+(``mapping_call_ba``: the window poses but the oldest trained with the map,
+so K3 runs in every iteration; each run of it writes the refined window
+poses back into the keyframe store, as a BA call does), beside the BA-off
+``mapping_call``.
 
 ``--imap`` profiles the iMAP* model instead (``replica_imap_cfg``, 17
 frames, the first mapping 300 iterations): one tracked frame (50
@@ -277,6 +283,8 @@ def main() -> None:
     group.add_argument("--schedules", nargs="?", const="strict,loose,free",
                        help="profile whole runs of these schedules "
                             "(comma-separated; default all three)")
+    parser.add_argument("--ba", action="store_true",
+                        help="also profile the mapping call with bundle adjustment")
     parser.add_argument("--devices", default=None,
                         help="--schedules over this comma-separated device "
                              "list (default: every visible card)")
@@ -340,6 +348,9 @@ def main() -> None:
         "mapping_call": lambda: slam.mapper.optimize_map(
             slam.state, map_iters, cfg_m["lr_factor"], color_d, depth_d,
             slam.keyframes, cur, False),
+        "mapping_call_ba": lambda: slam.mapper.optimize_map(
+            slam.state, map_iters, cfg_m["lr_factor"], color_d, depth_d,
+            slam.keyframes, cur, True),
         "coarse_mapping_call": lambda: slam.coarse_mapper.optimize_map(
             slam.state, cfg_m["iters"], cfg_m["lr_factor"], color_d, depth_d,
             slam.keyframes, cur, False),
@@ -350,6 +361,8 @@ def main() -> None:
             slam.cam["fy"], slam.cam["cx"], slam.cam["cy"], "color",
             gt_depth=depth_d, rcfg=slam.rcfg),
     }
+    if not args.ba:
+        del work["mapping_call_ba"]
     if not slam.nice:
         for k in ("coarse_mapping_call", "mesh_res128"):
             del work[k]
@@ -371,7 +384,7 @@ def main() -> None:
             fn()
             torch.cuda.synchronize()
         row = {"what": name, "device": card}
-        if name == "mapping_call":
+        if name.startswith("mapping_call"):
             row["iterations"] = map_iters
         row.update(_device_summary(prof, wall))
         row["items"] = _items_summary(prof)

@@ -1,9 +1,10 @@
 """How often torch.profiler loses a kernel record on the card, with and
-without K10's cooperative launch in the process.
+without K10's cooperative launch in the process, and after a traced run.
 
     python nice_slam_torch/tools/profiler_windows.py --mode none [--windows 40]
     python nice_slam_torch/tools/profiler_windows.py --mode k10_once
     python nice_slam_torch/tools/profiler_windows.py --mode k10_each
+    python nice_slam_torch/tools/profiler_windows.py --mode after_profile [--kernel k3]
 
 A window is what ``chip_smoke.device_time_ms`` records once: 20 calls of
 K2 (``trilinear_bwd_dgrid``, the fine grid at the color stage's 48,000
@@ -13,7 +14,12 @@ points), each after a read that evicts the L2, inside one
 instead of retrying them.
 ``k10_once`` launches K10 (the Replica room's three grids, a 680x1200
 depth frame) once before the first window, ``k10_each`` before every
-window, neither profiled; ``none`` never launches it.  Prints one JSON
+window, neither profiled; ``none`` never launches it.  ``after_profile``
+first runs ``chip_smoke.phase_profile`` (``nice_slam_torch.run --profile``
+on three box frames: a torch.profiler trace of a whole run, host
+threads included, as the smoke runs it before its later device_ms rows).
+``--kernel k3`` times K3 (``trilinear_bwd_dp``) over the same grid and
+points instead of K2.  Prints one JSON
 line: the mode, the windows, the lost ones and the K2 records of each lost
 window.  Run the modes in alternating processes in one call: the rate of
 lost records differs from machine to machine.
@@ -54,7 +60,9 @@ def room_camera(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("none", "k10_once", "k10_each"), required=True)
+    ap.add_argument("--mode", choices=("none", "k10_once", "k10_each", "after_profile"),
+                    required=True)
+    ap.add_argument("--kernel", choices=("k2", "k3"), default="k2")
     ap.add_argument("--windows", type=int, default=40)
     args = ap.parse_args(argv)
 
@@ -65,7 +73,7 @@ def main(argv=None) -> int:
         print("profiler_windows: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import ray_points, smi
+    from chip_smoke import phase_profile, ray_points, smi
     from nice_slam_torch.ops import frustum as Fm
     from nice_slam_torch.ops import interp
 
@@ -77,8 +85,21 @@ def main(argv=None) -> int:
     cam = room_camera(dev)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     flush.zero_()
+    if args.kernel == "k2":
+        name = "trilinear_bwd_dgrid"
+
+        def call():
+            interp.trilinear_bwd_dgrid(p, cot, shape)
+    else:
+        name = "trilinear_bwd_dp"
+        grid = torch.randn(shape, generator=gen).to(dev)
+
+        def call():
+            interp.trilinear_bwd_dp(grid, p, cot)
+    if args.mode == "after_profile":
+        phase_profile(dev)
     for _ in range(3):
-        interp.trilinear_bwd_dgrid(p, cot, shape)
+        call()
     torch.cuda.synchronize()
     lost = []
     for w in range(args.windows):
@@ -88,14 +109,14 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
                 flush.sum()
-                interp.trilinear_bwd_dgrid(p, cot, shape)
+                call()
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "trilinear_bwd_dgrid" in e.name]
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
         if len(us) != REPS or min(us, default=0) <= 0:
             lost.append(len(us))
-    print(json.dumps({"mode": args.mode, "windows": args.windows, "lost": len(lost),
+    print(json.dumps({"mode": args.mode, "kernel": name, "windows": args.windows,
+                      "lost": len(lost),
                       "records_in_lost": lost, "k10_launches": Fm.launch_counts["frustum_mask"],
                       "card": smi()}), flush=True)
     return 0

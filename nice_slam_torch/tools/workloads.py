@@ -10,9 +10,18 @@ so the 5-frame window fills within a short run.  It meshes as the
 Replica configs do: the room as marching-cubes bound, resolution 256,
 ``eval_rec`` on (a final mesh and its all-frames eval_rec variant).
 
+``replica_ba_cfg``: the same room with local bundle adjustment on, as
+``configs/nice_slam.yaml`` (the NICE default every Replica, ScanNet, TUM,
+Apartment and CoFusion config inherits) sets it: the window poses but the
+oldest are optimised with the map, at ``BA_cam_lr`` in the color stage
+and lr 0 before it.  BA engages once the store holds five keyframes, so
+with a keyframe every 5th frame the default 30 frames give BA mapping
+events at frames 25 and 29 (the last, 5 calls of the final refinement).
+
 ``box_quality_cfg``: the 30-frame tracked box run whose ATE the quality
 gate of the JAX package holds to 9.5 cm (box.yaml on nice_slam.yaml,
-coarse off, 0.25 rad orbit, mapping iters 60, first 400).
+coarse off, 0.25 rad orbit, mapping iters 60, first 400); ``ba`` turns
+bundle adjustment on (box.yaml turns it off).
 
 ``replica_imap_cfg``: the iMAP* model at the Replica iMAP configs' widths
 (``configs/Replica/replica_imap.yaml`` on ``configs/imap.yaml``: tracking
@@ -56,7 +65,14 @@ def replica_synthetic_cfg(out_dir: str, n_frames: int = 12,
     return cfg
 
 
-def box_quality_cfg(out_dir: str) -> Dict[str, Any]:
+def replica_ba_cfg(out_dir: str, n_frames: int = 30,
+                   iters_first: int = 1500) -> Dict[str, Any]:
+    cfg = replica_synthetic_cfg(out_dir, n_frames, iters_first)
+    cfg["mapping"]["BA"] = True
+    return cfg
+
+
+def box_quality_cfg(out_dir: str, ba: bool = False) -> Dict[str, Any]:
     cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
                       os.path.join(ROOT, "configs", "nice_slam.yaml"))
     for k in ("coarse", "middle_fine"):
@@ -65,7 +81,7 @@ def box_quality_cfg(out_dir: str) -> Dict[str, Any]:
     cfg["coarse"] = False
     cfg["verbose"] = False
     cfg["data"].update(n_frames=30, orbit_radians=0.25, output=out_dir)
-    cfg["mapping"].update(iters=60, iters_first=400)
+    cfg["mapping"].update(iters=60, iters_first=400, BA=ba)
     return cfg
 
 

@@ -1936,3 +1936,142 @@ def test_k7_to_k10_follow_the_current_stream(dev):
     for a, b in zip(masks, ref_mask):
         assert torch.equal(a, b)
     assert torch.equal(p2, ref_p)
+
+
+# ---------------------------------------------------------------------------
+# Bundle adjustment (BA): K3 at mapping shapes, K9's camera leaf, one call
+# ---------------------------------------------------------------------------
+
+# the Replica-scale room's grids looked up by a BA mapping iteration's
+# stages: middle (1 grid), fine (middle and fine), color (all three)
+BA_STAGE_GRIDS = {"map_middle_ba": [(37, 28, 21, 32)],
+                  "map_fine_ba": [(37, 28, 21, 32), (74, 56, 43, 32)],
+                  "map_color_ba": [(37, 28, 21, 32), (74, 56, 43, 32), (74, 56, 43, 32)]}
+
+
+@pytest.mark.parametrize("case", list(BA_STAGE_GRIDS))
+def test_k3_at_ba_mapping_shapes_matches_plain(dev, case):
+    """K3 over a BA mapping iteration's grids at its 48k points (1000 rays
+    x 48 samples, a window of five frames over the room): one launch,
+    within 1e-4 of the plain gradient's largest entry."""
+    gen = torch.Generator().manual_seed(7)
+    grids = [torch.randn(s, generator=gen).to(dev) for s in BA_STAGE_GRIDS[case]]
+    p = _ray_samples(1000, seed=3).to(dev)
+    gs = [torch.randn((p.shape[0], 32), generator=gen).to(dev) for _ in grids]
+    interp.reset_launch_counts()
+    dp = interp.trilinear_bwd_dp_multi(grids, p, gs)
+    torch.cuda.synchronize()
+    assert interp.launch_counts["trilinear_bwd_dp"] == 1
+    ref = sum(interp.trilinear_bwd_dp_plain(g, p, c) for g, c in zip(grids, gs))
+    assert float((dp - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("stage,cam_lr", [("middle", 0.0), ("color", 1e-3)],
+                         ids=["lr0", "ba_cam_lr"])
+def test_group_adam_camera_leaf_matches_the_plain_step(dev, stage, cam_lr):
+    """K9 with BA's camera leaf (5 window poses x 7) beside a masked grid
+    (and, in the color stage, a decoder's leaves) over 20 steps, each from
+    the plain state: K9's existing gate against the ``_adam_update`` chain
+    (2 epsilons of each value's terms).  At lr 0 the poses stay bit for
+    bit and the camera moments still advance, as the color stage's first
+    camera step needs them."""
+    from nice_slam_torch.slam import optim as O
+
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(37, 28, 21, 32), (5, 7)] + ([(32, 35), (4,)] if stage == "color" else [])
+    ps = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    masks = [(torch.rand((37, 28, 21, 1), generator=gen) < 0.5).float().to(dev)]
+    masks += [None] * (len(shapes) - 1)
+    lrs = [0.1, cam_lr] + [1e-3] * (len(shapes) - 2)
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    cams0 = ps[1].clone()
+    worst = 0.0
+    for step in range(1, 21):
+        gs = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+        bc1 = float(np.float32(1) - np.float32(0.9) ** np.float32(step))
+        bc2 = float(np.float32(1) - np.float32(0.999) ** np.float32(step))
+        mine = [[t.clone() for t in (p, m, v)] for p, m, v in zip(ps, ms, vs)]
+        O.group_adam([(p, g, m, v, k, bc1, bc2, lr) for (p, m, v), g, k, lr
+                      in zip(mine, gs, masks, lrs)])
+        for i, (g, k, lr) in enumerate(zip(gs, masks, lrs)):
+            g = g if k is None else g * k
+            p0, m0, v0 = ps[i].clone(), ms[i].clone(), vs[i].clone()
+            O._adam_update([ps[i]], [g], [ms[i]], [vs[i]], bc1, bc2, lr)
+            sm = (0.9 * m0).abs() + (0.1 * g).abs()
+            sv = (0.999 * v0).abs() + (0.001 * g * g).abs()
+            denom = torch.sqrt(vs[i] / bc2) + 1e-8
+            u = (ms[i] / bc1) / denom
+            sp = p0.abs() + abs(lr) * (u.abs() + sm / (bc1 * denom))
+            for got, want, scale in zip(mine[i], (ps[i], ms[i], vs[i]), (sp, sm, sv)):
+                worst = max(worst, _ulps_of(got, want, scale))
+        if cam_lr == 0.0:
+            assert torch.equal(mine[1][0], cams0)
+    assert worst <= 2.0
+    assert float(ms[1].abs().min()) > 0.0
+
+
+def test_ba_mapping_call_on_cuda_matches_cpu(dev):
+    """One BA optimize_map call (middle 2, fine 2, color 3 iterations over a
+    3-frame window, the oldest pose fixed) on the card against the same
+    call on the CPU port with the same pixels: losses within 1e-4
+    relative, the window poses within 1e-5, the oldest equal.  Grids:
+    K2 sums with atomics, and Adam moves an entry by about lr per step
+    whatever its gradient's size, so an entry whose gradient is ~0 on both
+    devices can step either way on rounding alone: at least 99.9 % of
+    each grid's entries within 1e-4 and every entry within the call's
+    step budget, as tests/test_torch_mapper.py holds the port against
+    JAX."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.convert import scene_from_jax, scene_to_numpy
+    from nice_slam_torch.models.pretrain import load_pretrain
+    from nice_slam_torch.models.scene import build_scene
+    from nice_slam_torch.ops.geometry import tensor_from_pose
+    from nice_slam_torch.ops.render import RenderConfig
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.utils.datasets import Synthetic
+
+    cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
+                      os.path.join(ROOT, "configs", "nice_slam.yaml"))
+    cfg["verbose"] = False
+    cfg["cam"].update({"H": 60, "W": 80, "fx": 60.0, "fy": 60.0, "cx": 39.5, "cy": 29.5})
+    cfg["rendering"].update({"N_samples": 12, "N_surface": 6})
+    cfg["data"]["n_frames"] = 10
+    for k in ("coarse", "middle_fine"):
+        cfg["pretrained_decoders"][k] = os.path.join(ROOT, cfg["pretrained_decoders"][k])
+    spec, state = build_scene(cfg, nice=True, seed=1, device="cpu")
+    state = load_pretrain(cfg, spec, state, verbose=False)
+    ds = Synthetic(cfg)
+    frames = [ds[i] for i in (0, 2, 4)]
+    colors = torch.tensor(np.stack([f[1] for f in frames]))
+    depths = torch.tensor(np.stack([f[2] for f in frames]))
+    c2w = torch.tensor(np.stack([f[3] for f in frames]))
+    c2w[1:, :3, 3] += torch.tensor([[0.02, -0.01, 0.015], [-0.015, 0.02, 0.01]])
+    mcfg = M.MapperConfig.from_cfg(cfg, cfg["cam"], True)
+    rcfg = RenderConfig.from_cfg(cfg)
+    plan = (("middle", 2), ("fine", 2), ("color", 3))
+    F, n, iters = 3, 60, 7
+    pix = torch.randint(0, 60 * 80, (iters, F, n), generator=torch.Generator().manual_seed(8))
+    out = []
+    for d in ("cpu", dev):
+        st = scene_from_jax(scene_to_numpy(state), d)
+        args = [x.to(d) for x in (colors, depths, c2w, tensor_from_pose(c2w),
+                                  torch.tensor([0.0, 1.0, 1.0]),
+                                  torch.ones(F, dtype=torch.bool))]
+        new, cams, losses = M.optimize_map_core(
+            spec, st, *args, 1.0, mcfg, rcfg, plan, True, n, pix_idx=pix.to(d))
+        out.append((losses.cpu(), cams.cpu(), {k: v.cpu() for k, v in new.grids.items()}))
+    (l_c, c_c, g_c), (l_d, c_d, g_d) = out
+    torch.testing.assert_close(l_d, l_c, rtol=1e-4, atol=0)
+    assert torch.equal(c_d[0], c_c[0])
+    assert float((c_c[1:] - tensor_from_pose(c2w)[1:]).abs().max()) > 1e-4
+    torch.testing.assert_close(c_d, c_c, atol=1e-5, rtol=0)
+    # the step budget: the sum of a grid's lr over the call's iterations
+    budgets = {name: sum(mcfg.stage_lr[M.STAGE_INDEX[s]][M.LR_KEYS.index(name[5:] + "_lr")]
+                         * m for s, m in plan)
+               for name in ("grid_middle", "grid_fine", "grid_color")}
+    for name, budget in budgets.items():
+        diff = (g_d[name] - g_c[name]).abs()
+        assert float((diff <= 1e-4).float().mean()) >= 0.999, name
+        assert float(diff.max()) <= 2 * budget, name
+
