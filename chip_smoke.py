@@ -37,8 +37,28 @@ Phases, each printing one JSON line:
            step (at lr 0); the kernels phase times them as rows of their
            own (``*_ba``, ``ba_cases`` in the kernels line), each under its
            gate and bound, early in the process where the card's profiler
-           records every kernel of a window;
-  kernels  K7 integrate_fwd and K8 integrate_bwd on the captured
+           records every kernel of a window; and the first BA call's
+           arguments, for ba_sharded's ray-DP check;
+  imap_ba_room  the iMAP* room with BA (replica_imap_cfg(ba=True): a
+           mapping event and a keyframe every 2nd frame, so BA engages at
+           frame 10 (3 calls) and 11 (the refinement's 5); 12 frames, first
+           mapping 300, 60 mapping iterations an event (config 300), no
+           mesh): every frame tracked, BA in exactly the calls the rule
+           gives, each write-back checked, K7 twice and K8 and K9 once per
+           iteration and nothing else; ms per mapping iteration with and
+           without BA in the same run and the MLP's float32 peak share of
+           each; it records K8's first BA call (5000 rays x 44 samples,
+           density mode, the rays_d gradient feeding the camera leaf) for
+           the kernels phase;
+  kernels  BA on the parallel paths first: K3 with slab windows on the
+           BA cases (48k points over 1, 2 and 3 grids) cut into 2 and 4
+           slabs, each slab against its plain version, the slabs' sum in
+           device order against dense K3 within 1e-4 of its largest entry,
+           the slab owning the most points timed against its own bytes
+           (``window_cases`` of K3 in the kernels line); K9 on the captured
+           BA color-stage step with every grid leaf cut into 4 slabs beside
+           the camera leaf; K8 on the iMAP* BA call; then
+           K7 integrate_fwd and K8 integrate_bwd on the captured
            tracking, color-stage and coarse calls, on the render chunk's
            call (100k rays x 48 samples; seeded cotangents for K8) and on
            iMAP*'s density-mode calls drawn at its shapes (5000 rays x 44
@@ -135,6 +155,22 @@ Phases, each printing one JSON line:
            mapping event): every frame tracked, lag <= every + every // 2,
            ATE <= 20 cm, BA engaged, the write-backs checked as in the
            room;
+  ba_sharded  BA over sharded grids and under ray DP: (b) the BA room
+           with its grids over [cuda:0] x 4 (NICE_SLAM_TORCH_SPATIAL=1):
+           every frame tracked, BA at frames 25 and 29 x 5, K1-K10 exact per
+           (kernel, device, stream) (K3 once per slab in every tracking and
+           BA mapping iteration), the halo planes of every published state
+           bitwise equal, each write-back checked pose by pose, fps, ms and
+           ATE beside the dense BA room's; (c) the box with BA over 2 slabs
+           for seeds 42, 0, 1 under the strict family's gates; (d) the
+           first BA call of ba_capture with its rays over [cuda:0] x 2: each
+           of its 60 iterations' loss and camera gradient from the one-device
+           run's state on the same pixels, within 1e-4 (relative; of the
+           gradient's largest entry), and the call cut to middle 2, fine 2,
+           color 3 run on one device and under ray DP: the refined window
+           poses within 1e-5 (the losses reported); the split
+           asserted, PyTorch's AccumulateGrad warnings counted per call; (b)
+           and (d) again over cuda:0 and cuda:1 where two cards are visible;
   threaded the loose and then the free schedule on the slice's workload
            (the same 12 frames at full width, coarse mapper on): after a
            warm-up on the main thread the tracker, the mapper and the
@@ -187,6 +223,11 @@ Phases, each printing one JSON line:
            gate alone would pass); the seed-42 draw's depth L1 (2D metric,
            200 views) against 3 cm; each draw's box-mesh wall distance
            reported, not gated;
+  imap_ba  the same box with BA (BA calls at frames 25 x 3 and 29 x 5) for
+           seeds 42, 0, 1: every draw's ATE within 5 cm and below a frozen
+           camera's, beside its BA-off draw; each write-back checked; the
+           iMAP* BA room's ms per mapping iteration and MLP share beside
+           imap_slice's;
   readers  first makes cv2, PIL, matplotlib, jax and nice_slam_tpu
            unimportable for the rest of the run (failing if any was
            imported before); the port's export_synthetic writes the
@@ -284,6 +325,16 @@ Phases, each printing one JSON line:
            --frontend web on 127.0.0.1 at a free port, in its own process
            with the same modules unimportable, serves the page, the last
            frame's mesh and the run's poses; the process is stopped.
+
+The box families and the two tours run each draw in a child process of
+this script (``--draw``), many at once: the box runs are host-bound, so
+the card has room for several, and the iMAP* draws' GPU work overlaps
+them.  Three batches run ahead of the phases that gate them, each with a
+line of its own: draws_quality (quality, imap_quality) after profile,
+draws_ba (ba's family, ba_sharded's (c), imap_ba) after quality,
+draws_loose (threaded_quality, threaded_sharded's loose family, the two
+tours) after threaded; draws_quality also holds the sharded phase's
+family.  The draws' fps are read with their siblings running.
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -897,7 +948,8 @@ def k6_per_call(mcfg, plan) -> int:
 @contextlib.contextmanager
 def recorded_core(sink):
     """Append each optimize_map_core call to ``sink`` as (thread, coarse,
-    iterations, rays, K6 launches per device it runs on, K10 launches)."""
+    iterations, rays, K6 launches per device it runs on, K10 launches,
+    BA)."""
     import inspect
     import threading
 
@@ -912,7 +964,7 @@ def recorded_core(sink):
         sink.append((threading.current_thread().name, b["mcfg"].coarse_mapper,
                      int(res[2].shape[0]), b["colors"].shape[0] * b["pixs_per_image"],
                      k6_per_call(b["mcfg"], b["stage_plan"]),
-                     frustum_per_call(b["mcfg"], b["spec"])))
+                     frustum_per_call(b["mcfg"], b["spec"]), bool(b["BA"])))
         return res
 
     mapper_mod.optimize_map_core = core
@@ -924,22 +976,32 @@ def recorded_core(sink):
 
 def device_total_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     """Per-call device time of every kernel ``fn`` launches (torch.profiler),
-    for a yardstick made of many kernels: the plain decoder chain."""
+    for a yardstick made of many kernels: the plain decoder chain.  Every
+    call launches the same kernels, so a window is kept only if its count
+    of kernels is a positive multiple of ``reps``; the card's profiler now
+    and then records none (once for the first K9 yardstick of a run on an
+    H100 80GB HBM3, 700 W), so a window is tried up to PROFILER_WINDOWS
+    times, as in ``device_time_ms``, then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not us:
-        raise RuntimeError("torch.profiler recorded no kernel of the yardstick")
-    return sum(us) / 1e3 / reps
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if us and len(us) % reps == 0:
+            return sum(us) / 1e3 / reps
+        PROFILER_RETRIES["windows"] += 1
+        PROFILER_RETRIES["lost"].append({"kernel": "yardstick", "records": len(us)})
+    raise RuntimeError(f"torch.profiler recorded {len(us)} kernels of the yardstick, not a "
+                       f"positive multiple of {reps} calls, in each of {PROFILER_WINDOWS} "
+                       "windows")
 
 
 def dec_case_of(label, need_p):
@@ -1575,7 +1637,12 @@ RANDOM_CASES = (("fine_map", (74, 56, 43, 32), 1000),
                 ("coarse_map", (11, 8, 7, 32), 1000))
 
 
-def phase_kernels(dev, cases, lookups):
+def phase_kernels(dev, cases, lookups, imap_k8):
+    """Every kernel's rows on the captured and drawn cases; the BA cases'
+    (``ba_kernel_rows``), K3 with slab windows and K9 with the camera leaf
+    beside slab leaves at BA's shapes (``ba_slab_rows``) and K8 on the
+    iMAP* BA room's captured call (``imap_k8``).  Returns (rows, the BA
+    window checks, the BA window rows)."""
     import torch
 
     gen = torch.Generator().manual_seed(0)
@@ -1584,6 +1651,9 @@ def phase_kernels(dev, cases, lookups):
     ba_cases = cases.pop("ba")
     rows += k7_k10_all_rows(cases.pop("k7_k10"), dev)
     rows += ba_kernel_rows(ba_cases, dev)
+    ba_checks, ba_window, k9_slabs = ba_slab_rows(ba_cases, rows, dev)
+    rows += k9_slabs
+    rows += k7_k8_rows("imap_map_ba", imap_k8, dev, kernels=("integrate_bwd",))
     del ba_cases
     for label in DEC_CASES:
         rows += decoder_rows(label, dec_cases[label])
@@ -1605,10 +1675,11 @@ def phase_kernels(dev, cases, lookups):
     torch.cuda.synchronize()
     with_bounds(rows)
     emit({"phase": "kernels", "ok": True, "rows": rows,
+          "ba_window_checks": ba_checks, "ba_window_rows": ba_window,
           "profiler_retries": PROFILER_RETRIES["windows"],
           "profiler_lost": PROFILER_RETRIES["lost"],
           "stack_max_abs_err": stack_check(dev)})
-    return rows
+    return rows, ba_checks, ba_window
 
 
 def stack_check(dev) -> float:
@@ -1904,38 +1975,150 @@ data: {{n_frames: 3, output: {out}/run}}
           "kernel_events": found, "seconds": time.perf_counter() - t0})
 
 
-def box_family(dev, label, ba=False):
-    """The 30-frame tracked box run (``box_quality_cfg``, BA on where
-    ``ba``) for each of QUALITY_SEEDS (``cfg["seed"]`` feeds the
-    tracker's pixel draws), each draw's ATE and final mesh: the record of
-    the draws, the family's medians, and whether the strict family's gates
-    hold (median ATE <= ATE_GATE_CM, every draw <= ATE_DIVERGED_CM, median
-    wall distance <= BOX_MESH_GATE_M)."""
-    import numpy as np
+DRAW_TIMEOUT_S = 900  # a batch of draws run at once (one alone: 10-30 s on an H100)
+DRAWN = {}  # the records of draws run ahead of the phase that gates them (``run_draws``)
+
+
+def _draw_key(kind, kw) -> str:
+    return kind + json.dumps(kw, sort_keys=True)
+
+
+def run_draws(batch):
+    """Each (kind, keyword arguments) of ``batch`` as one draw of that
+    kind (``DRAWS``) in a process of its own (``--draw KIND --draw_args
+    JSON``), all at once: the box runs are host-bound, so the card has
+    room for several, and an iMAP* family's GPU-bound draws overlap them.
+    Their records wait in DRAWN for the phases that gate them
+    (``draws_at_once``).  A draw that fails fails the run, and no draw is
+    left running.  This process first hands the card's memory that its
+    allocator keeps cached back to the driver: the draws run beside it
+    (one run OOMed with ~79 GiB held on the card)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = []
+    try:
+        for kind, kw in batch:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--draw", kind,
+                 "--draw_args", json.dumps(kw)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=HERE))
+        outs = [p.communicate(timeout=DRAW_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (kind, kw), p, (stdout, stderr) in zip(batch, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{kind} draw {kw} exited {p.returncode}: {stderr[-3000:]}")
+        DRAWN[_draw_key(kind, kw)] = json.loads(stdout.strip().splitlines()[-1])
+
+
+def draws_at_once(kind, runs):
+    """The records of the draws of ``kind`` with keyword arguments
+    ``runs``, in order: those run ahead (``run_draws``) taken from DRAWN,
+    the others run now, all at once."""
+    missing = [(kind, kw) for kw in runs if _draw_key(kind, kw) not in DRAWN]
+    if missing:
+        run_draws(missing)
+    return [DRAWN.pop(_draw_key(kind, kw)) for kw in runs]
+
+
+def ahead(dev, name, batch):
+    """``run_draws`` for the families of ``batch`` ahead of their phases,
+    with a line of its own giving the batch's seconds."""
+    t0 = time.perf_counter()
+    run_draws(batch)
+    emit({"phase": name, "ok": True, "draws": len(batch),
+          "families": sorted({kw["label"] for _, kw in batch}),
+          "seconds": time.perf_counter() - t0})
+
+
+def box_runs(label, ba=False, seeds=QUALITY_SEEDS, devices=None, sync="strict"):
+    """The draws of a box family: (``box``, keyword arguments) per seed."""
+    devs = None if devices is None else [str(d) for d in devices]
+    if sync == "strict":
+        return [("box", dict(label=label, seed=seed, ba=ba, devices=devs)) for seed in seeds]
+    return [("box", dict(label=label, seed=seed, devices=devs, sync=sync, mesh=False))
+            for seed in seeds]
+
+
+def imap_box_runs(label, ba=False):
+    """The draws of an iMAP* box family (IMAP_QUALITY_SEEDS; the first
+    scored where BA is off)."""
+    return [("imap_box", dict(label=label, seed=seed, ba=ba) if ba else
+             dict(label=label, seed=seed, scored=seed == IMAP_QUALITY_SEEDS[0]))
+            for seed in IMAP_QUALITY_SEEDS]
+
+
+def box_draw(dev, label, seed, ba=False, devices=None, sync="strict", mesh=True):
+    """One 30-frame tracked box run (``box_quality_cfg``, BA on where
+    ``ba``, under ``sync``) with pixel seed ``seed`` in this process; with
+    ``devices`` the grids sharded over them (NICE_SLAM_TORCH_SPATIAL=1).
+    Returns its ATE, its BA calls and, with ``mesh``, its final mesh's wall
+    distance."""
+    import torch
 
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
     from nice_slam_torch.tools.workloads import box_quality_cfg
 
-    draws = []
-    for seed in QUALITY_SEEDS:
-        out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
-        cfg = box_quality_cfg(out, ba=ba)
-        cfg["seed"] = seed
-        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), dev)
-        slam.run()
+    out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
+    cfg = box_quality_cfg(out, ba=ba)
+    cfg.update(seed=seed, sync_method=sync)
+    ns = argparse.Namespace(nice=True, output=None)
+    if devices is None:
+        slam = NiceSLAM(cfg, ns, dev)
+    else:
+        devices = [torch.device(d) for d in devices]
+        with knobs(True):
+            slam = NiceSLAM(cfg, ns, devices=devices)
+        if slam.spatial_devices != devices:
+            raise AssertionError(f"{label}: sharding not engaged over {devices}")
+    ba_calls = []
+    inner = slam.mapper.optimize_map
+
+    def mapped(*a, **k):
+        ba_calls.append(bool(a[7] if len(a) > 7 else k["BA"]))
+        return inner(*a, **k)
+
+    slam.mapper.optimize_map = mapped
+    slam.run()
+    t = slam.timings
+    draw = {"seed": seed, "fps": t.get("fps"), "mapping_events": t["mapping_events"],
+            "ate_rmse_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(),
+                                          slam.gt_c2w_list), "ba_calls": sum(ba_calls)}
+    if mesh:
         verts, _ = mesh_stats(os.path.join(out, "mesh", "final_mesh.ply"))
-        draws.append({"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
-                      100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
-                      "mesh_wall_m": box_wall_distance(verts), "vertices": len(verts),
-                      "meshing_s": slam.timings["meshing_s"]})
+        draw.update(mesh_wall_m=box_wall_distance(verts), vertices=len(verts),
+                    meshing_s=t["meshing_s"])
+    return draw
+
+
+def box_family(dev, label, ba=False, seeds=QUALITY_SEEDS, devices=None):
+    """The 30-frame tracked box run (``box_draw``, BA on where ``ba``) for
+    each of ``seeds`` (``cfg["seed"]`` feeds the tracker's pixel draws),
+    the draws run at once, each draw's ATE, final mesh and BA calls; with
+    ``devices`` the grids sharded over them.  Returns the record of the
+    draws, the family's medians, and whether the strict family's gates
+    hold (median ATE <= ATE_GATE_CM, every draw <= ATE_DIVERGED_CM, median
+    wall distance <= BOX_MESH_GATE_M)."""
+    import numpy as np
+
+    draws = draws_at_once("box", [kw for _, kw in box_runs(label, ba, seeds, devices)])
     ates = [d["ate_rmse_cm"] for d in draws]
     median = float(np.median(ates))
     walls = [d["mesh_wall_m"] for d in draws]
     wall_median = float(np.median(walls))
     ok = (median <= ATE_GATE_CM and max(ates) <= ATE_DIVERGED_CM
           and wall_median <= BOX_MESH_GATE_M)
-    record = {"frames": 30, "draws": draws, "median_ate_cm": median,
+    record = {"frames": 30, "devices": None if devices is None else [str(d) for d in devices],
+              "draws": draws, "median_ate_cm": median,
               "gate_cm": ATE_GATE_CM, "draw_gate_cm": ATE_DIVERGED_CM,
               "within_jax_median_gate": median <= JAX_MEDIAN_GATE_CM,
               "median_mesh_wall_m": wall_median, "mesh_gate_m": BOX_MESH_GATE_M}
@@ -1945,7 +2128,8 @@ def box_family(dev, label, ba=False):
 def strict_family_failure(label, rec) -> AssertionError:
     ates = [d["ate_rmse_cm"] for d in rec["draws"]]
     walls = [d["mesh_wall_m"] for d in rec["draws"]]
-    return AssertionError(f"{label}: tracked ATE over seeds {QUALITY_SEEDS}: {ates} cm; "
+    seeds = [d["seed"] for d in rec["draws"]]
+    return AssertionError(f"{label}: tracked ATE over seeds {seeds}: {ates} cm; "
                           f"median {rec['median_ate_cm']:.3f} (gate {ATE_GATE_CM}), worst "
                           f"draw gate {ATE_DIVERGED_CM}; box mesh wall distance {walls} m, "
                           f"median {rec['median_mesh_wall_m']:.4f} (gate {BOX_MESH_GATE_M})")
@@ -1990,16 +2174,29 @@ def ba_recorder(slam):
     validity (``prepare_window``'s), the keyframe poses before and after
     the call, the poses written back (position, pose) and the refined
     current pose; and each main mapping event's wall (``map_one`` ends in a
-    synchronize).  Yields the record."""
+    synchronize).  A window is the overlap selection's (``prepare_window``)
+    or the host's 'global' one (``select_keyframes`` and the last
+    keyframe).  Yields the record."""
+    import torch
+
     from nice_slam_torch.slam import mapper as M
 
     rec = {"calls": [], "events": []}
     windows = []
-    inner_window = M.prepare_window
+    inner_window, inner_select = M.prepare_window, M.select_keyframes
 
     def prepare_window(*a, **k):
         out = inner_window(*a, **k)
         windows.append((out[6].clone(), out[5][:-1].clone()))  # read after the run
+        return out
+
+    def select_keyframes(rng, mcfg, n_keyframes):
+        # a host-selected window ('global'): the selected positions and the
+        # last keyframe, every slot valid
+        out = inner_select(rng, mcfg, n_keyframes)
+        pos = out + ([n_keyframes - 1] if n_keyframes > 0 else [])
+        windows.append((torch.tensor(pos, dtype=torch.int64),
+                        torch.ones(len(pos), dtype=torch.bool)))
         return out
 
     def watch(mapper, coarse):
@@ -2046,11 +2243,11 @@ def ba_recorder(slam):
     if slam.coarse_mapper is not None:
         watch(slam.coarse_mapper, True)
     slam.map_one = map_one
-    M.prepare_window = prepare_window
+    M.prepare_window, M.select_keyframes = prepare_window, select_keyframes
     try:
         yield rec
     finally:
-        M.prepare_window = inner_window
+        M.prepare_window, M.select_keyframes = inner_window, inner_select
 
 
 def check_ba_calls(rec, final_poses, tag):
@@ -2109,11 +2306,17 @@ def ba_capture(dev):
     7-frame run of the BA room with a keyframe and a mapping event every
     frame, so BA engages at frame 5 in a call with all three stages (frame
     6, the last, is the color-only refinement); the shapes are the room's
-    (1000 rays x 48 samples a mapping iteration).  Run early in the
+    (1000 rays x 48 samples a mapping iteration).  Also the first BA
+    call's arguments (``first_call``: its scene state, window, poses and
+    configs), which the ray-DP check runs again.  Run early in the
     process: the card's profiler records fewer of a window's kernels the
     later it runs (PERF.md §7), and the kernels phase times these cases."""
+    import inspect
+
     from nice_slam_torch.ops import decoder_stage as DS
     from nice_slam_torch.ops import interp
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.slam.optim import tree_map
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.workloads import replica_ba_cfg
 
@@ -2141,16 +2344,34 @@ def ba_capture(dev):
             dec_seen[case] = dec_bwd_case(*args)
         return dec_bwd(*args)
 
+    first_call = {}
+    core = M.optimize_map_core
+    core_sig = inspect.signature(core)
+
+    def rec_core(*a, **k):
+        b = core_sig.bind(*a, **k).arguments
+        if b["BA"] and not first_call:
+            first_call.update({k: v for k, v in b.items() if k not in ("state", "gen")},
+                              state=b["state"]._replace(
+                                  grids=tree_map(lambda t: t.clone(), b["state"].grids),
+                                  decoders=tree_map(lambda t: t.clone(),
+                                                    b["state"].decoders)))
+        return core(*a, **k)
+
     interp.trilinear_bwd_dp_multi, DS.decoder_bwd = rec_dp, rec_dec
+    M.optimize_map_core = rec_core
     try:
         slam.run()
     finally:
         interp.trilinear_bwd_dp_multi, DS.decoder_bwd = dp_multi, dec_bwd
+        M.optimize_map_core = core
         restore()
     missing = [f"K3/K5 {k}" for k in BA_K3_CASES if k not in k3_seen or k not in dec_seen]
     missing += [f"K8 {k}" for k in ("map_color_ba",)
                 if "g_depth" not in cap["integrate"].get(k, {})]
     missing += [f"K9 {k}" for k in BA_K9_CASES if k not in cap["adam"]]
+    if not first_call:
+        missing.append("the first BA call")
     if missing:
         raise AssertionError(f"BA capture: no BA call captured for {missing}")
     emit({"phase": "ba_capture", "ok": True, "seconds": time.perf_counter() - t0,
@@ -2158,7 +2379,7 @@ def ba_capture(dev):
                     for k, v in k3_seen.items()},
           "decoder_cases": {k: {"decoders": len(v["decs"]), "need_p": v["need_p"],
                                 "need_w": v["need_w"]} for k, v in dec_seen.items()}})
-    return {"k3": k3_seen, "decoder": dec_seen, "k7_k10": cap}
+    return {"k3": k3_seen, "decoder": dec_seen, "k7_k10": cap, "first_call": first_call}
 
 
 def ba_room(dev):
@@ -2322,7 +2543,7 @@ def phase_ba(dev, strict, strict_median_cm):
     launches, BA's calls and write-backs), the BA box family under the
     strict family's gates beside the BA-off family's median, and one
     loose BA draw (the BA cases' kernel rows come from ``ba_capture``, in
-    the kernels phase).  Returns the BA room's launch counts."""
+    the kernels phase).  Returns the BA room's launch counts and record."""
     t0 = time.perf_counter()
     room, counts = ba_room(dev)
     t1 = time.perf_counter()
@@ -2342,7 +2563,492 @@ def phase_ba(dev, strict, strict_median_cm):
         raise strict_family_failure("BA box family", family)
     if loose_failed:
         raise AssertionError(f"loose BA draw failed: {loose_failed}")
+    return counts, room
+
+
+# ---------------------------------------------------------------------------
+# BA on the parallel paths (grids over slabs, rays over replicas) and on iMAP*
+# ---------------------------------------------------------------------------
+
+BA_SLAB_DS = (2, 4)          # (a): the BA cases' K3 cut into 2 and 4 slabs
+BA_SHARD_D = 4               # (b): the BA room with its grids over [cuda:0] x 4
+BA_BOX_D = 2                 # (c): the BA box family over 2 slabs
+BA_BOX_SEEDS = (42, 0, 1)
+BA_DP_D = 2                  # (d): the first BA call with its rays over [cuda:0] x 2
+# (d) holds the losses iteration by iteration from one state: two runs of a
+# call drift apart, because Adam's first step of a group moves an entry by
+# its lr whatever its gradient's size, so rounding flips the steps of
+# entries whose gradient is ~0 (on the CPU, where every kernel is
+# deterministic, a 100-ray call's losses one device against ray DP read
+# 1e-7 until the color stage's first step and 4.6e-3 two steps later), and
+# K2's atomics add run-to-run noise on the card (over 20 iterations: 2.5e-4
+# relative in the losses and 4.1e-5 in the poses in one of three runs on an
+# H100 80GB HBM3, 700 W).  The poses are held after the call cut to the
+# plan their tolerance was set for (tests/test_torch_cuda.py::
+# test_ba_mapping_call_on_cuda_matches_cpu)
+BA_DP_PLAN = (("middle", 2), ("fine", 2), ("color", 3))
+BA_DP_POSE_ATOL = 1e-5       # the refined window poses, one device against ray DP
+IMAP_BA_ITERS = 60           # the iMAP* BA room's mapping iterations an event (config 300)
+IMAP_BA_EVENTS = [10] * 3 + [11] * 5  # its BA calls: keyframes 0-8, then the refinement
+
+
+def ba_slab_rows(ba_cases, dense_rows, dev):
+    """(a) K3 with slab windows at BA's mapping shapes: the middle, fine
+    and color stages' captured 48k points over 1, 2 and 3 grids, cut into
+    2 and 4 slabs on this card (``window_case``: each slab against its
+    plain version, the slabs' sum in device order against dense K3 within
+    1e-4 of its largest entry, the slab owning the most points timed and
+    bounded by its own bytes).  And K9 with the camera leaf beside slab
+    leaves: the color stage's captured BA step with each grid leaf (value,
+    gradient, moments, frustum mask) cut into BA_SHARD_D slabs as
+    ``shard_grid`` cuts it, the layout of the sharded room's step.
+    Returns (checks, the window rows, the K9 row)."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    checks, rows = [], []
+    for label in BA_K3_CASES:
+        for D in BA_SLAB_DS:
+            ck, rw = window_case(label, ba_cases["k3"][label], D, [dev] * D, dense_rows,
+                                 True, kernels=("trilinear_bwd_dp",))
+            checks.append(ck)
+            rows += rw
+    devices = [dev] * BA_SHARD_D
+
+    def cut(t):
+        return [None] * BA_SHARD_D if t is None else gs.shard_grid(t, devices).slabs
+
+    leaves = []
+    for p, g, m, v, mask, bc1, bc2, lr in ba_cases["k7_k10"]["adam"]["map_color_ba"]:
+        if p.dim() != 4:  # a decoder's or the camera's leaf
+            leaves.append((p, g, m, v, mask, bc1, bc2, lr))
+            continue
+        leaves += [(*x, bc1, bc2, lr) for x in zip(*(cut(t) for t in (p, g, m, v, mask)))]
+    row = k9_row("map_color_slabs_ba", leaves, dev)[0]
+    row.update(D=BA_SHARD_D, camera_leaves=sum(p.dim() == 2 and p.shape[1] == 7
+                                               for p, *_ in leaves))
+    return checks, with_bounds(rows), with_bounds([row])
+
+
+def imap_ba_capture():
+    """Hooks recording K8's first call in an iMAP* BA mapping iteration
+    (the loss trains ``cams``; the integrator call the backward follows, not
+    the importance pass), with its forward's inputs and its cotangents, as
+    ``k7_k8_rows`` takes them.  Returns the record and a function that
+    undoes the hooks."""
+    import inspect
+
+    import torch
+
+    from nice_slam_torch.ops import integrator as I
+    from nice_slam_torch.slam import mapper as M
+
+    rec, state = {}, {"ba": False, "pending": None}
+    fwd, bwd, loss = I.integrate_fwd, I.integrate_bwd, M.mapping_loss
+    sig = inspect.signature(loss)
+
+    def map_loss(*a, **k):
+        state["ba"] = "cams" in sig.bind(*a, **k).arguments["groups"]
+        try:
+            return loss(*a, **k)
+        finally:
+            state["ba"] = False
+
+    def rec_fwd(raw, z, rays_d, occupancy=False):
+        # the importance pass integrates first and takes no backward: the
+        # call a backward follows is the last one before it
+        if state["ba"] and not rec and rays_d.requires_grad:
+            state["pending"] = dict(raw=raw.detach().clone(), z=z.detach().clone(),
+                                    rays_d=rays_d.detach().clone(), occ=bool(occupancy),
+                                    rays_d_requires_grad=True)
+        return fwd(raw, z, rays_d, occupancy)
+
+    def rec_bwd(raw, z, rays_d, depth, g_depth, g_var, g_rgb, occupancy=False,
+                need_rays=True):
+        if state["pending"] is not None and not rec:
+            rec.update(state["pending"], depth=depth.detach().clone(),
+                       g_depth=g_depth.detach().clone(), g_var=g_var.detach().clone(),
+                       g_rgb=g_rgb.detach().clone(), need_rays=bool(need_rays))
+            state["pending"] = None
+        return bwd(raw, z, rays_d, depth, g_depth, g_var, g_rgb, occupancy, need_rays)
+
+    I.integrate_fwd, I.integrate_bwd, M.mapping_loss = rec_fwd, rec_bwd, map_loss
+
+    def restore():
+        I.integrate_fwd, I.integrate_bwd, M.mapping_loss = fwd, bwd, loss
+    return rec, restore
+
+
+def imap_ms_per_iter(events, calls, ba):
+    """ms per mapping iteration over the main mapping events (each ends in
+    a synchronize) with or without BA, the first event (iters_first)
+    left out."""
+    ms = sum(e["ms"] for e in events[1:] if e["ba"] == ba)
+    iters = sum(c["iters"] for c in calls if c["BA"] == ba and c["idx"] != events[0]["idx"])
+    return ms / iters if iters else None
+
+
+def phase_imap_ba_room(dev):
+    """(e) The iMAP* room with BA (``replica_imap_cfg(ba=True)``: a mapping
+    event and a keyframe every 2nd frame, so BA engages at frame 10 (3
+    calls) and frame 11 (the refinement's 5); cut as imap_slice is, and
+    mapping IMAP_BA_ITERS iterations an event (config 300)).  Every frame
+    tracked; BA in exactly the calls the rule gives, every write-back
+    checked (``check_ba_calls``); K7-K9 launches exact and no other
+    kernel.  Reports ms per mapping iteration with and without BA in the
+    same run and the MLP's float32 peak share of each; records K8's first
+    BA density call for the kernels phase.  Run before the kernels phase,
+    which times that call.  Returns (record, the K8 case)."""
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.profile_step import (
+        F32_FLOPS_PER_S as PEAK,
+        imap_iteration_flops,
+    )
+    from nice_slam_torch.tools.workloads import replica_imap_cfg
+
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, "output", "chip_smoke", "imap_ba_room")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_imap_cfg(out, n_frames=IMAP_FRAMES, iters_first=IMAP_ITERS_FIRST, ba=True)
+    cfg["mapping"]["iters"] = IMAP_BA_ITERS
+    cfg["meshing"] = None
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
+    for i in range(slam.n_img):  # frame synthesis is not part of the timing
+        slam.frame_reader[i]
+    cap, restore = imap_ba_capture()
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        with ba_recorder(slam) as ba:
+            slam.run()
+    finally:
+        restore()
+    counts = all_counts()
+    n, t, tc, r = slam.n_img, slam.timings, slam.tcfg, slam.rcfg
+    if not torch.isfinite(slam.estimate_c2w_list).all() or t["tracked_frames"] != n - 1:
+        raise AssertionError(f"iMAP BA room: tracked {t['tracked_frames']} of {n - 1} "
+                             "frames, or a pose is not finite")
+    ba_frames = check_ba_calls(ba, slam.estimate_c2w_list, "iMAP BA room")
+    if ba_frames != IMAP_BA_EVENTS:
+        raise AssertionError(f"iMAP BA room: BA calls at frames {ba_frames}, "
+                             f"not {IMAP_BA_EVENTS}")
+    track_iters = t["tracked_frames"] * tc.iters
+    map_iters = sum(c["iters"] for c in ba["calls"])
+    iters = track_iters + map_iters
+    # the importance pass is a second K7 each iteration; no grid, no
+    # decoder stage, no frustum
+    want = {k: 0 for k in counts}
+    want.update(integrate_fwd=2 * iters, integrate_bwd=iters, group_adam=iters)
+    if counts != want:
+        raise AssertionError(f"iMAP BA room launches {counts}, expected {want}")
+    if "g_depth" not in cap:
+        raise AssertionError("iMAP BA room: K8's BA call was not captured")
+    map_flops = imap_iteration_flops(cfg["mapping"]["pixels"], r.N_samples,
+                                     r.N_importance, r.N_samples, True)
+    ms = {name: imap_ms_per_iter(ba["events"], ba["calls"], flag)
+          for name, flag in (("ba", True), ("without_ba", False))}
+    rec = {"frames": n, "H": slam.H, "W": slam.W,
+           "cuts": {"frames": IMAP_FRAMES, "iters_first": [IMAP_ITERS_FIRST, 1500],
+                    "iters": [IMAP_BA_ITERS, 300], "every_frame": [2, 5],
+                    "keyframe_every": [2, 50], "meshing": "off"},
+           "ba_calls": ba_frames, "ba_iterations": sum(c["iters"] for c in ba["calls"]
+                                                       if c["BA"]),
+           "write_backs": sum(len(c["writes"]) for c in ba["calls"]),
+           "mapping_iters": map_iters, "tracking_iters": track_iters,
+           "fps": t.get("fps"), "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+           "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+           "mapping_ms_per_iter": ms,
+           "mlp_bound_ms_per_iter": 1e3 * map_flops / PEAK,
+           "mlp_f32_peak_share": {k: None if v is None else map_flops / (v / 1e3) / PEAK
+                                  for k, v in ms.items()},
+           "ate_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+           "frozen_ate_cm": frozen_ate_cm(slam.gt_c2w_list), "launches": counts,
+           "k8_case": {"n": int(cap["z"].shape[0]), "samples": int(cap["z"].shape[1]),
+                       "need_rays": cap["need_rays"]}}
+    emit({"phase": "imap_ba_room", "ok": True, **rec, "seconds": time.perf_counter() - t0})
+    return rec, cap
+
+
+def halo_recorder(slam):
+    """Clones of every sharded grid's halo planes (slab d's last x-plane,
+    slab d+1's first) in each state a mapper publishes, on the device,
+    compared after the run; a list of (grid, planes) per publish."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    halos = []
+    inner = slam._publish
+
+    def publish(new_state, coarse):
+        halos.append([(k, lo[-1].clone(), hi[0].clone())
+                      for k, sg in new_state.grids.items() if isinstance(sg, gs.ShardedGrid)
+                      for lo, hi in zip(sg.slabs[:-1], sg.slabs[1:])])
+        return inner(new_state, coarse)
+
+    slam._publish = publish
+    return halos
+
+
+def ba_sharded_room(dev, devices, dense, out_name):
+    """(b) The BA room (``replica_ba_cfg``, BA_FRAMES frames) with its grids
+    sharded over ``devices`` (NICE_SLAM_TORCH_SPATIAL=1): every frame
+    tracked; BA in exactly the calls the rule gives (frames 25 and 29 x
+    5); K1-K10 launched exactly as the run's recorded calls give them per
+    (kernel, device, stream) (``check_launches``: K3 once per slab in
+    every tracking and BA mapping iteration); the halo planes of every
+    published state bitwise equal; each write-back checked pose by pose
+    and the oldest window pose unmoved (``check_ba_calls``); fps, ms and
+    ATE beside the dense BA room's (``dense``)."""
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.workloads import replica_ba_cfg
+
+    tag = f"BA room over {[str(d) for d in devices]}"
+    out = os.path.join(HERE, "output", "chip_smoke", out_name)
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_ba_cfg(out, n_frames=BA_FRAMES, iters_first=SLICE_ITERS_FIRST)
+    with knobs(True):
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=devices)
+    D = len(devices)
+    if slam.spatial_devices != list(devices) or slam.mapper.devices is not None:
+        raise AssertionError(f"{tag}: sharding not engaged")
+    for i in range(slam.n_img):
+        slam.frame_reader[i]
+    tracks, calls, meshes = [], [], []
+    inner_track, inner_mesh = slam.track_one, slam._mesh
+
+    def tracked(idx, *a, **k):
+        tracks.append(("MainThread", idx - slam.mapping_idx))
+        return inner_track(idx, *a, **k)
+
+    def meshed(path, *a, **k):
+        meshes.append(("MainThread", path))
+        return inner_mesh(path, *a, **k)
+
+    slam.track_one, slam._mesh = tracked, meshed
+    halos = halo_recorder(slam)
+    cards = sorted(set(devices), key=str)
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    reset_counts()
+    with recorded_core(calls), ba_recorder(slam) as ba:
+        slam.run()
+    counts = all_counts()
+    peak = {str(c): torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
+    n, t = slam.n_img, slam.timings
+    if not torch.isfinite(slam.estimate_c2w_list).all() or t["tracked_frames"] != n - 1:
+        raise AssertionError(f"{tag}: tracked {t['tracked_frames']} of {n - 1} frames, "
+                             "or a pose is not finite")
+    ba_frames = check_ba_calls(ba, slam.estimate_c2w_list, tag)
+    if ba_frames != BA_EVENTS:
+        raise AssertionError(f"{tag}: BA calls at frames {ba_frames}, not {BA_EVENTS}")
+    mesh_faces = check_launches(slam, devices, True, tracks, calls, meshes, tag)
+    track_iters = t["tracked_frames"] * slam.tcfg.iters
+    ba_iters = sum(c[2] for c in calls if c[6])
+    if counts["trilinear_bwd_dp"] != D * (track_iters + ba_iters):
+        raise AssertionError(f"{tag}: K3 {counts['trilinear_bwd_dp']} != {D} x "
+                             f"({track_iters} + {ba_iters})")
+    diverged = [(i, k) for i, planes in enumerate(halos) for k, lo, hi in planes
+                if not torch.equal(lo.to(hi.device), hi)]
+    if diverged or not halos:
+        raise AssertionError(f"{tag}: halo planes differ after (call, grid) {diverged}")
+    events = [e for e in ba["events"] if not e["coarse"]]
+    regular = [e for e in events if 0 < e["idx"] < n - 1]
+    meshing = t["meshing_s"]
+    keys = ("fps", "fps_without_meshing", "tracking_ms_per_frame", "mapping_ms_per_event",
+            "coarse_mapping_ms_per_event", "mapping_ms_per_event_ba",
+            "mapping_ms_per_event_without_ba", "refinement_ms", "ate_cm", "launches")
+    rec = {"devices": [str(d) for d in devices], "D": D, "frames": n,
+           "fps": t.get("fps"), "total_s": t["total_s"], "meshing_s": meshing,
+           "fps_without_meshing": t["frames"] / (t["total_s"] - meshing),
+           "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+           "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+           "coarse_mapping_ms_per_event": t.get("coarse_mapping_ms_per_event"),
+           "mapping_ms_per_event_ba": [e["ms"] for e in regular if e["ba"]],
+           "mapping_ms_per_event_without_ba": [e["ms"] for e in regular if not e["ba"]],
+           "refinement_ms": [e["ms"] for e in events if e["idx"] == n - 1],
+           "ate_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+           "ba_calls": ba_frames, "ba_iterations": ba_iters, "tracking_iters": track_iters,
+           "write_backs": sum(len(c["writes"]) for c in ba["calls"]),
+           "halo_checks": sum(len(x) for x in halos), "halo_bitwise": True,
+           "meshes": mesh_faces, "peak_mem_gib": peak, "launches": counts,
+           "launches_by_device_stream": {f"{k}@cuda:{i}/{s}": v for (k, i, s), v
+                                         in sorted(all_by_device().items())},
+           "dense": {k: dense.get(k) for k in keys if k in dense}}
+    rec["dense"]["fps_without_meshing"] = dense["frames"] / (dense["total_s"]
+                                                             - dense["meshing_s"])
+    return rec, counts
+
+
+def ba_ray_dp(dev, call, devices):
+    """(d) Ray DP with BA on the room's first BA mapping call (``ba_capture``'s).
+    (1) The whole call on one device, each iteration's loss and camera
+    gradient also computed with its rays over ``devices`` from the same
+    state and pixels: per iteration the losses within DP_LOSS_RTOL
+    relative, the camera gradients within DP_LOSS_RTOL of the largest
+    entry.  (2) The call cut to BA_DP_PLAN, on one device and with its rays
+    over ``devices``, on the same host-drawn pixels: the refined window
+    poses within BA_DP_POSE_ATOL (its losses reported: they part after a
+    group's first Adam step, see BA_DP_PLAN).
+    ``over_blocks`` must run for every ray-DP loss (the split asserted).
+    Counts PyTorch's AccumulateGrad stream-mismatch warnings per call."""
+    import inspect
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.slam import mapper as M
+
+    c = call
+    to = devices[0]
+    state = c["state"]
+    args = [c[k].to(to) for k in ("colors", "depths", "fixed_c2w", "cam_tensors",
+                                  "opt_cam_mask", "frame_valid")]
+    F, n = args[0].shape[0], c["pixs_per_image"]
+    H, W = args[0].shape[1:3]
+    inner_blocks, inner_loss = M.over_blocks, M.mapping_loss
+    loss_sig = inspect.signature(inner_loss)
+    blocks, forced = [], []
+
+    def over_blocks(ds, *a):
+        blocks.append(len(ds))
+        return inner_blocks(ds, *a)
+
+    def forced_loss(*a, **k):
+        # the iteration's loss on one device, and again with its rays over
+        # the devices, from the same state and pixels
+        b = loss_sig.bind(*a, **k)
+        b.apply_defaults()
+        one = inner_loss(**b.arguments)
+        dp = inner_loss(**dict(b.arguments, devices=devices))
+        cams = b.arguments["groups"]["cams"]
+        g_one, = torch.autograd.grad(one, [cams], retain_graph=True)
+        g_dp, = torch.autograd.grad(dp, [cams])
+        forced.append(torch.stack([(dp.detach() - one.detach()).abs() / one.detach().abs(),
+                                   (g_dp - g_one).abs().max(), g_one.abs().max()]))
+        return one
+
+    def run(plan, pix, devs, loss_fn):
+        M.over_blocks, M.mapping_loss = over_blocks, loss_fn
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, cams, losses = M.optimize_map_core(
+                    c["spec"], state, *args, c["lr_factor"], c["mcfg"], c["rcfg"], plan,
+                    True, n, pix_idx=pix, devices=devs)
+                torch.cuda.synchronize()
+        finally:
+            M.over_blocks, M.mapping_loss = inner_blocks, inner_loss
+        warned = [str(w.message) for w in caught if "AccumulateGrad" in str(w.message)]
+        return losses.cpu().numpy(), cams.cpu(), warned
+
+    gen = torch.Generator().manual_seed(9)
+    iters = sum(k for _, k in c["stage_plan"])
+    short = sum(k for _, k in BA_DP_PLAN)
+    pix = torch.randint(0, H * W, (max(iters, short), F, n), generator=gen).to(to)
+    _, _, warned_forced = run(c["stage_plan"], pix, None, forced_loss)
+    per_iter = torch.stack(forced).cpu().numpy()
+    n_forced = len(blocks)
+    out = {name: run(BA_DP_PLAN, pix, devs, inner_loss)
+           for name, devs in (("one", None), ("dp", devices))}
+    want_blocks = [len(devices)] * (iters + short)
+    if blocks != want_blocks or n_forced != iters:
+        raise AssertionError(f"ray DP with BA over {devices}: over_blocks ran {blocks}, "
+                             f"not {want_blocks}: the split of {F} x {n} rays did not "
+                             "happen for every ray-DP loss")
+    rel = float(np.max(np.abs(out["dp"][0] - out["one"][0]) / np.abs(out["one"][0])))
+    pose = float((out["dp"][1] - out["one"][1]).abs().max())
+    moved = float((out["one"][1] - c["cam_tensors"].cpu()).abs().max())
+    forced_rel = float(per_iter[:, 0].max())
+    forced_g = float((per_iter[:, 1] / per_iter[:, 2]).max())
+    rec = {"devices": [str(d) for d in devices], "rays_per_iter": F * n,
+           "call": {"plan": c["stage_plan"], "iters": iters,
+                    "loss_max_rel_diff": forced_rel,
+                    "cam_grad_max_rel_diff": forced_g,
+                    "cam_grad_equal_bitwise": bool((per_iter[:, 1] == 0).all())},
+           "short": {"plan": BA_DP_PLAN, "loss_max_rel_diff": rel,
+                     "pose_max_abs_diff": pose, "poses_moved": moved},
+           "loss_rtol": DP_LOSS_RTOL, "pose_atol": BA_DP_POSE_ATOL,
+           "split_blocks": len(devices), "over_blocks_calls": len(blocks),
+           "accumulate_grad_warnings_per_call": {
+               "call_one_and_dp": len(warned_forced), "short_one": len(out["one"][2]),
+               "short_dp": len(out["dp"][2])},
+           "accumulate_grad_warning": (warned_forced + out["dp"][2] + [None])[0]}
+    if not (forced_rel <= DP_LOSS_RTOL and forced_g <= DP_LOSS_RTOL
+            and pose <= BA_DP_POSE_ATOL and moved > 0):
+        raise AssertionError(f"ray DP with BA over {devices}: {rec}")
+    return rec
+
+
+def phase_ba_sharded(dev, dense_room, first_call):
+    """BA over sharded grids and under ray DP: (b) the BA room over
+    [cuda:0] x BA_SHARD_D slabs (and over cuda:0, cuda:1 where two cards
+    are visible), (c) the BA box family over BA_BOX_D slabs for
+    BA_BOX_SEEDS under the strict family's gates, (d) the first BA call
+    with its rays over [cuda:0] x BA_DP_D (and two cards where visible)
+    against one device.  Returns the (b) run's launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    room, counts = ba_sharded_room(dev, [dev] * BA_SHARD_D, dense_room, "ba_sharded")
+    t1 = time.perf_counter()
+    box, box_ok = box_family(dev, "ba_sharded_box", ba=True, seeds=BA_BOX_SEEDS,
+                             devices=[dev] * BA_BOX_D)
+    t2 = time.perf_counter()
+    dp = ba_ray_dp(dev, first_call, [dev] * BA_DP_D)
+    t3 = time.perf_counter()
+    cards = None
+    if torch.cuda.device_count() >= 2:
+        pair = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        cards = {"room": ba_sharded_room(dev, pair, dense_room, "ba_sharded_cards")[0],
+                 "ray_dp": ba_ray_dp(dev, first_call, pair)}
+    emit({"phase": "ba_sharded", "ok": box_ok, "device_count": torch.cuda.device_count(),
+          "room": room, "box_family": box, "ray_dp": dp, "over_distinct_cards": cards,
+          "distinct_cards": cards is not None,
+          "seconds": {"room": t1 - t0, "box_family": t2 - t1, "ray_dp": t3 - t2,
+                      "distinct_cards": time.perf_counter() - t3,
+                      "total": time.perf_counter() - t0}})
+    if not box_ok:
+        raise strict_family_failure("BA box family over slabs", box)
     return counts
+
+
+def phase_imap_ba(dev, room, without_ba, imap_slice):
+    """(e) iMAP* with BA: the box (``imap_box_draw(ba=True)``: BA calls at
+    frames 25 and 29, each write-back checked) for IMAP_QUALITY_SEEDS, the
+    draws run at once, each draw's ATE within IMAP_ATE_GATE_CM and below a
+    frozen camera's (imap_quality's gates, copied), beside the BA-off draws
+    (``without_ba``, the imap_quality phase's); and the iMAP* BA room's
+    record (``phase_imap_ba_room``) beside the imap_slice's BA-off ms per
+    mapping iteration and MLP share (``imap_slice``)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    draws = draws_at_once("imap_box", [kw for _, kw in imap_box_runs("imap_ba", ba=True)])
+    for d in draws:
+        d["without_ba_ate_cm"] = next(x["ate_rmse_cm"] for x in without_ba
+                                      if x["seed"] == d["seed"])
+    ok = all(d["ate_rmse_cm"] <= IMAP_ATE_GATE_CM and d["ate_rmse_cm"] < d["frozen_ate_cm"]
+             and d["ba_calls"] for d in draws)
+    emit({"phase": "imap_ba", "ok": ok, "frames": 30, "draws": draws,
+          "median_ate_cm": float(np.median([d["ate_rmse_cm"] for d in draws])),
+          "median_ate_cm_without_ba": float(np.median([d["ate_rmse_cm"] for d in without_ba])),
+          "gate_cm": IMAP_ATE_GATE_CM, "room": {k: room[k] for k in (
+              "ba_calls", "mapping_ms_per_iter", "mlp_f32_peak_share", "fps", "ate_cm")},
+          "imap_slice_without_ba": {
+              "mapping_ms_per_iter": imap_slice["mapping_ms_per_iter"],
+              "mlp_f32_peak_share": imap_slice["mlp_f32_peak_share"]["mapping"],
+              "fps": imap_slice["fps"], "ate_cm": imap_slice["ate_cm"]},
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError(f"iMAP BA box: ATE {[d['ate_rmse_cm'] for d in draws]} cm; "
+                             f"every draw must be <= {IMAP_ATE_GATE_CM}, beat a frozen "
+                             f"camera ({[d['frozen_ate_cm'] for d in draws]} cm) and run BA")
 
 
 def threaded_run(dev, sync):
@@ -2487,31 +3193,16 @@ def phase_threaded(dev, strict):
           "seconds": time.perf_counter() - t0})
 
 
-def loose_box_family(strict_median_cm, label, device=None, devices=None):
-    """The quality phase's box run under loose for THREADED_SEEDS, on
-    ``device`` or over ``devices`` (with the knobs the caller set): every
-    draw against ATE_DIVERGED_CM, the median against max(3 x the strict
-    family's median, LOOSE_ATE_FLOOR_CM).  Returns the record and whether
-    both gates held."""
+def loose_box_family(strict_median_cm, label, devices=None):
+    """The quality phase's box run under loose for THREADED_SEEDS, on one
+    card or with the grids sharded over ``devices``, the draws run at once
+    (``box_draw``): every draw against ATE_DIVERGED_CM, the median against
+    max(3 x the strict family's median, LOOSE_ATE_FLOOR_CM).  Returns the
+    record and whether both gates held."""
     import numpy as np
 
-    from nice_slam_torch.slam.slam import NiceSLAM
-    from nice_slam_torch.tools.eval_ate import ate_rmse
-    from nice_slam_torch.tools.workloads import box_quality_cfg
-
-    draws = []
-    for seed in THREADED_SEEDS:
-        out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
-        cfg = box_quality_cfg(out)
-        cfg.update(seed=seed, sync_method="loose")
-        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None),
-                        device, devices=devices)
-        slam.run()
-        t = slam.timings
-        draws.append({"seed": seed, "fps": t.get("fps"),
-                      "mapping_events": t["mapping_events"],
-                      "ate_rmse_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(),
-                                                    slam.gt_c2w_list)})
+    draws = draws_at_once("box", [kw for _, kw in box_runs(label, seeds=THREADED_SEEDS,
+                                                         devices=devices, sync="loose")])
     ates = [d["ate_rmse_cm"] for d in draws]
     median = float(np.median(ates))
     gate = max(3 * strict_median_cm, LOOSE_ATE_FLOOR_CM)
@@ -2531,7 +3222,7 @@ def box_family_failure(rec) -> AssertionError:
 def phase_threaded_quality(dev, strict_median_cm):
     """The loose box family on one card (``loose_box_family``)."""
     t0 = time.perf_counter()
-    rec, ok = loose_box_family(strict_median_cm, "threaded_quality", dev)
+    rec, ok = loose_box_family(strict_median_cm, "threaded_quality")
     emit({"phase": "threaded_quality", "ok": ok, **rec,
           "seconds": time.perf_counter() - t0})
     if not ok:
@@ -2666,7 +3357,7 @@ def phase_imap_slice(dev, card):
                                      r.N_importance, r.N_samples, True)
     track_ms_iter = t["tracking_ms_per_frame"] / tc.iters
     map_ms_iter = 1e3 * t["mapping_s"] / map_iters
-    emit({"phase": "imap_slice", "ok": True, "card": card, "frames": slam.n_img,
+    rec = {"frames": slam.n_img,
           "H": slam.H, "W": slam.W, "hidden": slam.spec.decoder.hidden_size,
           "n_blocks": slam.spec.decoder.n_blocks,
           "samples": [r.N_samples, r.N_importance], "regulariser_samples": r.N_samples,
@@ -2694,8 +3385,9 @@ def phase_imap_slice(dev, card):
                                  "mapping": map_flops / (map_ms_iter / 1e3) / PEAK},
           "ate_cm": ate, "frozen_ate_cm": frozen, "init_alive_share": init_alive,
           "final_alive_share": alive_share(slam),
-          "launches": counts, "checkpoint": ckpt})
-    return slam, cfg
+          "launches": counts, "checkpoint": ckpt}
+    emit({"phase": "imap_slice", "ok": True, "card": card, **rec})
+    return slam, cfg, rec
 
 
 def phase_imap_resume(dev, done, cfg):
@@ -2741,15 +3433,17 @@ def phase_imap_resume(dev, done, cfg):
           "panel_s": panel_s})
 
 
-def phase_imap_quality(dev):
-    """The JAX package's selfcheck --imap run for seeds 42, 0, 1: every
-    draw's ATE against IMAP_ATE_GATE_CM, as tests/test_quality_gates.py
-    gates imap_tracked, _s0 and _s1.  The seed-42 draw (imap_tracked
-    itself) also writes its eval_rec mesh and gets the 2D metric (200
-    views, seed 0, as the selfcheck scores it), its depth L1 against
-    IMAP_TRACKED_DEPTH_L1_CM.  The wall distance of each draw's final
-    mesh is reported only: short iMAP* sweeps carry frustum shells."""
+def imap_box_draw(dev, label, seed, ba=False, scored=False):
+    """One draw of the JAX package's selfcheck --imap run
+    (``box_imap_quality_cfg``, BA on where ``ba``) with pixel seed
+    ``seed`` in this process: its ATE beside a frozen camera's, the MLP's
+    share of positive density before and after; without BA its final
+    mesh's wall distance, and where ``scored`` its eval_rec mesh's depth L1
+    (2D metric, DEPTH_L1_IMGS views, seed 0, as the selfcheck scores it);
+    with BA the frames of its BA calls, each write-back checked
+    (``check_ba_calls``)."""
     import numpy as np
+    import torch
 
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.eval_ate import ate_rmse
@@ -2757,33 +3451,53 @@ def phase_imap_quality(dev):
     from nice_slam_torch.tools.selfcheck import gt_room_mesh
     from nice_slam_torch.tools.workloads import box_imap_quality_cfg
 
-    t0 = time.perf_counter()
-    draws = []
-    for seed in IMAP_QUALITY_SEEDS:
-        out = os.path.join(HERE, "output", "chip_smoke", f"imap_quality_s{seed}")
-        cfg = box_imap_quality_cfg(out)
-        cfg["seed"] = seed
-        scored = seed == IMAP_QUALITY_SEEDS[0]
+    out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
+    cfg = box_imap_quality_cfg(out, ba=ba)
+    cfg["seed"] = seed
+    if ba:
+        cfg["meshing"] = None
+    else:
         cfg["meshing"]["eval_rec"] = scored
-        slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
-        init_alive = alive_share(slam)
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), dev)
+    init_alive = alive_share(slam)
+    with ba_recorder(slam) as rec:
         slam.run()
+    if slam.timings["tracked_frames"] != slam.n_img - 1 or \
+            not torch.isfinite(slam.estimate_c2w_list).all():
+        raise AssertionError(f"{label} seed {seed}: a frame untracked or a pose not finite")
+    draw = {"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
+            100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+            "frozen_ate_cm": frozen_ate_cm(slam.gt_c2w_list),
+            "init_alive_share": init_alive, "final_alive_share": alive_share(slam),
+            "ba_calls": check_ba_calls(rec, slam.estimate_c2w_list, f"{label} seed {seed}")
+            if ba else []}
+    if not ba:
         verts, _ = mesh_stats(os.path.join(out, "mesh", "final_mesh.ply"))
-        draw = {"seed": seed, "fps": slam.timings.get("fps"), "ate_rmse_cm":
-                100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
-                "frozen_ate_cm": frozen_ate_cm(slam.gt_c2w_list),
-                "init_alive_share": init_alive, "final_alive_share": alive_share(slam),
-                "mesh_wall_m": box_wall_distance(verts), "vertices": len(verts),
-                "meshing_s": slam.timings["meshing_s"]}
-        if scored:
-            t1 = time.perf_counter()
-            gt = gt_room_mesh(np.asarray(slam.frame_reader.room),
-                              os.path.join(out, "gt_room.ply"), list(slam.gt_c2w_list),
-                              slam.cam, sdf=slam.frame_reader.scene_sdf)
-            d1 = calc_2d_metric(os.path.join(out, "mesh", "final_mesh_eval_rec.ply"), gt,
-                                n_imgs=DEPTH_L1_IMGS, seed=0)["depth_l1_cm"]
-            draw.update(depth_l1_cm=d1, metric_2d_s=time.perf_counter() - t1)
-        draws.append(draw)
+        draw.update(mesh_wall_m=box_wall_distance(verts), vertices=len(verts),
+                    meshing_s=slam.timings["meshing_s"])
+    if scored:
+        t1 = time.perf_counter()
+        gt = gt_room_mesh(np.asarray(slam.frame_reader.room),
+                          os.path.join(out, "gt_room.ply"), list(slam.gt_c2w_list),
+                          slam.cam, sdf=slam.frame_reader.scene_sdf)
+        d1 = calc_2d_metric(os.path.join(out, "mesh", "final_mesh_eval_rec.ply"), gt,
+                            n_imgs=DEPTH_L1_IMGS, seed=0)["depth_l1_cm"]
+        draw.update(depth_l1_cm=d1, metric_2d_s=time.perf_counter() - t1)
+    return draw
+
+
+def phase_imap_quality(dev):
+    """The JAX package's selfcheck --imap run for seeds 42, 0, 1, the draws
+    run at once (``imap_box_draw``): every draw's ATE against
+    IMAP_ATE_GATE_CM, as tests/test_quality_gates.py gates imap_tracked,
+    _s0 and _s1.  The seed-42 draw (imap_tracked itself) also writes its
+    eval_rec mesh and gets the 2D metric, its depth L1 against
+    IMAP_TRACKED_DEPTH_L1_CM.  The wall distance of each draw's final
+    mesh is reported only: short iMAP* sweeps carry frustum shells."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    draws = draws_at_once("imap_box", [kw for _, kw in imap_box_runs("imap_quality")])
     ates = [d["ate_rmse_cm"] for d in draws]
     depth_l1 = draws[0]["depth_l1_cm"]
     # a frozen camera scores 0.73 cm on this short orbit, under the 5 cm
@@ -2801,6 +3515,7 @@ def phase_imap_quality(dev):
                              f"camera ({[d['frozen_ate_cm'] for d in draws]} cm); seed "
                              f"{IMAP_QUALITY_SEEDS[0]} depth L1 {depth_l1} cm (gate "
                              f"{IMAP_TRACKED_DEPTH_L1_CM})")
+    return draws
 
 
 READERS_FRAMES = 5            # frames per layout of the readers' export
@@ -2994,46 +3709,56 @@ def phase_readers(dev):
           "seconds": time.perf_counter() - t0})
 
 
-def phase_tour(dev, imap: bool):
-    """The port's ``selfcheck --gt_camera`` tour (150 frames, a full
-    orbit, mapped from ground-truth cameras; ``--imap`` for the iMAP*
-    model, as QUALITY.json's 'imap' row was recorded), its other flags at
-    their defaults, held to the JAX quality gates; K1-K3 launches counted
-    over the whole call."""
+def tour_run(dev, label, imap=False):
+    """The port's ``selfcheck --gt_camera`` tour (150 frames, a full orbit,
+    mapped from ground-truth cameras; ``--imap`` for the iMAP* model, as
+    QUALITY.json's 'imap' row was recorded), its other flags at their
+    defaults, in this process: its summary and K1-K3's launches."""
     from nice_slam_torch.ops import interp
     from nice_slam_torch.tools import selfcheck
 
-    name = "imap_tour" if imap else "gt_tour"
-    out = os.path.join(HERE, "output", "chip_smoke", name)
+    out = os.path.join(HERE, "output", "chip_smoke", label)
     shutil.rmtree(out, ignore_errors=True)
     flags = ["--frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
-             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--out", out, "--device", "cuda:0",
+             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--out", out, "--device", str(dev),
              "--gt_camera"] + (["--imap"] if imap else [])
     interp.reset_launch_counts()
     t0 = time.perf_counter()
-    s = selfcheck.run(selfcheck.parser().parse_args(flags))
-    seconds = time.perf_counter() - t0
-    counts = dict(interp.launch_counts)
-    t = s["timings"]
-    gates = IMAP_TOUR_GATES if imap else GT_TOUR_GATES
-    failed = [k for k, bound in gates.items()
-              if s[k] is None or not s[k] <= bound]
-    if not imap and not s["completion_ratio_pct"] >= GT_TOUR_RATIO_PCT:
-        failed.append("completion_ratio_pct")
-    if imap:
-        if any(counts.values()):
-            failed.append(f"launches {counts} (the iMAP* path launches none)")
-    elif counts["trilinear_bwd_dp"] != 0 or counts["trilinear_fwd"] <= 0 \
-            or counts["trilinear_bwd_dgrid"] <= 0:
-        failed.append(f"launches {counts} (no tracking: K3 0, K1 and K2 > 0)")
-    emit({"phase": name, "ok": not failed, "flags": flags, "summary": s,
-          "gates": gates, **({} if imap else {"completion_ratio_floor_pct": GT_TOUR_RATIO_PCT}),
-          "slam_s": t["total_s"] - t["meshing_s"], "mesh_s": t["meshing_s"],
-          "gt_mesh_s": t["gt_mesh_s"], "metric_3d_s": t["eval_3d_s"],
-          "metric_2d_s": t["eval_2d_s"], "fps": t.get("fps"), "launches": counts,
-          "seconds": seconds})
-    if failed:
-        raise AssertionError(f"{name} failed its gates: {failed}")
+    summary = selfcheck.run(selfcheck.parser().parse_args(flags))
+    return {"imap": imap, "flags": flags, "summary": summary,
+            "launches": dict(interp.launch_counts), "seconds": time.perf_counter() - t0}
+
+
+def phase_tours(dev):
+    """The gt and iMAP* tours (``tour_run``), the two at once, each held to
+    the JAX quality gates; K1-K3 launches counted over each whole run."""
+    failed_any = []
+    for r in draws_at_once("tour", [dict(label="gt_tour", imap=False),
+                                    dict(label="imap_tour", imap=True)]):
+        imap, s, counts = r["imap"], r["summary"], r["launches"]
+        name = "imap_tour" if imap else "gt_tour"
+        t = s["timings"]
+        gates = IMAP_TOUR_GATES if imap else GT_TOUR_GATES
+        failed = [k for k, bound in gates.items()
+                  if s[k] is None or not s[k] <= bound]
+        if not imap and not s["completion_ratio_pct"] >= GT_TOUR_RATIO_PCT:
+            failed.append("completion_ratio_pct")
+        if imap:
+            if any(counts.values()):
+                failed.append(f"launches {counts} (the iMAP* path launches none)")
+        elif counts["trilinear_bwd_dp"] != 0 or counts["trilinear_fwd"] <= 0 \
+                or counts["trilinear_bwd_dgrid"] <= 0:
+            failed.append(f"launches {counts} (no tracking: K3 0, K1 and K2 > 0)")
+        emit({"phase": name, "ok": not failed, "flags": r["flags"], "summary": s,
+              "gates": gates,
+              **({} if imap else {"completion_ratio_floor_pct": GT_TOUR_RATIO_PCT}),
+              "slam_s": t["total_s"] - t["meshing_s"], "mesh_s": t["meshing_s"],
+              "gt_mesh_s": t["gt_mesh_s"], "metric_3d_s": t["eval_3d_s"],
+              "metric_2d_s": t["eval_2d_s"], "fps": t.get("fps"), "launches": counts,
+              "seconds": r["seconds"], "run_at_once_with_the_other_tour": True})
+        failed_any += [f"{name}: {f}" for f in failed]
+    if failed_any:
+        raise AssertionError(f"the tours failed their gates: {failed_any}")
 
 
 # QUALITY.json's tracked_tour record (tests/test_quality_gates.py:59-61): the
@@ -3545,16 +4270,21 @@ def slab_bytes(slabs, windows, p):
     return owned, touched
 
 
-def window_case(label, c, D, devices, dense_rows, timed_slab):
-    """K1, K2 and K3 with slab windows over one case's grids, each cut into
-    D slabs on ``devices``: every slab's launch against its plain version
-    (K1 1e-5, K2 32 ulps of its float64 sum, K3 1e-4 of max |dp|); the
-    slabs' K1 summed against dense K1 bit for bit, their K2 reassembled by
-    unshard_grid_grad against the dense float64 sum within K2's gate (and,
-    after fold_halo_grads, both copies of each shared plane equal), their
-    K3 summed against dense K3 within 1e-4.  With ``timed_slab`` the
-    launches of the slab owning the most points are timed and bounded by
-    that slab's own bytes.  Returns (checks, rows)."""
+K1_K3 = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp")
+
+
+def window_case(label, c, D, devices, dense_rows, timed_slab, kernels=K1_K3):
+    """K1, K2 and K3 (those of ``kernels``) with slab windows over one
+    case's grids, each cut into D slabs on ``devices``: every slab's
+    launch against its plain version (K1 1e-5, K2 32 ulps of its float64
+    sum, K3 1e-4 of max |dp|); the slabs' K1 summed against dense K1 bit
+    for bit, their K2 reassembled by unshard_grid_grad against the dense
+    float64 sum within K2's gate (and, after fold_halo_grads, both copies
+    of each shared plane equal), their K3 summed in device order on the
+    points' device (as the sharded lookup's backward sums them) against
+    dense K3 within 1e-4.  With ``timed_slab`` the launches of the slab
+    owning the most points are timed and bounded by that slab's own
+    bytes.  Returns (checks, rows)."""
     import torch
 
     from nice_slam_torch.ops import interp
@@ -3566,19 +4296,33 @@ def window_case(label, c, D, devices, dense_rows, timed_slab):
     sharded = [gs.shard_grid(g, devices) for g in grids]
     feats = dps = None
     slab_grads = [[] for _ in grids]
-    worst = {"trilinear_fwd": 0.0, "trilinear_bwd_dgrid": 0.0, "trilinear_bwd_dp": 0.0}
+    worst = {k: 0.0 for k in kernels}
     owned_by_slab = []
     for d, dev_d in enumerate(devices):
         slabs = [sg.slabs[d] for sg in sharded]
         ws = [sg.window(d) for sg in sharded]
         pd, cd = p.to(dev_d), [g.to(dev_d) for g in cots]
-        f = interp.trilinear_fwd_multi(slabs, pd, ws)
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(f, interp.trilinear_fwd_multi_plain(slabs, pd, ws)))
-        if not err <= 1e-5:
-            raise AssertionError(f"K1 {label} D={D} slab {d}: {err} > 1e-5")
-        worst["trilinear_fwd"] = max(worst["trilinear_fwd"], err)
         shapes = [tuple(s.shape) for s in slabs]
+        owned_by_slab.append(slab_bytes(slabs, ws, pd)[0][0])
+        if "trilinear_fwd" in kernels:
+            f = interp.trilinear_fwd_multi(slabs, pd, ws)
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(f, interp.trilinear_fwd_multi_plain(slabs, pd, ws)))
+            if not err <= 1e-5:
+                raise AssertionError(f"K1 {label} D={D} slab {d}: {err} > 1e-5")
+            worst["trilinear_fwd"] = max(worst["trilinear_fwd"], err)
+            f = [x.to(p.device) for x in f]
+            feats = f if feats is None else [a + b for a, b in zip(feats, f)]
+        if "trilinear_bwd_dp" in kernels:
+            dp = interp.trilinear_bwd_dp_multi(slabs, pd, cd, ws)
+            ref = interp.trilinear_bwd_dp_multi_plain(slabs, pd, cd, ws)
+            err = float((dp - ref).abs().max())
+            if not err <= 1e-4 * float(ref.abs().max()):
+                raise AssertionError(f"K3 {label} D={D} slab {d}: {err}")
+            worst["trilinear_bwd_dp"] = max(worst["trilinear_bwd_dp"], err)
+            dps = dp.to(p.device) if dps is None else dps + dp.to(p.device)
+        if "trilinear_bwd_dgrid" not in kernels:
+            continue
         dg = interp.trilinear_bwd_dgrid_multi(pd, cd, shapes, ws)
         for g, cot, s, w in zip(dg, cd, shapes, ws):
             ref, scale = slab_f64(pd, cot, s, w)
@@ -3590,41 +4334,36 @@ def window_case(label, c, D, devices, dense_rows, timed_slab):
             if not err <= max(32 * eps * float(scale.max()), tiny):
                 raise AssertionError(f"K2 {label} D={D} slab {d} {s}: {err}")
             worst["trilinear_bwd_dgrid"] = max(worst["trilinear_bwd_dgrid"], err)
-        dp = interp.trilinear_bwd_dp_multi(slabs, pd, cd, ws)
-        ref = interp.trilinear_bwd_dp_multi_plain(slabs, pd, cd, ws)
-        err = float((dp - ref).abs().max())
-        if not err <= 1e-4 * float(ref.abs().max()):
-            raise AssertionError(f"K3 {label} D={D} slab {d}: {err}")
-        worst["trilinear_bwd_dp"] = max(worst["trilinear_bwd_dp"], err)
-        f = [x.to(p.device) for x in f]
-        feats = f if feats is None else [a + b for a, b in zip(feats, f)]
-        dps = dp.to(p.device) if dps is None else dps + dp.to(p.device)
         for i, g in enumerate(dg):
             slab_grads[i].append(g)
-        owned_by_slab.append(slab_bytes(slabs, ws, pd)[0][0])
-    dense_f = interp.trilinear_fwd_multi(grids, p)
-    if not all(torch.equal(a, b) for a, b in zip(feats, dense_f)):
-        raise AssertionError(f"K1 {label} D={D}: the slabs' sum differs from dense K1")
-    k2_sum_err = 0.0
-    for sg, grads, cot, g in zip(sharded, slab_grads, cots, grids):
-        dense = gs.unshard_grid_grad(grads, tuple(g.shape), sg.planes)
-        ref, scale = dgrid_f64(p, cot, tuple(g.shape))
-        err = float((dense.to(p.device).double() - ref).abs().max())
-        if not err <= 32 * eps * float(scale.max()):
-            raise AssertionError(f"K2 {label} D={D}: unshard_grid_grad {err}")
-        k2_sum_err = max(k2_sum_err, err)
-        folded = gs.fold_halo_grads(grads)
-        if not all(torch.equal(lo[-1].to(hi.device), hi[0])
-                   for lo, hi in zip(folded[:-1], folded[1:])):
-            raise AssertionError(f"K2 {label} D={D}: folded halo copies differ")
-    dense_dp = interp.trilinear_bwd_dp_multi(grids, p, cots)
-    k3_sum_err = float((dps - dense_dp).abs().max())
-    if not k3_sum_err <= 1e-4 * float(dense_dp.abs().max()):
-        raise AssertionError(f"K3 {label} D={D}: the slabs' sum is off by {k3_sum_err}")
     checks = {"case": label, "D": D, "devices": [str(x) for x in devices],
-              "planes": [sg.planes for sg in sharded], "k1_sum_bitwise": True,
-              "k2_unshard_err": k2_sum_err, "k3_sum_err": k3_sum_err,
-              "max_abs_err": worst, "owned_by_slab": owned_by_slab}
+              "planes": [sg.planes for sg in sharded], "max_abs_err": worst,
+              "owned_by_slab": owned_by_slab}
+    if "trilinear_fwd" in kernels:
+        dense_f = interp.trilinear_fwd_multi(grids, p)
+        if not all(torch.equal(a, b) for a, b in zip(feats, dense_f)):
+            raise AssertionError(f"K1 {label} D={D}: the slabs' sum differs from dense K1")
+        checks["k1_sum_bitwise"] = True
+    if "trilinear_bwd_dgrid" in kernels:
+        k2_sum_err = 0.0
+        for sg, grads, cot, g in zip(sharded, slab_grads, cots, grids):
+            dense = gs.unshard_grid_grad(grads, tuple(g.shape), sg.planes)
+            ref, scale = dgrid_f64(p, cot, tuple(g.shape))
+            err = float((dense.to(p.device).double() - ref).abs().max())
+            if not err <= 32 * eps * float(scale.max()):
+                raise AssertionError(f"K2 {label} D={D}: unshard_grid_grad {err}")
+            k2_sum_err = max(k2_sum_err, err)
+            folded = gs.fold_halo_grads(grads)
+            if not all(torch.equal(lo[-1].to(hi.device), hi[0])
+                       for lo, hi in zip(folded[:-1], folded[1:])):
+                raise AssertionError(f"K2 {label} D={D}: folded halo copies differ")
+        checks["k2_unshard_err"] = k2_sum_err
+    if "trilinear_bwd_dp" in kernels:
+        dense_dp = interp.trilinear_bwd_dp_multi(grids, p, cots)
+        k3_sum_err = float((dps - dense_dp).abs().max())
+        if not k3_sum_err <= 1e-4 * float(dense_dp.abs().max()):
+            raise AssertionError(f"K3 {label} D={D}: the slabs' sum is off by {k3_sum_err}")
+        checks.update(k3_sum_err=k3_sum_err, k3_gate=1e-4 * float(dense_dp.abs().max()))
     rows = []
     if timed_slab:
         d = max(range(D), key=lambda i: owned_by_slab[i])
@@ -3649,6 +4388,8 @@ def window_case(label, c, D, devices, dense_rows, timed_slab):
              lambda: interp.trilinear_bwd_dp_multi_plain(slabs, p, cots, ws),
              pts_b + row_b + own_b + pts_b, sum(owned) * 8 * C * 2)]
         for kernel, fn, plain, bytes_, flops in specs:
+            if kernel not in kernels:
+                continue
             geometry = ({"geometry": k1_launch_geometry(base["case"], n, slabs, p.device)}
                         if kernel == "trilinear_fwd" else {})
             rows.append(dict(base, kernel=kernel, max_abs_err=worst[kernel],
@@ -3768,38 +4509,6 @@ def sharded_loop(dev, devices, strict, out_name):
                                               "mapping_ms_per_event", "mapping_ms_per_iter",
                                               "meshing_s")},
             "resumed_bitwise": True, "halo_bitwise": True}
-
-
-def sharded_box_family(devices):
-    """The quality phase's 30-frame box run (no mesh) sharded over
-    ``devices`` for SHARD_BOX_SEEDS: every draw within ATE_DIVERGED_CM, the
-    median within ATE_GATE_CM (the strict family's gates)."""
-    import numpy as np
-
-    from nice_slam_torch.slam.slam import NiceSLAM
-    from nice_slam_torch.tools.eval_ate import ate_rmse
-    from nice_slam_torch.tools.workloads import box_quality_cfg
-
-    draws = []
-    os.environ["NICE_SLAM_TORCH_SPATIAL"] = "1"
-    try:
-        for seed in SHARD_BOX_SEEDS:
-            out = os.path.join(HERE, "output", "chip_smoke", f"sharded_box_s{seed}")
-            cfg = box_quality_cfg(out)
-            cfg.update(seed=seed, meshing=None)
-            slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), devices=devices)
-            slam.run()
-            draws.append({"seed": seed, "fps": slam.timings.get("fps"),
-                          "ate_rmse_cm": 100 * ate_rmse(
-                              slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list)})
-    finally:
-        del os.environ["NICE_SLAM_TORCH_SPATIAL"]
-    ates = [d["ate_rmse_cm"] for d in draws]
-    median = float(np.median(ates))
-    if not (median <= ATE_GATE_CM and max(ates) <= ATE_DIVERGED_CM):
-        raise AssertionError(f"sharded box ATE {ates} cm: median {median} (gate "
-                             f"{ATE_GATE_CM}), each within {ATE_DIVERGED_CM}")
-    return {"D": len(devices), "draws": draws, "median_ate_cm": median}
 
 
 def data_parallel_checks(dev, cap):
@@ -3949,7 +4658,10 @@ def phase_sharded(dev, cases, dense_rows, cap, strict):
         raise AssertionError(f"per_device_bytes {loop['per_device_bytes']} at D = 4, "
                              f"not within 1 % of {PER_DEVICE_BYTES_D4}")
     t_loop = time.perf_counter() - t0 - t_kernels
-    box = sharded_box_family([dev] * SHARD_BOX_D)
+    box, box_ok = box_family(dev, "sharded_box", seeds=SHARD_BOX_SEEDS,
+                             devices=[dev] * SHARD_BOX_D)
+    if not box_ok:
+        raise strict_family_failure("sharded box family", box)
     dp = data_parallel_checks(dev, cap)
     pin = coarse_pin_checks(dev, cap)
     distinct = None
@@ -4003,8 +4715,9 @@ def chunk_sizes(n: int, chunk: int):
 def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     """The K1-K10 launches a run's recorded calls make, per (kernel, device
     index, thread): ``tracks`` (thread, lag) per tracked frame, ``calls``
-    (thread, coarse, iterations, rays, K6 launches) per mapping call, ``meshes``
-    (thread, path) per mesh written.  Returns them and each mesh's faces."""
+    (thread, coarse, iterations, rays, K6 launches, K10 launches, BA) per
+    mapping call, ``meshes`` (thread, path) per mesh written.  Returns them
+    and each mesh's faces."""
     import collections
 
     D = len(devices)
@@ -4020,7 +4733,8 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
             for k in kernels:
                 want[(k, d.index, th)] += times
 
-    # K1-K3 run once per slab (sharded) or replica; the decoder stage and
+    # K1-K3 run once per slab (sharded) or replica (K3 in a mapping
+    # iteration only under BA, where the points need a gradient); the decoder stage and
     # the integrator once per replica, on the points' device when the grids
     # are sharded; K9 once per step on each card the trained leaves lie on
     # (the slabs' cards; the first, where a replicated scene trains; the
@@ -4029,12 +4743,12 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     for th, _ in tracks:
         add((k1, k3), th, devices if sharded else first, slam.tcfg.iters)
         add((k4, k5, k7, k8, k9), th, first, slam.tcfg.iters)
-    for th, coarse, iters, rays, k6_calls, frustum in calls:
+    for th, coarse, iters, rays, k6_calls, frustum, ba in calls:
         if sharded or (not coarse and rays % D == 0):
             devs = devices
         else:
             devs = [devices[-1]] if coarse else first
-        add((k1, k2), th, devs, iters)
+        add((k1, k2, k3) if ba else (k1, k2), th, devs, iters)
         add((k4, k5, k7, k8), th, first if sharded else devs, iters)
         add((k6,), th, first if sharded else devs, k6_calls)
         add((k9,), th, cards if sharded else [devices[-1]] if coarse else first, iters)
@@ -4252,9 +4966,7 @@ def phase_threaded_sharded(dev, sharded_loop_rec, strict_median_cm):
     b = devices_run([dev] * TS_DP_D, "free", "ray_dp", "ts_free_dp")
     b_strict = devices_run([dev] * TS_DP_D, "strict", "ray_dp", "ts_strict_dp")
     t_runs = time.perf_counter() - t0
-    with knobs(True):
-        box, box_ok = loose_box_family(strict_median_cm, "ts_box",
-                                       devices=[dev] * TS_BOX_D)
+    box, box_ok = loose_box_family(strict_median_cm, "ts_box", devices=[dev] * TS_BOX_D)
     n_cards = torch.cuda.device_count()
     distinct = None
     if n_cards >= 2:
@@ -4318,6 +5030,10 @@ KERNEL_META = {
 NEW_PATH_CASES = ("mesh_fine", "render_color", "pretrain_coarse", "pretrain_fine")
 
 
+# the child processes' runs (``--draw KIND``, ``draws_at_once``)
+DRAWS = {"box": box_draw, "imap_box": imap_box_draw, "tour": tour_run}
+
+
 def device_line(torch) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -4333,6 +5049,11 @@ def main(argv=None) -> int:
     parser.add_argument("--tour_draw", type=int, default=None, metavar="SEED",
                         help="one draw of the tracked tour, its record as the last line "
                              "(the processes --tracked_tour starts)")
+    parser.add_argument("--draw", choices=sorted(DRAWS), default=None,
+                        help="one draw of a box family, its record as the last line "
+                             "(the processes draws_at_once starts; --draw_args its "
+                             "keyword arguments as JSON)")
+    parser.add_argument("--draw_args", default="{}", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4341,6 +5062,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)  # one card; the sharded phase adds logical devices
     if args.tour_draw is not None:
         emit(tour_draw(args.tour_draw, dev))
+        return 0
+    if args.draw is not None:
+        emit(DRAWS[args.draw](dev, **json.loads(args.draw_args)))
         return 0
     card = smi()
     t0 = time.perf_counter()
@@ -4359,30 +5083,52 @@ def main(argv=None) -> int:
         phase_build()
         cases, lookups, cap = phase_capture(dev)
         cases["ba"] = ba_capture(dev)
-        rows = phase_kernels(dev, cases, lookups)
+        first_ba_call = cases["ba"].pop("first_call")
+        imap_ba_room, imap_k8 = phase_imap_ba_room(dev)
+        imap_ba_counts = imap_ba_room["launches"]
+        rows, _, ba_window_rows = phase_kernels(dev, cases, lookups, imap_k8)
+        del imap_k8
         counts, done, cfg, strict = phase_slice(dev)
         phase_resume(dev, done, cfg)
         phase_vis(dev, done)
         del done
         phase_profile(dev)
+        # the families' draws in two batches (the box families are
+        # host-bound, the iMAP* ones GPU-bound), each gated by its phase
+        ahead(dev, "draws_quality", box_runs("quality") + imap_box_runs("imap_quality")
+              + box_runs("sharded_box", seeds=SHARD_BOX_SEEDS, devices=[dev] * SHARD_BOX_D))
         strict_median = phase_quality(dev)
-        ba_counts = phase_ba(dev, strict, strict_median)
+        ahead(dev, "draws_ba", box_runs("ba_quality", ba=True)
+              + box_runs("ba_sharded_box", ba=True, seeds=BA_BOX_SEEDS,
+                         devices=[dev] * BA_BOX_D)
+              + imap_box_runs("imap_ba", ba=True))
+        ba_counts, ba_room_rec = phase_ba(dev, strict, strict_median)
+        ba_sharded_counts = phase_ba_sharded(dev, ba_room_rec, first_ba_call)
+        del first_ba_call
         phase_threaded(dev, strict)
+        ahead(dev, "draws_loose", box_runs("threaded_quality", seeds=THREADED_SEEDS,
+                                           sync="loose")
+              + box_runs("ts_box", seeds=THREADED_SEEDS, devices=[dev] * TS_BOX_D,
+                         sync="loose")
+              + [("tour", dict(label="gt_tour", imap=False)),
+                 ("tour", dict(label="imap_tour", imap=True))])
         phase_threaded_quality(dev, strict_median)
-        done, cfg = phase_imap_slice(dev, card)
+        done, cfg, imap_slice = phase_imap_slice(dev, card)
         phase_imap_resume(dev, done, cfg)
         del done
-        phase_imap_quality(dev)
+        imap_without_ba = phase_imap_quality(dev)
+        phase_imap_ba(dev, imap_ba_room, imap_without_ba, imap_slice)
         phase_readers(dev)
         window_rows, sharded_counts, sharded_loop_rec = phase_sharded(
             dev, cases, rows, cap, strict)
         del cap
+        window_rows += ba_window_rows
         ts_counts = phase_threaded_sharded(dev, sharded_loop_rec, strict_median)
-        phase_tour(dev, imap=False)
-        phase_tour(dev, imap=True)
+        phase_tours(dev)
         pretrain_rows, pretrain_counts = phase_pretrain(dev)
         rows += pretrain_rows
-        phase_counts = {"slice": counts, "ba": ba_counts, "pretrain": pretrain_counts,
+        phase_counts = {"slice": counts, "ba": ba_counts, "ba_sharded": ba_sharded_counts,
+                        "imap_ba": imap_ba_counts, "pretrain": pretrain_counts,
                         "sharded": sharded_counts, "threaded_sharded": ts_counts,
                         "envelope": phase_envelope(dev),
                         "landscape": phase_landscape(dev)}

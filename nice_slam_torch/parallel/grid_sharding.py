@@ -107,12 +107,41 @@ def shard_scene_grids(grids: Dict[str, torch.Tensor],
     return {name: shard_grid(g, devices) for name, g in grids.items()}
 
 
+class _ToSlabs(torch.autograd.Function):
+    """The points sent to each slab's device, every slab getting all of
+    them (a view where the device is the points' own).  Backward: the
+    slabs' point gradients summed on the points' device in device order.
+
+    A slab's K3 answers only the points it owns in each grid, but the
+    grids of one lookup are cut at different planes, so one point's
+    gradient may come from up to one slab per grid.  Autograd would add
+    the D gradients in the order they arrive, which over several cards
+    varies from run to run; here the order is fixed."""
+
+    @staticmethod
+    def forward(ctx, p, devices):
+        ctx.device = p.device
+        return tuple(p.view_as(p) if dev == p.device else p.to(dev)
+                     for dev in devices)
+
+    @staticmethod
+    def backward(ctx, *dps):
+        total = None
+        for dp in dps:
+            if dp is None:
+                continue
+            dp = dp.to(ctx.device)
+            total = dp if total is None else total + dp
+        return total, None
+
+
 def sharded_trilinear_interp_multi(grids: Sequence[ShardedGrid],
                                    p_nor: torch.Tensor) -> List[torch.Tensor]:
     """Distributed ``ops.interp.trilinear_interp_multi``: per device one
     lookup Function (one K1 launch) over that device's slabs of every
-    grid, the points copied there; the D answers summed on the points'
-    device, in device order."""
+    grid, all the points copied there; the D answers summed on the
+    points' device, in device order, and in the backward the D point
+    gradients too (``_ToSlabs``)."""
     grids = list(grids)
     if not all(isinstance(g, ShardedGrid) for g in grids):
         raise ValueError("a lookup mixes sharded and dense grids")
@@ -121,8 +150,9 @@ def sharded_trilinear_interp_multi(grids: Sequence[ShardedGrid],
         raise ValueError("the grids of one lookup must be sharded over the same "
                          f"devices, got {grids}")
     out: Optional[List[torch.Tensor]] = None
-    for d, dev in enumerate(devices):
-        part = trilinear_interp_multi([g.slabs[d] for g in grids], p_nor.to(dev),
+    points = _ToSlabs.apply(p_nor, devices)
+    for d, p_d in enumerate(points):
+        part = trilinear_interp_multi([g.slabs[d] for g in grids], p_d,
                                       [g.window(d) for g in grids])
         part = [f.to(p_nor.device) for f in part]
         out = part if out is None else [a + b for a, b in zip(out, part)]

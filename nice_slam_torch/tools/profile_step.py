@@ -1,7 +1,7 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
     python -m nice_slam_torch.tools.profile_step [--out DIR] [--ba]
-        [--imap | --schedules [strict,loose,free] [--devices LIST]]
+        [--imap | --schedules [strict,loose,free]] [--devices LIST]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
 17 frames of the strict loop, so the map and a full 5-frame keyframe
@@ -28,7 +28,12 @@ whose plain chains they were.  Needs a CUDA device.
 (``mapping_call_ba``: the window poses but the oldest trained with the map,
 so K3 runs in every iteration; each run of it writes the refined window
 poses back into the keyframe store, as a BA call does), beside the BA-off
-``mapping_call``.
+``mapping_call``.  With ``--devices`` (and no ``--schedules``) the system
+runs over that device list under the environment's multi-device knobs:
+``NICE_SLAM_TORCH_SPATIAL=1`` shards the grids into x-slabs, so the calls
+are the sharded ones; otherwise the main mapper's rays are split over the
+devices (ray data parallelism).  Each row then names the devices and
+whether the grids are sharded.
 
 ``--imap`` profiles the iMAP* model instead (``replica_imap_cfg``, 17
 frames, the first mapping 300 iterations): one tracked frame (50
@@ -286,8 +291,9 @@ def main() -> None:
     parser.add_argument("--ba", action="store_true",
                         help="also profile the mapping call with bundle adjustment")
     parser.add_argument("--devices", default=None,
-                        help="--schedules over this comma-separated device "
-                             "list (default: every visible card)")
+                        help="run over this comma-separated device list (it may "
+                             "repeat a card; --schedules' default: every visible "
+                             "card; otherwise cuda)")
     args = parser.parse_args()
 
     import torch
@@ -314,7 +320,9 @@ def main() -> None:
         return
     make = replica_imap_cfg if args.imap else replica_synthetic_cfg
     cfg = make(out, n_frames=17, iters_first=300)
-    slam = NiceSLAM(cfg, argparse.Namespace(nice=not args.imap, output=None), "cuda")
+    devices = args.devices and args.devices.split(",")
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=not args.imap, output=None), "cuda",
+                    devices=devices)
     slam.run()  # keyframes at 0, 5, 10, 15
     m = slam.mapper  # undo the final frame's color-refine settings
     for attr in ("mapping_window_size", "middle_iter_ratio", "fine_iter_ratio",
@@ -384,6 +392,9 @@ def main() -> None:
             fn()
             torch.cuda.synchronize()
         row = {"what": name, "device": card}
+        if devices:
+            row.update(devices=devices, sharded=slam.spatial_devices is not None,
+                       ray_dp=slam.mapper.devices is not None)
         if name.startswith("mapping_call"):
             row["iterations"] = map_iters
         row.update(_device_summary(prof, wall))

@@ -17,6 +17,8 @@ oldest are optimised with the map, at ``BA_cam_lr`` in the color stage
 and lr 0 before it.  BA engages once the store holds five keyframes, so
 with a keyframe every 5th frame the default 30 frames give BA mapping
 events at frames 25 and 29 (the last, 5 calls of the final refinement).
+With ``NICE_SLAM_TORCH_SPATIAL=1`` and a device list the same room runs
+BA over grids sharded into x-slabs (``parallel/grid_sharding.py``).
 
 ``box_quality_cfg``: the 30-frame tracked box run whose ATE the quality
 gate of the JAX package holds to 9.5 cm (box.yaml on nice_slam.yaml,
@@ -32,12 +34,21 @@ colour refinement on) on the synthetic room with room0's bound at
 680x1200, random decoder weights from the config's seed.  Cut for time:
 ``n_frames`` frames, the first mapping ``iters_first`` iterations (config
 1500), a keyframe every 5th frame (config 50), one final mesh (the config
-also writes its ``eval_rec`` variant).
+also writes its ``eval_rec`` variant).  ``ba`` turns bundle adjustment on
+(``configs/imap.yaml`` turns it off; the camera learning rate is then on
+in every iteration) and maps and keeps a keyframe every 2nd frame: BA
+engages once the store holds five keyframes (frames 0-8), so 12 frames
+give BA calls at frame 10 (3 calls) and frame 11 (the final
+refinement's 5); with a mapping event every 5th frame, as the config
+has it, 12 frames keep only 3 keyframes.
 
 ``box_imap_quality_cfg``: the JAX package's ``selfcheck --imap`` run
 (box.yaml on imap.yaml, 30 frames, 0.25 rad orbit, mapping iters 60,
 first 400, coarse off, resolution 128) whose per-seed ATE
-``tests/test_quality_gates.py`` holds to 5 cm.
+``tests/test_quality_gates.py`` holds to 5 cm.  ``ba`` turns bundle
+adjustment on at the box's own rate, a mapping event and a keyframe every
+5th frame: five keyframes (frames 0-20) give BA calls at frame 25 (3
+calls) and frame 29 (the final refinement's 5).
 """
 
 from __future__ import annotations
@@ -86,7 +97,7 @@ def box_quality_cfg(out_dir: str, ba: bool = False) -> Dict[str, Any]:
 
 
 def replica_imap_cfg(out_dir: str, n_frames: int = 12,
-                     iters_first: int = 1500) -> Dict[str, Any]:
+                     iters_first: int = 1500, ba: bool = False) -> Dict[str, Any]:
     cfg = load_config(os.path.join(ROOT, "configs", "Replica", "replica_imap.yaml"),
                       os.path.join(ROOT, "configs", "imap.yaml"))
     cfg.update(dataset="synthetic", verbose=False, seed=0)
@@ -95,14 +106,16 @@ def replica_imap_cfg(out_dir: str, n_frames: int = 12,
     cfg["mapping"].update(bound=REPLICA_ROOM, marching_cubes_bound=REPLICA_ROOM,
                           BA=False, keyframe_every=5, iters_first=iters_first)
     cfg["meshing"]["eval_rec"] = False
+    if ba:
+        cfg["mapping"].update(BA=True, every_frame=2, keyframe_every=2)
     return cfg
 
 
-def box_imap_quality_cfg(out_dir: str) -> Dict[str, Any]:
+def box_imap_quality_cfg(out_dir: str, ba: bool = False) -> Dict[str, Any]:
     cfg = load_config(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
                       os.path.join(ROOT, "configs", "imap.yaml"))
     cfg["coarse"] = False
     cfg["verbose"] = False
     cfg["data"].update(n_frames=30, orbit_radians=0.25, output=out_dir)
-    cfg["mapping"].update(iters=60, iters_first=400)
+    cfg["mapping"].update(iters=60, iters_first=400, BA=ba)
     return cfg

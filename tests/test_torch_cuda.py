@@ -2075,3 +2075,88 @@ def test_ba_mapping_call_on_cuda_matches_cpu(dev):
         assert float((diff <= 1e-4).float().mean()) >= 0.999, name
         assert float(diff.max()) <= 2 * budget, name
 
+
+
+# ---------------------------------------------------------------------------
+# BA on the parallel paths: K3 with slab windows at mapping shapes, K9's
+# camera leaf beside slab leaves
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("case", list(BA_STAGE_GRIDS))
+def test_k3_slab_windows_at_ba_mapping_shapes_match_plain(dev, case, D):
+    """K3 under a slab window at a BA mapping iteration's 48k points, each
+    grid of the stage cut into D slabs: one launch per slab, within 1e-4
+    of its plain version's largest entry; the slabs' gradients summed in
+    device order within 1e-4 of dense K3; and the sharded lookup's
+    backward returns exactly that device-order sum."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+
+    gen = torch.Generator().manual_seed(11)
+    grids = [torch.randn(s, generator=gen).to(dev) for s in BA_STAGE_GRIDS[case]]
+    p = _ray_samples(1000, seed=4).to(dev)
+    cots = [torch.randn((p.shape[0], 32), generator=gen).to(dev) for _ in grids]
+    sharded = [gs.shard_grid(g, [dev] * D) for g in grids]
+    total = None
+    for d in range(D):
+        slabs = [sg.slabs[d] for sg in sharded]
+        ws = [sg.window(d) for sg in sharded]
+        interp.reset_launch_counts()
+        dp = interp.trilinear_bwd_dp_multi(slabs, p, cots, ws)
+        torch.cuda.synchronize()
+        assert interp.launch_counts["trilinear_bwd_dp"] == 1
+        ref = interp.trilinear_bwd_dp_multi_plain(slabs, p, cots, ws)
+        assert float((dp - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1e-30)
+        total = dp if total is None else total + dp
+    dense = interp.trilinear_bwd_dp_multi(grids, p, cots)
+    assert float((total - dense).abs().max()) <= 1e-4 * float(dense.abs().max())
+    q = p.clone().requires_grad_(True)
+    feats = gs.sharded_trilinear_interp_multi(sharded, q)
+    got, = torch.autograd.grad(sum(torch.sum(f * c) for f, c in zip(feats, cots)), [q])
+    assert torch.equal(got, total)
+
+
+def test_group_adam_camera_leaf_beside_slab_leaves(dev):
+    """A BA color-stage step with the grid sharded over cuda:0 and a second
+    device (cuda:1 where two cards are visible, else cuda:0 again) and the
+    camera leaf (5 x 7) on cuda:0: one K9 launch per distinct device, the
+    camera leaf stepped once at its lr, every leaf as the plain step on
+    the CPU gives it after 3 steps (atol 1e-6, rtol 1e-5), and the halo
+    copies of the shared plane equal after the fold."""
+    from nice_slam_torch.parallel import grid_sharding as gs
+    from nice_slam_torch.slam import optim as O
+
+    second = torch.device("cuda", 1 if torch.cuda.device_count() > 1 else 0)
+    devices = [torch.device("cuda", 0), second]
+    gen = torch.Generator().manual_seed(6)
+    grid = torch.randn((74, 56, 43, 32), generator=gen)
+    cams = torch.randn((5, 7), generator=gen)
+    mask = (torch.rand((74, 56, 43, 1), generator=gen) < 0.5).float()
+    on = {"grid_fine": gs.shard_grid(grid, devices), "cams": cams.to(devices[0])}
+    cpu = {"grid_fine": gs.shard_grid(grid, ["cpu"] * 2), "cams": cams.clone()}
+    planes = on["grid_fine"].planes
+    masks_on = gs.shard_grid(mask, devices).slabs
+    masks_cpu = gs.shard_grid(mask, ["cpu"] * 2).slabs
+    opt_d, opt_c = O.GroupAdam(on), O.GroupAdam(cpu)
+    lrs = {"grid_fine": 0.005, "cams": 1e-3}
+    active = {"grid_fine": True, "cams": True}
+    O.reset_launch_counts()
+    for step in range(3):
+        g_grid = torch.randn(grid.shape, generator=gen)
+        g_cams = torch.randn((5, 7), generator=gen)
+        for opt, devs, ms in ((opt_d, devices, masks_on), (opt_c, ["cpu"] * 2, masks_cpu)):
+            slab_g = gs.fold_halo_grads([s.clone() for s in gs.shard_grid(g_grid, devs).slabs])
+            opt.step({"grid_fine": slab_g, "cams": [g_cams.to(devs[0])]}, lrs, active,
+                     {"grid_fine": ms})
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    cards = {d.index for d in devices}
+    assert O.launch_counts == {"group_adam": 3 * len(cards)}
+    assert {(k, i) for k, i, _ in O.launches_by_device} == {("group_adam", i) for i in cards}
+    assert opt_d.steps == opt_c.steps == {"grid_fine": 3, "cams": 3}
+    torch.testing.assert_close(on["cams"].cpu(), cpu["cams"], atol=1e-6, rtol=1e-5)
+    assert float((on["cams"].cpu() - cams).abs().max()) > 1e-4
+    for a, b in zip(on["grid_fine"].slabs, cpu["grid_fine"].slabs):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=1e-5)
+    lo, hi = on["grid_fine"].slabs
+    assert torch.equal(lo[planes].cpu(), hi[0].cpu())
