@@ -161,8 +161,8 @@ Phases, each printing one JSON line:
            (kernel, device, stream) (K3 once per slab in every tracking and
            BA mapping iteration), the halo planes of every published state
            bitwise equal, each write-back checked pose by pose, fps, ms and
-           ATE beside the dense BA room's; (c) the box with BA over 2 slabs
-           for seeds 42, 0, 1 under the strict family's gates; (d) the
+           ATE beside the dense BA room's ((c), the box with BA over 2
+           slabs, is ``--ba_families``, below); (d) the
            first BA call of ba_capture with its rays over [cuda:0] x 2: each
            of its 60 iterations' loss and camera gradient from the one-device
            run's state on the same pixels, within 1e-4 (relative; of the
@@ -223,11 +223,9 @@ Phases, each printing one JSON line:
            gate alone would pass); the seed-42 draw's depth L1 (2D metric,
            200 views) against 3 cm; each draw's box-mesh wall distance
            reported, not gated;
-  imap_ba  the same box with BA (BA calls at frames 25 x 3 and 29 x 5) for
-           seeds 42, 0, 1: every draw's ATE within 5 cm and below a frozen
-           camera's, beside its BA-off draw; each write-back checked; the
-           iMAP* BA room's ms per mapping iteration and MLP share beside
-           imap_slice's;
+  imap_ba  the iMAP* BA room's (imap_ba_room) ms per mapping iteration
+           and MLP share beside imap_slice's (the box with BA is
+           ``--ba_families``, below);
   readers  first makes cv2, PIL, matplotlib, jax and nice_slam_tpu
            unimportable for the rest of the run (failing if any was
            imported before); the port's export_synthetic writes the
@@ -326,15 +324,15 @@ Phases, each printing one JSON line:
            with the same modules unimportable, serves the page, the last
            frame's mesh and the run's poses; the process is stopped.
 
-The box families and the two tours run each draw in a child process of
-this script (``--draw``), many at once: the box runs are host-bound, so
+The strict box families (quality, ba's, sharded's, imap_quality) and
+the two tours run each draw in a child process of this script
+(``--draw``), a family's draws at once: the box runs are host-bound, so
 the card has room for several, and the iMAP* draws' GPU work overlaps
-them.  Three batches run ahead of the phases that gate them, each with a
-line of its own: draws_quality (quality, imap_quality) after profile,
-draws_ba (ba's family, ba_sharded's (c), imap_ba) after quality,
-draws_loose (threaded_quality, threaded_sharded's loose family, the two
-tours) after threaded; draws_quality also holds the sharded phase's
-family.  The draws' fps are read with their siblings running.
+them.  Their host-clock fields (fps, meshing_s, seconds, a tour's
+timings) are read beside their siblings, so each record holds them under
+``contended`` with the number of draws that ran at once.  The loose
+families (threaded_quality's, threaded_sharded's) run one draw after
+another in this process: their result depends on how the threads race.
 
 Then the card's name and power limit, the kernels line and, last,
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -347,6 +345,17 @@ orbit) for the quality seeds, each draw a process of its own and all at
 once, and holds the medians to its gates: ATE <= 40 cm, completion ratio
 >= 25 %, depth L1 <= 3 cm.  It is left out of the default run for time
 (368 s for the five draws on an H100 80GB HBM3 at 700 W).
+
+    python3 chip_smoke.py --ba_families
+
+builds, then runs only the BA box families, left out of the default run
+for time: (c) the 30-frame box with BA with its grids over [cuda:0] x 2
+(NICE_SLAM_TORCH_SPATIAL=1) for seeds 42, 0, 1 under the strict family's
+gates (median ATE <= 9.5 cm, every draw <= 20 cm, median wall distance
+<= 0.15 m); (e) iMAP*'s box with BA (BA calls at frames 25 x 3 and
+29 x 5) for seeds 42, 0, 1, run at once with the same draws without BA:
+every BA draw's ATE within 5 cm and below a frozen camera's, beside its
+BA-off draw's, each write-back checked.
 """
 
 from __future__ import annotations
@@ -1975,23 +1984,21 @@ data: {{n_frames: 3, output: {out}/run}}
           "kernel_events": found, "seconds": time.perf_counter() - t0})
 
 
-DRAW_TIMEOUT_S = 900  # a batch of draws run at once (one alone: 10-30 s on an H100)
-DRAWN = {}  # the records of draws run ahead of the phase that gates them (``run_draws``)
+DRAW_TIMEOUT_S = 900  # a family's draws run at once (one alone: 10-30 s on an H100)
+# a draw's host-clock fields, read beside its siblings (``draws_at_once``)
+CONTENDED_KEYS = ("fps", "meshing_s", "metric_2d_s", "timings", "seconds")
 
 
-def _draw_key(kind, kw) -> str:
-    return kind + json.dumps(kw, sort_keys=True)
-
-
-def run_draws(batch):
-    """Each (kind, keyword arguments) of ``batch`` as one draw of that
-    kind (``DRAWS``) in a process of its own (``--draw KIND --draw_args
-    JSON``), all at once: the box runs are host-bound, so the card has
-    room for several, and an iMAP* family's GPU-bound draws overlap them.
-    Their records wait in DRAWN for the phases that gate them
-    (``draws_at_once``).  A draw that fails fails the run, and no draw is
-    left running.  This process first hands the card's memory that its
-    allocator keeps cached back to the driver: the draws run beside it
+def draws_at_once(kind, runs, timeout=DRAW_TIMEOUT_S):
+    """The records of one draw of ``kind`` (``DRAWS``) per keyword
+    arguments of ``runs``, in order, each in a process of its own
+    (``--draw KIND --draw_args JSON``), all at once: the box runs are
+    host-bound, so the card has room for several, and the iMAP* draws are
+    GPU-bound.  Each record's host-clock fields (CONTENDED_KEYS) are moved
+    under ``contended``, beside the number of draws that ran at once: they
+    are not single-run numbers.  A draw that fails fails the run, and no
+    draw is left running.  This process first hands the card's memory that
+    its allocator keeps cached back to the driver: the draws run beside it
     (one run OOMed with ~79 GiB held on the card)."""
     import gc
 
@@ -2002,57 +2009,44 @@ def run_draws(batch):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = []
     try:
-        for kind, kw in batch:
+        for kw in runs:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--draw", kind,
                  "--draw_args", json.dumps(kw)], stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True, env=env, cwd=HERE))
-        outs = [p.communicate(timeout=DRAW_TIMEOUT_S) for p in procs]
+        outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for (kind, kw), p, (stdout, stderr) in zip(batch, procs, outs):
+    records = []
+    for kw, p, (stdout, stderr) in zip(runs, procs, outs):
         if p.returncode != 0:
             raise AssertionError(f"{kind} draw {kw} exited {p.returncode}: {stderr[-3000:]}")
-        DRAWN[_draw_key(kind, kw)] = json.loads(stdout.strip().splitlines()[-1])
-
-
-def draws_at_once(kind, runs):
-    """The records of the draws of ``kind`` with keyword arguments
-    ``runs``, in order: those run ahead (``run_draws``) taken from DRAWN,
-    the others run now, all at once."""
-    missing = [(kind, kw) for kw in runs if _draw_key(kind, kw) not in DRAWN]
-    if missing:
-        run_draws(missing)
-    return [DRAWN.pop(_draw_key(kind, kw)) for kw in runs]
-
-
-def ahead(dev, name, batch):
-    """``run_draws`` for the families of ``batch`` ahead of their phases,
-    with a line of its own giving the batch's seconds."""
-    t0 = time.perf_counter()
-    run_draws(batch)
-    emit({"phase": name, "ok": True, "draws": len(batch),
-          "families": sorted({kw["label"] for _, kw in batch}),
-          "seconds": time.perf_counter() - t0})
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        rec["contended"] = {"draws_at_once": len(runs),
+                            **{k: rec.pop(k) for k in CONTENDED_KEYS if k in rec}}
+        records.append(rec)
+    return records
 
 
 def box_runs(label, ba=False, seeds=QUALITY_SEEDS, devices=None, sync="strict"):
-    """The draws of a box family: (``box``, keyword arguments) per seed."""
+    """The keyword arguments of a box family's draws (``box_draw``), one
+    per seed."""
     devs = None if devices is None else [str(d) for d in devices]
     if sync == "strict":
-        return [("box", dict(label=label, seed=seed, ba=ba, devices=devs)) for seed in seeds]
-    return [("box", dict(label=label, seed=seed, devices=devs, sync=sync, mesh=False))
+        return [dict(label=label, seed=seed, ba=ba, devices=devs) for seed in seeds]
+    return [dict(label=label, seed=seed, devices=devs, sync=sync, mesh=False)
             for seed in seeds]
 
 
 def imap_box_runs(label, ba=False):
-    """The draws of an iMAP* box family (IMAP_QUALITY_SEEDS; the first
-    scored where BA is off)."""
-    return [("imap_box", dict(label=label, seed=seed, ba=ba) if ba else
-             dict(label=label, seed=seed, scored=seed == IMAP_QUALITY_SEEDS[0]))
+    """The keyword arguments of an iMAP* box family's draws
+    (``imap_box_draw``; IMAP_QUALITY_SEEDS, the first scored where BA is
+    off)."""
+    return [dict(label=label, seed=seed, ba=ba) if ba else
+            dict(label=label, seed=seed, scored=seed == IMAP_QUALITY_SEEDS[0])
             for seed in IMAP_QUALITY_SEEDS]
 
 
@@ -2103,14 +2097,16 @@ def box_draw(dev, label, seed, ba=False, devices=None, sync="strict", mesh=True)
 def box_family(dev, label, ba=False, seeds=QUALITY_SEEDS, devices=None):
     """The 30-frame tracked box run (``box_draw``, BA on where ``ba``) for
     each of ``seeds`` (``cfg["seed"]`` feeds the tracker's pixel draws),
-    the draws run at once, each draw's ATE, final mesh and BA calls; with
+    the draws run at once (``draws_at_once``; the strict schedule's result
+    does not depend on the host's speed), each draw's ATE, final mesh and
+    BA calls; with
     ``devices`` the grids sharded over them.  Returns the record of the
     draws, the family's medians, and whether the strict family's gates
     hold (median ATE <= ATE_GATE_CM, every draw <= ATE_DIVERGED_CM, median
     wall distance <= BOX_MESH_GATE_M)."""
     import numpy as np
 
-    draws = draws_at_once("box", [kw for _, kw in box_runs(label, ba, seeds, devices)])
+    draws = draws_at_once("box", box_runs(label, ba, seeds, devices))
     ates = [d["ate_rmse_cm"] for d in draws]
     median = float(np.median(ates))
     walls = [d["mesh_wall_m"] for d in draws]
@@ -2988,63 +2984,75 @@ def ba_ray_dp(dev, call, devices):
 def phase_ba_sharded(dev, dense_room, first_call):
     """BA over sharded grids and under ray DP: (b) the BA room over
     [cuda:0] x BA_SHARD_D slabs (and over cuda:0, cuda:1 where two cards
-    are visible), (c) the BA box family over BA_BOX_D slabs for
-    BA_BOX_SEEDS under the strict family's gates, (d) the first BA call
-    with its rays over [cuda:0] x BA_DP_D (and two cards where visible)
-    against one device.  Returns the (b) run's launch counts."""
+    are visible), (d) the first BA call with its rays over [cuda:0] x
+    BA_DP_D (and two cards where visible) against one device; (c) is
+    ``phase_ba_families``.  Returns the (b) run's launch counts."""
     import torch
 
     t0 = time.perf_counter()
     room, counts = ba_sharded_room(dev, [dev] * BA_SHARD_D, dense_room, "ba_sharded")
     t1 = time.perf_counter()
-    box, box_ok = box_family(dev, "ba_sharded_box", ba=True, seeds=BA_BOX_SEEDS,
-                             devices=[dev] * BA_BOX_D)
-    t2 = time.perf_counter()
     dp = ba_ray_dp(dev, first_call, [dev] * BA_DP_D)
-    t3 = time.perf_counter()
+    t2 = time.perf_counter()
     cards = None
     if torch.cuda.device_count() >= 2:
         pair = [torch.device("cuda", 0), torch.device("cuda", 1)]
         cards = {"room": ba_sharded_room(dev, pair, dense_room, "ba_sharded_cards")[0],
                  "ray_dp": ba_ray_dp(dev, first_call, pair)}
-    emit({"phase": "ba_sharded", "ok": box_ok, "device_count": torch.cuda.device_count(),
-          "room": room, "box_family": box, "ray_dp": dp, "over_distinct_cards": cards,
+    emit({"phase": "ba_sharded", "ok": True, "device_count": torch.cuda.device_count(),
+          "room": room, "ray_dp": dp, "over_distinct_cards": cards,
           "distinct_cards": cards is not None,
-          "seconds": {"room": t1 - t0, "box_family": t2 - t1, "ray_dp": t3 - t2,
-                      "distinct_cards": time.perf_counter() - t3,
+          "seconds": {"room": t1 - t0, "ray_dp": t2 - t1,
+                      "distinct_cards": time.perf_counter() - t2,
                       "total": time.perf_counter() - t0}})
-    if not box_ok:
-        raise strict_family_failure("BA box family over slabs", box)
     return counts
 
 
-def phase_imap_ba(dev, room, without_ba, imap_slice):
-    """(e) iMAP* with BA: the box (``imap_box_draw(ba=True)``: BA calls at
-    frames 25 and 29, each write-back checked) for IMAP_QUALITY_SEEDS, the
-    draws run at once, each draw's ATE within IMAP_ATE_GATE_CM and below a
-    frozen camera's (imap_quality's gates, copied), beside the BA-off draws
-    (``without_ba``, the imap_quality phase's); and the iMAP* BA room's
-    record (``phase_imap_ba_room``) beside the imap_slice's BA-off ms per
-    mapping iteration and MLP share (``imap_slice``)."""
-    import numpy as np
-
-    t0 = time.perf_counter()
-    draws = draws_at_once("imap_box", [kw for _, kw in imap_box_runs("imap_ba", ba=True)])
-    for d in draws:
-        d["without_ba_ate_cm"] = next(x["ate_rmse_cm"] for x in without_ba
-                                      if x["seed"] == d["seed"])
-    ok = all(d["ate_rmse_cm"] <= IMAP_ATE_GATE_CM and d["ate_rmse_cm"] < d["frozen_ate_cm"]
-             and d["ba_calls"] for d in draws)
-    emit({"phase": "imap_ba", "ok": ok, "frames": 30, "draws": draws,
-          "median_ate_cm": float(np.median([d["ate_rmse_cm"] for d in draws])),
-          "median_ate_cm_without_ba": float(np.median([d["ate_rmse_cm"] for d in without_ba])),
-          "gate_cm": IMAP_ATE_GATE_CM, "room": {k: room[k] for k in (
+def phase_imap_ba(room, imap_slice):
+    """(e) iMAP* with BA on the room: the iMAP* BA room's record
+    (``phase_imap_ba_room``) beside the imap_slice's BA-off ms per mapping
+    iteration and MLP share (``imap_slice``); the box draws are
+    ``phase_ba_families``."""
+    emit({"phase": "imap_ba", "ok": True, "room": {k: room[k] for k in (
               "ba_calls", "mapping_ms_per_iter", "mlp_f32_peak_share", "fps", "ate_cm")},
           "imap_slice_without_ba": {
               "mapping_ms_per_iter": imap_slice["mapping_ms_per_iter"],
               "mlp_f32_peak_share": imap_slice["mlp_f32_peak_share"]["mapping"],
-              "fps": imap_slice["fps"], "ate_cm": imap_slice["ate_cm"]},
+              "fps": imap_slice["fps"], "ate_cm": imap_slice["ate_cm"]}})
+
+
+def phase_ba_families(dev):
+    """The BA box families (``python3 chip_smoke.py --ba_families``; left
+    out of the default run for time): (c) the box with BA over BA_BOX_D
+    slabs for BA_BOX_SEEDS under the strict family's gates
+    (``box_family``); (e) the iMAP* box with BA (``imap_box_draw(ba=True)``:
+    BA calls at frames 25 and 29, each write-back checked) for
+    IMAP_QUALITY_SEEDS, run at once with the same draws without BA, each BA
+    draw's ATE within IMAP_ATE_GATE_CM and below a frozen camera's
+    (imap_quality's gates, copied), beside its BA-off draw's."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    box, box_ok = box_family(dev, "ba_sharded_box", ba=True, seeds=BA_BOX_SEEDS,
+                             devices=[dev] * BA_BOX_D)
+    emit({"phase": "ba_sharded_box", "ok": box_ok, **box,
           "seconds": time.perf_counter() - t0})
+    if not box_ok:
+        raise strict_family_failure("BA box family over slabs", box)
+    t1 = time.perf_counter()
+    n = len(IMAP_QUALITY_SEEDS)
+    both = draws_at_once("imap_box", imap_box_runs("imap_ba", ba=True)
+                         + [dict(label="imap_ba_off", seed=s) for s in IMAP_QUALITY_SEEDS])
+    draws, without_ba = both[:n], both[n:]
+    for d, off in zip(draws, without_ba):
+        d["without_ba_ate_cm"] = off["ate_rmse_cm"]
+    ok = all(d["ate_rmse_cm"] <= IMAP_ATE_GATE_CM and d["ate_rmse_cm"] < d["frozen_ate_cm"]
+             and d["ba_calls"] for d in draws)
+    emit({"phase": "imap_ba_box", "ok": ok, "frames": 30, "draws": draws,
+          "median_ate_cm": float(np.median([d["ate_rmse_cm"] for d in draws])),
+          "median_ate_cm_without_ba": float(np.median([d["ate_rmse_cm"]
+                                                       for d in without_ba])),
+          "gate_cm": IMAP_ATE_GATE_CM, "seconds": time.perf_counter() - t1})
     if not ok:
         raise AssertionError(f"iMAP BA box: ATE {[d['ate_rmse_cm'] for d in draws]} cm; "
                              f"every draw must be <= {IMAP_ATE_GATE_CM}, beat a frozen "
@@ -3193,16 +3201,18 @@ def phase_threaded(dev, strict):
           "seconds": time.perf_counter() - t0})
 
 
-def loose_box_family(strict_median_cm, label, devices=None):
+def loose_box_family(dev, strict_median_cm, label, devices=None):
     """The quality phase's box run under loose for THREADED_SEEDS, on one
-    card or with the grids sharded over ``devices``, the draws run at once
-    (``box_draw``): every draw against ATE_DIVERGED_CM, the median against
-    max(3 x the strict family's median, LOOSE_ATE_FLOOR_CM).  Returns the
-    record and whether both gates held."""
+    card or with the grids sharded over ``devices``, the draws one after
+    another in this process (``box_draw``): the loose schedule's result
+    depends on how the tracker and mapper threads race, so no other draw
+    runs beside them.  Every draw against ATE_DIVERGED_CM, the median
+    against max(3 x the strict family's median, LOOSE_ATE_FLOOR_CM).
+    Returns the record and whether both gates held."""
     import numpy as np
 
-    draws = draws_at_once("box", [kw for _, kw in box_runs(label, seeds=THREADED_SEEDS,
-                                                         devices=devices, sync="loose")])
+    draws = [box_draw(dev, **kw) for kw in box_runs(label, seeds=THREADED_SEEDS,
+                                                    devices=devices, sync="loose")]
     ates = [d["ate_rmse_cm"] for d in draws]
     median = float(np.median(ates))
     gate = max(3 * strict_median_cm, LOOSE_ATE_FLOOR_CM)
@@ -3222,7 +3232,7 @@ def box_family_failure(rec) -> AssertionError:
 def phase_threaded_quality(dev, strict_median_cm):
     """The loose box family on one card (``loose_box_family``)."""
     t0 = time.perf_counter()
-    rec, ok = loose_box_family(strict_median_cm, "threaded_quality")
+    rec, ok = loose_box_family(dev, strict_median_cm, "threaded_quality")
     emit({"phase": "threaded_quality", "ok": ok, **rec,
           "seconds": time.perf_counter() - t0})
     if not ok:
@@ -3497,7 +3507,7 @@ def phase_imap_quality(dev):
     import numpy as np
 
     t0 = time.perf_counter()
-    draws = draws_at_once("imap_box", [kw for _, kw in imap_box_runs("imap_quality")])
+    draws = draws_at_once("imap_box", imap_box_runs("imap_quality"))
     ates = [d["ate_rmse_cm"] for d in draws]
     depth_l1 = draws[0]["depth_l1_cm"]
     # a frozen camera scores 0.73 cm on this short orbit, under the 5 cm
@@ -3515,7 +3525,6 @@ def phase_imap_quality(dev):
                              f"camera ({[d['frozen_ate_cm'] for d in draws]} cm); seed "
                              f"{IMAP_QUALITY_SEEDS[0]} depth L1 {depth_l1} cm (gate "
                              f"{IMAP_TRACKED_DEPTH_L1_CM})")
-    return draws
 
 
 READERS_FRAMES = 5            # frames per layout of the readers' export
@@ -3709,35 +3718,38 @@ def phase_readers(dev):
           "seconds": time.perf_counter() - t0})
 
 
-def tour_run(dev, label, imap=False):
-    """The port's ``selfcheck --gt_camera`` tour (150 frames, a full orbit,
-    mapped from ground-truth cameras; ``--imap`` for the iMAP* model, as
-    QUALITY.json's 'imap' row was recorded), its other flags at their
-    defaults, in this process: its summary and K1-K3's launches."""
-    from nice_slam_torch.ops import interp
+def tour_run(dev, label, flags):
+    """One run of the port's ``selfcheck`` with ``flags`` in this process,
+    its output under output/chip_smoke/``label``: its summary with the
+    timings apart, K1-K10's launches and its seconds."""
     from nice_slam_torch.tools import selfcheck
 
     out = os.path.join(HERE, "output", "chip_smoke", label)
     shutil.rmtree(out, ignore_errors=True)
-    flags = ["--frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
-             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--out", out, "--device", str(dev),
-             "--gt_camera"] + (["--imap"] if imap else [])
-    interp.reset_launch_counts()
+    flags = list(flags) + ["--out", out, "--device", str(dev)]
+    reset_counts()
     t0 = time.perf_counter()
     summary = selfcheck.run(selfcheck.parser().parse_args(flags))
-    return {"imap": imap, "flags": flags, "summary": summary,
-            "launches": dict(interp.launch_counts), "seconds": time.perf_counter() - t0}
+    return {"flags": flags, "summary": {k: v for k, v in summary.items() if k != "timings"},
+            "timings": summary["timings"], "launches": all_counts(),
+            "seconds": time.perf_counter() - t0}
 
 
 def phase_tours(dev):
-    """The gt and iMAP* tours (``tour_run``), the two at once, each held to
-    the JAX quality gates; K1-K3 launches counted over each whole run."""
+    """The port's ``selfcheck --gt_camera`` tours (150 frames, a full
+    orbit, mapped from ground-truth cameras; its other flags at their
+    defaults), NICE and ``--imap`` (as QUALITY.json's 'imap' row was
+    recorded), the two at once (``tour_run``), each held to the JAX
+    quality gates; K1-K3 launches counted over each whole run."""
+    flags = ["--frames", str(TOUR_FRAMES), "--orbit_radians", str(TOUR_ORBIT),
+             "--depth_l1_imgs", str(DEPTH_L1_IMGS), "--gt_camera"]
     failed_any = []
-    for r in draws_at_once("tour", [dict(label="gt_tour", imap=False),
-                                    dict(label="imap_tour", imap=True)]):
-        imap, s, counts = r["imap"], r["summary"], r["launches"]
-        name = "imap_tour" if imap else "gt_tour"
-        t = s["timings"]
+    for name, r in zip(("gt_tour", "imap_tour"), draws_at_once(
+            "tour", [dict(label="gt_tour", flags=flags),
+                     dict(label="imap_tour", flags=flags + ["--imap"])])):
+        imap = name == "imap_tour"
+        s, counts = r["summary"], {k: r["launches"][k] for k in K1_K3}
+        t = r["contended"]["timings"]
         gates = IMAP_TOUR_GATES if imap else GT_TOUR_GATES
         failed = [k for k, bound in gates.items()
                   if s[k] is None or not s[k] <= bound]
@@ -3752,10 +3764,12 @@ def phase_tours(dev):
         emit({"phase": name, "ok": not failed, "flags": r["flags"], "summary": s,
               "gates": gates,
               **({} if imap else {"completion_ratio_floor_pct": GT_TOUR_RATIO_PCT}),
-              "slam_s": t["total_s"] - t["meshing_s"], "mesh_s": t["meshing_s"],
-              "gt_mesh_s": t["gt_mesh_s"], "metric_3d_s": t["eval_3d_s"],
-              "metric_2d_s": t["eval_2d_s"], "fps": t.get("fps"), "launches": counts,
-              "seconds": r["seconds"], "run_at_once_with_the_other_tour": True})
+              "launches": counts,
+              "contended": {"draws_at_once": r["contended"]["draws_at_once"],
+                            "slam_s": t["total_s"] - t["meshing_s"],
+                            "mesh_s": t["meshing_s"], "gt_mesh_s": t["gt_mesh_s"],
+                            "metric_3d_s": t["eval_3d_s"], "metric_2d_s": t["eval_2d_s"],
+                            "fps": t.get("fps"), "seconds": r["contended"]["seconds"]}})
         failed_any += [f"{name}: {f}" for f in failed]
     if failed_any:
         raise AssertionError(f"the tours failed their gates: {failed_any}")
@@ -3771,27 +3785,11 @@ TRACKED_TOUR_SEEDS = QUALITY_SEEDS  # a family, as the box's: one draw is too no
 TRACKED_TOUR_TIMEOUT_S = 1500       # per draw; one alone took 283 s (H100 80GB HBM3, 700 W)
 
 
-def tour_draw(seed: int, dev) -> dict:
-    """One tracked-tour draw in this process (``--tour_draw SEED``): the
-    port's ``selfcheck`` with TRACKED_TOUR_FLAGS and pixel seed ``seed``;
-    returns its summary with K1-K10's launches and its seconds."""
-    from nice_slam_torch.tools import selfcheck
-
-    out = os.path.join(HERE, "output", "chip_smoke", f"tracked_tour_s{seed}")
-    shutil.rmtree(out, ignore_errors=True)
-    flags = TRACKED_TOUR_FLAGS + ["--seed", str(seed), "--out", out, "--device", str(dev)]
-    reset_counts()
-    t0 = time.perf_counter()
-    summary = selfcheck.run(selfcheck.parser().parse_args(flags))
-    return {"seed": seed, "flags": flags, "summary": summary, "launches": all_counts(),
-            "seconds": time.perf_counter() - t0}
-
-
 def phase_tracked_tour(dev):
     """The tracked tour (``python3 chip_smoke.py --tracked_tour``): a draw
-    for each of TRACKED_TOUR_SEEDS, each in a process of its own, all at
-    once (the tour is host-bound: four at once took 1.6x one alone on an
-    H100 80GB HBM3 at 700 W), held
+    (``tour_run`` with TRACKED_TOUR_FLAGS) for each of TRACKED_TOUR_SEEDS,
+    all at once (the tour is host-bound: four at once took 1.6x one alone
+    on an H100 80GB HBM3 at 700 W), held
     to the tracked_tour record's gates, copied unchanged, on the family's
     medians: ATE <= 40 cm, depth L1 <= 3 cm, completion ratio >= 25 %.
     One draw is not gated: the runs are nondeterministic (K2 sums with
@@ -3800,34 +3798,18 @@ def phase_tracked_tour(dev):
     launch K3 (tracking, and every BA mapping iteration)."""
     import numpy as np
 
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = []
     t0 = time.perf_counter()
-    try:
-        for seed in TRACKED_TOUR_SEEDS:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--tour_draw",
-                 str(seed)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=env, cwd=HERE))
-        outs = [p.communicate(timeout=TRACKED_TOUR_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:  # a failure or a timeout leaves no draw running
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    draws = draws_at_once("tour", [dict(label=f"tracked_tour_s{seed}",
+                                        flags=TRACKED_TOUR_FLAGS + ["--seed", str(seed)])
+                                   for seed in TRACKED_TOUR_SEEDS],
+                          timeout=TRACKED_TOUR_TIMEOUT_S)
     seconds = time.perf_counter() - t0
-    draws, failed = [], []
-    for seed, p, (stdout, stderr) in zip(TRACKED_TOUR_SEEDS, procs, outs):
-        if p.returncode != 0:
-            raise AssertionError(f"tracked tour draw {seed} exited {p.returncode}: "
-                                 f"{stderr[-3000:]}")
-        draws.append(json.loads(stdout.strip().splitlines()[-1]))
-    for d in draws:
-        t = d["summary"]["timings"]
-        if t["tracked_frames"] != d["summary"]["frames"] - 1 or \
-                d["launches"]["trilinear_bwd_dp"] <= 0:
-            failed.append(f"draw {d['seed']}: tracked {t['tracked_frames']} frames, "
-                          f"launches {d['launches']}")
+    failed = []
+    for seed, d in zip(TRACKED_TOUR_SEEDS, draws):
+        d["seed"] = seed
+        tracked = d["contended"]["timings"]["tracked_frames"]
+        if tracked != d["summary"]["frames"] - 1 or d["launches"]["trilinear_bwd_dp"] <= 0:
+            failed.append(f"draw {seed}: tracked {tracked} frames, launches {d['launches']}")
     medians = {k: float(np.median([d["summary"][k] for d in draws]))
                for k in ("ate_rmse_cm", "depth_l1_cm", "completion_ratio_pct",
                          "accuracy_cm", "completion_cm")}
@@ -3839,9 +3821,8 @@ def phase_tracked_tour(dev):
           "completion_ratio_floor_pct": TRACKED_TOUR_RATIO_PCT,
           "jax_record_tpu_v5e": {"ate_rmse_cm": 27.109, "completion_ratio_pct": 40.2,
                                  "depth_l1_cm": 1.579},
-          "draws": [{"seed": d["seed"], "seconds": d["seconds"], "launches": d["launches"],
-                     **{k: v for k, v in d["summary"].items() if k != "timings"},
-                     "timings": d["summary"]["timings"]} for d in draws],
+          "draws": [{"seed": d["seed"], "launches": d["launches"], **d["summary"],
+                     "contended": d["contended"]} for d in draws],
           "seconds": seconds})
     if failed:
         raise AssertionError(f"tracked_tour failed its gates: {failed}")
@@ -4966,7 +4947,8 @@ def phase_threaded_sharded(dev, sharded_loop_rec, strict_median_cm):
     b = devices_run([dev] * TS_DP_D, "free", "ray_dp", "ts_free_dp")
     b_strict = devices_run([dev] * TS_DP_D, "strict", "ray_dp", "ts_strict_dp")
     t_runs = time.perf_counter() - t0
-    box, box_ok = loose_box_family(strict_median_cm, "ts_box", devices=[dev] * TS_BOX_D)
+    box, box_ok = loose_box_family(dev, strict_median_cm, "ts_box",
+                                   devices=[dev] * TS_BOX_D)
     n_cards = torch.cuda.device_count()
     distinct = None
     if n_cards >= 2:
@@ -5046,12 +5028,13 @@ def main(argv=None) -> int:
     parser.add_argument("--tracked_tour", action="store_true",
                         help="build, then run only the tracked tour (QUALITY.json's "
                              "tracked_tour gates), which the smoke leaves out for time")
-    parser.add_argument("--tour_draw", type=int, default=None, metavar="SEED",
-                        help="one draw of the tracked tour, its record as the last line "
-                             "(the processes --tracked_tour starts)")
+    parser.add_argument("--ba_families", action="store_true",
+                        help="build, then run only the BA box families (the box with BA "
+                             "over 2 slabs, iMAP*'s box with BA), which the smoke leaves "
+                             "out for time")
     parser.add_argument("--draw", choices=sorted(DRAWS), default=None,
-                        help="one draw of a box family, its record as the last line "
-                             "(the processes draws_at_once starts; --draw_args its "
+                        help="one draw of a box family or a tour, its record as the last "
+                             "line (the processes draws_at_once starts; --draw_args its "
                              "keyword arguments as JSON)")
     parser.add_argument("--draw_args", default="{}", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -5060,19 +5043,19 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)  # one card; the sharded phase adds logical devices
-    if args.tour_draw is not None:
-        emit(tour_draw(args.tour_draw, dev))
-        return 0
     if args.draw is not None:
         emit(DRAWS[args.draw](dev, **json.loads(args.draw_args)))
         return 0
     card = smi()
     t0 = time.perf_counter()
-    if args.tracked_tour:
+    if args.tracked_tour or args.ba_families:
         try:
             phase_build()
-            phase_tracked_tour(dev)
-        except Exception:  # the tour's failure fails the command, with its traceback
+            if args.tracked_tour:
+                phase_tracked_tour(dev)
+            if args.ba_families:
+                phase_ba_families(dev)
+        except Exception:  # a failure fails the command, with its traceback
             traceback.print_exc()
             return 1
         emit({"phase": "total", "seconds": time.perf_counter() - t0})
@@ -5093,31 +5076,17 @@ def main(argv=None) -> int:
         phase_vis(dev, done)
         del done
         phase_profile(dev)
-        # the families' draws in two batches (the box families are
-        # host-bound, the iMAP* ones GPU-bound), each gated by its phase
-        ahead(dev, "draws_quality", box_runs("quality") + imap_box_runs("imap_quality")
-              + box_runs("sharded_box", seeds=SHARD_BOX_SEEDS, devices=[dev] * SHARD_BOX_D))
         strict_median = phase_quality(dev)
-        ahead(dev, "draws_ba", box_runs("ba_quality", ba=True)
-              + box_runs("ba_sharded_box", ba=True, seeds=BA_BOX_SEEDS,
-                         devices=[dev] * BA_BOX_D)
-              + imap_box_runs("imap_ba", ba=True))
         ba_counts, ba_room_rec = phase_ba(dev, strict, strict_median)
         ba_sharded_counts = phase_ba_sharded(dev, ba_room_rec, first_ba_call)
         del first_ba_call
         phase_threaded(dev, strict)
-        ahead(dev, "draws_loose", box_runs("threaded_quality", seeds=THREADED_SEEDS,
-                                           sync="loose")
-              + box_runs("ts_box", seeds=THREADED_SEEDS, devices=[dev] * TS_BOX_D,
-                         sync="loose")
-              + [("tour", dict(label="gt_tour", imap=False)),
-                 ("tour", dict(label="imap_tour", imap=True))])
         phase_threaded_quality(dev, strict_median)
         done, cfg, imap_slice = phase_imap_slice(dev, card)
         phase_imap_resume(dev, done, cfg)
         del done
-        imap_without_ba = phase_imap_quality(dev)
-        phase_imap_ba(dev, imap_ba_room, imap_without_ba, imap_slice)
+        phase_imap_quality(dev)
+        phase_imap_ba(imap_ba_room, imap_slice)
         phase_readers(dev)
         window_rows, sharded_counts, sharded_loop_rec = phase_sharded(
             dev, cases, rows, cap, strict)

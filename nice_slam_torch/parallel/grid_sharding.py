@@ -121,6 +121,7 @@ class _ToSlabs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, devices):
         ctx.device = p.device
+        ctx.set_materialize_grads(False)  # a slab's unused output: None, no zeros
         return tuple(p.view_as(p) if dev == p.device else p.to(dev)
                      for dev in devices)
 

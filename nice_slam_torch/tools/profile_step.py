@@ -1,7 +1,8 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
     python -m nice_slam_torch.tools.profile_step [--out DIR] [--ba]
-        [--imap | --schedules [strict,loose,free]] [--devices LIST]
+        [--imap | --schedules [strict,loose,free]] [--devices LIST] [--items LIST]
+        [--reps N]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
 17 frames of the strict loop, so the map and a full 5-frame keyframe
@@ -34,6 +35,10 @@ runs over that device list under the environment's multi-device knobs:
 are the sharded ones; otherwise the main mapper's rays are split over the
 devices (ray data parallelism).  Each row then names the devices and
 whether the grids are sharded.
+
+``--items`` keeps only the rows it names (e.g. ``tracking_frame``);
+``--reps N`` times each row's unprofiled run N times, ``wall_ms`` their
+median and ``wall_ms_runs`` each.
 
 ``--imap`` profiles the iMAP* model instead (``replica_imap_cfg``, 17
 frames, the first mapping 300 iterations): one tracked frame (50
@@ -69,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import time
 
 KERNELS = ("trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp",
@@ -290,6 +296,11 @@ def main() -> None:
                             "(comma-separated; default all three)")
     parser.add_argument("--ba", action="store_true",
                         help="also profile the mapping call with bundle adjustment")
+    parser.add_argument("--reps", type=int, default=1,
+                        help="unprofiled runs of each row; wall_ms is their median")
+    parser.add_argument("--items", default=None,
+                        help="profile only these rows (comma-separated, e.g. "
+                             "tracking_frame,mapping_call)")
     parser.add_argument("--devices", default=None,
                         help="run over this comma-separated device list (it may "
                              "repeat a card; --schedules' default: every visible "
@@ -380,14 +391,22 @@ def main() -> None:
                 slam.tcfg.pixels, r.N_samples, r.N_importance, 0, False),
             "mapping_call": map_iters * imap_iteration_flops(
                 cfg_m["pixels"], r.N_samples, r.N_importance, r.N_samples, True)}
+    if args.items:
+        unknown = set(args.items.split(",")) - set(work)
+        if unknown:
+            raise SystemExit(f"profile_step: no rows {sorted(unknown)}; rows: {sorted(work)}")
+        work = {k: v for k, v in work.items() if k in args.items.split(",")}
     card = torch.cuda.get_device_name(0)
     for name, fn in work.items():
         fn()  # warm
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)  # without the profiler
+        walls = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))  # without the profiler
+        wall = statistics.median(walls)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -398,6 +417,8 @@ def main() -> None:
         if name.startswith("mapping_call"):
             row["iterations"] = map_iters
         row.update(_device_summary(prof, wall))
+        if args.reps > 1:
+            row["wall_ms_runs"] = walls
         row["items"] = _items_summary(prof)
         if not slam.nice and name in mlp_tflop:
             row["mlp_tflop"] = mlp_tflop[name] / 1e12
