@@ -49,7 +49,8 @@ Phases, each printing one JSON line:
            without BA in the same run and the MLP's float32 peak share of
            each; it records K8's first BA call (5000 rays x 44 samples,
            density mode, the rays_d gradient feeding the camera leaf) for
-           the kernels phase;
+           the kernels phase, and its first mapping call without BA and
+           first with BA for imap_dp;
   kernels  BA on the parallel paths first: K3 with slab windows on the
            BA cases (48k points over 1, 2 and 3 grids) cut into 2 and 4
            slabs, each slab against its plain version, the slabs' sum in
@@ -226,6 +227,33 @@ Phases, each printing one JSON line:
   imap_ba  the iMAP* BA room's (imap_ba_room) ms per mapping iteration
            and MLP share beside imap_slice's (the box with BA is
            ``--ba_families``, below);
+  imap_threaded  the iMAP* room under the loose and free schedules on one
+           card (tracker and mapper threads on their own streams), cut for
+           time to 6 frames, a first mapping of 60 and 60 mapping
+           iterations an event (config 1500 and 300; the widths uncut),
+           beside imap_slice's strict record; then the loose BA room
+           (replica_imap_cfg(ba=True), 10 frames, a keyframe at every
+           mapping event).  Each run: every frame tracked
+           with finite poses and the last mapped; K7, K8 and K9 exact per
+           (kernel, device, stream) against the run's recorded calls (K7
+           twice per iteration: the importance pass) and no K1-K6 or K10;
+           each thread a stream of its own; loose lag <= every + every //
+           2; with BA, BA engaged and each write-back checked pose by pose.
+           Reports fps, tracking ms per frame, mapping ms per event and per
+           iteration, the MLP's float32 peak share and peak memory;
+  imap_dp  iMAP* over a device list, [cuda:0] x 2 and cuda:0, cuda:1 where
+           two cards are visible: imap_ba_room's first mapping call without
+           BA and its first BA call, cut to 20 iterations, on one device,
+           each iteration's loss and the MLP's (and the camera's)
+           gradients also computed with the rays over the devices from the
+           same state, pixels and regulariser jitter: losses within 1e-4
+           relative, gradients within 1e-4 of their largest entry, the
+           split asserted; ms per iteration one device against ray DP and
+           the AccumulateGrad warnings per call; then the free schedule
+           with ray DP and the lattice split (imap_threaded's cuts and
+           gates, the final resolution-256 mesh with faces) and one lattice
+           chunk of its final state over the devices within 1e-5 of one
+           device's;
   readers  first makes cv2, PIL, matplotlib, jax and nice_slam_tpu
            unimportable for the rest of the run (failing if any was
            imported before); the port's export_synthetic writes the
@@ -356,6 +384,16 @@ gates (median ATE <= 9.5 cm, every draw <= 20 cm, median wall distance
 29 x 5) for seeds 42, 0, 1, run at once with the same draws without BA:
 every BA draw's ATE within 5 cm and below a frozen camera's, beside its
 BA-off draw's, each write-back checked.
+
+    python3 chip_smoke.py --imap_families
+
+builds, then runs only the iMAP* families of the loose schedule, left out
+of the default run for time: imap_quality's strict draws at once, then
+the loose iMAP* box (seeds 42, 0, 1) one draw after another in this
+process: every draw's ATE within 5 cm and below a frozen camera's, the
+median beside the strict one; then one loose iMAP* box draw with BA and a
+keyframe per mapping event: BA engaged, each write-back checked, ATE
+within 20 cm, beside the BA-off loose draw of its seed.
 """
 
 from __future__ import annotations
@@ -2295,6 +2333,37 @@ def check_ba_calls(rec, final_poses, tag):
     return [c["idx"] for c in calls if c["BA"]]
 
 
+@contextlib.contextmanager
+def first_calls(sink):
+    """Keep in ``sink`` the arguments of the first optimize_map_core call
+    without BA (``sink[False]``) and of the first with it (``sink[True]``):
+    its scene state (cloned), window, poses and configs, which a ray-DP
+    check runs again (``captured_core``)."""
+    import inspect
+
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.slam.optim import tree_map
+
+    core = M.optimize_map_core
+    sig = inspect.signature(core)
+
+    def rec(*a, **k):
+        b = sig.bind(*a, **k).arguments
+        if bool(b["BA"]) not in sink:
+            sink[bool(b["BA"])] = dict(
+                {k: v for k, v in b.items() if k not in ("state", "gen")},
+                state=b["state"]._replace(
+                    grids=tree_map(lambda t: t.clone(), b["state"].grids),
+                    decoders=tree_map(lambda t: t.clone(), b["state"].decoders)))
+        return core(*a, **k)
+
+    M.optimize_map_core = rec
+    try:
+        yield sink
+    finally:
+        M.optimize_map_core = core
+
+
 def ba_capture(dev):
     """The BA cases' kernel arguments, as a BA mapping call hands them to
     the kernels: K3 and K5 of each stage, K8 of the color stage, K9's
@@ -2307,12 +2376,8 @@ def ba_capture(dev):
     configs), which the ray-DP check runs again.  Run early in the
     process: the card's profiler records fewer of a window's kernels the
     later it runs (PERF.md §7), and the kernels phase times these cases."""
-    import inspect
-
     from nice_slam_torch.ops import decoder_stage as DS
     from nice_slam_torch.ops import interp
-    from nice_slam_torch.slam import mapper as M
-    from nice_slam_torch.slam.optim import tree_map
     from nice_slam_torch.slam.slam import NiceSLAM
     from nice_slam_torch.tools.workloads import replica_ba_cfg
 
@@ -2340,28 +2405,15 @@ def ba_capture(dev):
             dec_seen[case] = dec_bwd_case(*args)
         return dec_bwd(*args)
 
-    first_call = {}
-    core = M.optimize_map_core
-    core_sig = inspect.signature(core)
-
-    def rec_core(*a, **k):
-        b = core_sig.bind(*a, **k).arguments
-        if b["BA"] and not first_call:
-            first_call.update({k: v for k, v in b.items() if k not in ("state", "gen")},
-                              state=b["state"]._replace(
-                                  grids=tree_map(lambda t: t.clone(), b["state"].grids),
-                                  decoders=tree_map(lambda t: t.clone(),
-                                                    b["state"].decoders)))
-        return core(*a, **k)
-
+    first = {}
     interp.trilinear_bwd_dp_multi, DS.decoder_bwd = rec_dp, rec_dec
-    M.optimize_map_core = rec_core
     try:
-        slam.run()
+        with first_calls(first):
+            slam.run()
     finally:
         interp.trilinear_bwd_dp_multi, DS.decoder_bwd = dp_multi, dec_bwd
-        M.optimize_map_core = core
         restore()
+    first_call = first.get(True)
     missing = [f"K3/K5 {k}" for k in BA_K3_CASES if k not in k3_seen or k not in dec_seen]
     missing += [f"K8 {k}" for k in ("map_color_ba",)
                 if "g_depth" not in cap["integrate"].get(k, {})]
@@ -2692,8 +2744,10 @@ def phase_imap_ba_room(dev):
     checked (``check_ba_calls``); K7-K9 launches exact and no other
     kernel.  Reports ms per mapping iteration with and without BA in the
     same run and the MLP's float32 peak share of each; records K8's first
-    BA density call for the kernels phase.  Run before the kernels phase,
-    which times that call.  Returns (record, the K8 case)."""
+    BA density call for the kernels phase, and the first mapping call
+    without BA and the first with it for imap_dp (``first_calls``).  Run
+    before the kernels phase, which times that call.  Returns (record, the
+    K8 case, the first calls)."""
     import torch
 
     from nice_slam_torch.slam.slam import NiceSLAM
@@ -2716,8 +2770,9 @@ def phase_imap_ba_room(dev):
     cap, restore = imap_ba_capture()
     torch.cuda.synchronize()
     reset_counts()
+    calls = {}
     try:
-        with ba_recorder(slam) as ba:
+        with ba_recorder(slam) as ba, first_calls(calls):
             slam.run()
     finally:
         restore()
@@ -2764,7 +2819,7 @@ def phase_imap_ba_room(dev):
            "k8_case": {"n": int(cap["z"].shape[0]), "samples": int(cap["z"].shape[1]),
                        "need_rays": cap["need_rays"]}}
     emit({"phase": "imap_ba_room", "ok": True, **rec, "seconds": time.perf_counter() - t0})
-    return rec, cap
+    return rec, cap, calls
 
 
 def halo_recorder(slam):
@@ -2880,80 +2935,119 @@ def ba_sharded_room(dev, devices, dense, out_name):
     return rec, counts
 
 
-def ba_ray_dp(dev, call, devices):
-    """(d) Ray DP with BA on the room's first BA mapping call (``ba_capture``'s).
-    (1) The whole call on one device, each iteration's loss and camera
-    gradient also computed with its rays over ``devices`` from the same
-    state and pixels: per iteration the losses within DP_LOSS_RTOL
-    relative, the camera gradients within DP_LOSS_RTOL of the largest
-    entry.  (2) The call cut to BA_DP_PLAN, on one device and with its rays
-    over ``devices``, on the same host-drawn pixels: the refined window
-    poses within BA_DP_POSE_ATOL (its losses reported: they part after a
-    group's first Adam step, see BA_DP_PLAN).
-    ``over_blocks`` must run for every ray-DP loss (the split asserted).
-    Counts PyTorch's AccumulateGrad stream-mismatch warnings per call."""
-    import inspect
+def captured_core(call, plan, pix, devices, reg_t=None, loss_fn=None):
+    """``optimize_map_core`` on a captured call's arguments (``first_calls``;
+    on the card they were captured on) cut to ``plan``, every iteration's
+    pixels ``pix`` (and regulariser jitter ``reg_t``) given, its rays over
+    ``devices`` (None: one device) and ``loss_fn`` in place of
+    ``mapping_loss``.
+    Returns (losses, new cams, PyTorch's AccumulateGrad stream-mismatch
+    warnings, the over_blocks splits, seconds to the synchronize)."""
     import warnings
 
-    import numpy as np
     import torch
 
     from nice_slam_torch.slam import mapper as M
 
     c = call
-    to = devices[0]
-    state = c["state"]
-    args = [c[k].to(to) for k in ("colors", "depths", "fixed_c2w", "cam_tensors",
-                                  "opt_cam_mask", "frame_valid")]
-    F, n = args[0].shape[0], c["pixs_per_image"]
-    H, W = args[0].shape[1:3]
+    args = [c[k] for k in ("colors", "depths", "fixed_c2w", "cam_tensors", "opt_cam_mask",
+                           "frame_valid")]
     inner_blocks, inner_loss = M.over_blocks, M.mapping_loss
-    loss_sig = inspect.signature(inner_loss)
-    blocks, forced = [], []
+    splits = []
 
     def over_blocks(ds, *a):
-        blocks.append(len(ds))
+        splits.append(len(ds))
         return inner_blocks(ds, *a)
 
-    def forced_loss(*a, **k):
-        # the iteration's loss on one device, and again with its rays over
-        # the devices, from the same state and pixels
-        b = loss_sig.bind(*a, **k)
+    M.over_blocks, M.mapping_loss = over_blocks, loss_fn or inner_loss
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cams, losses = M.optimize_map_core(
+                c["spec"], c["state"], *args, c["lr_factor"], c["mcfg"], c["rcfg"], plan,
+                c["BA"], c["pixs_per_image"], pix_idx=pix, reg_t=reg_t, devices=devices)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        M.over_blocks, M.mapping_loss = inner_blocks, inner_loss
+    warned = [str(w.message) for w in caught if "AccumulateGrad" in str(w.message)]
+    return losses.cpu().numpy(), cams.cpu(), warned, splits, seconds
+
+
+def forced_loss(devices, groups, sink):
+    """A mapping loss that computes each iteration's loss on one device and
+    again with its rays over ``devices``, from the same state, pixels and
+    regulariser jitter, takes both gradients of the leaves of ``groups``,
+    appends [the losses' relative difference, then per group the largest
+    gradient difference and the largest one-device gradient entry] to
+    ``sink`` (on the device, read after the call) and returns the
+    one-device loss, so the call runs on as on one device."""
+    import inspect
+
+    import torch
+
+    from nice_slam_torch.slam import mapper as M
+    from nice_slam_torch.slam.optim import tree_leaves
+
+    inner = M.mapping_loss
+    sig = inspect.signature(inner)
+
+    def loss(*a, **k):
+        b = sig.bind(*a, **k)
         b.apply_defaults()
-        one = inner_loss(**b.arguments)
-        dp = inner_loss(**dict(b.arguments, devices=devices))
-        cams = b.arguments["groups"]["cams"]
-        g_one, = torch.autograd.grad(one, [cams], retain_graph=True)
-        g_dp, = torch.autograd.grad(dp, [cams])
-        forced.append(torch.stack([(dp.detach() - one.detach()).abs() / one.detach().abs(),
-                                   (g_dp - g_one).abs().max(), g_one.abs().max()]))
+        one = inner(**b.arguments)
+        dp = inner(**dict(b.arguments, devices=devices))
+        per = [tree_leaves(b.arguments["groups"][g]) for g in groups]
+        flat = [x for xs in per for x in xs]
+        g_one = torch.autograd.grad(one, flat, retain_graph=True, allow_unused=True)
+        g_dp = torch.autograd.grad(dp, flat, allow_unused=True)
+        row, pos = [(dp.detach() - one.detach()).abs() / one.detach().abs()], 0
+        for xs in per:
+            pairs = [(torch.zeros_like(x) if u is None else u,
+                      torch.zeros_like(x) if v is None else v)
+                     for x, u, v in zip(xs, g_one[pos:pos + len(xs)], g_dp[pos:pos + len(xs)])]
+            pos += len(xs)
+            row += [torch.stack([(v - u).abs().max() for u, v in pairs]).max(),
+                    torch.stack([u.abs().max() for u, _ in pairs]).max()]
+        sink.append(torch.stack(row))
         return one
 
-    def run(plan, pix, devs, loss_fn):
-        M.over_blocks, M.mapping_loss = over_blocks, loss_fn
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                _, cams, losses = M.optimize_map_core(
-                    c["spec"], state, *args, c["lr_factor"], c["mcfg"], c["rcfg"], plan,
-                    True, n, pix_idx=pix, devices=devs)
-                torch.cuda.synchronize()
-        finally:
-            M.over_blocks, M.mapping_loss = inner_blocks, inner_loss
-        warned = [str(w.message) for w in caught if "AccumulateGrad" in str(w.message)]
-        return losses.cpu().numpy(), cams.cpu(), warned
+    return loss
 
+
+def ba_ray_dp(call, devices):
+    """(d) Ray DP with BA on the room's first BA mapping call (``ba_capture``'s).
+    (1) The whole call on one device, each iteration's loss and camera
+    gradient also computed with its rays over ``devices`` from the same
+    state and pixels (``forced_loss``): per iteration the losses within
+    DP_LOSS_RTOL relative, the camera gradients within DP_LOSS_RTOL of the
+    largest entry.  (2) The call cut to BA_DP_PLAN, on one device and with
+    its rays over ``devices``, on the same host-drawn pixels: the refined
+    window poses within BA_DP_POSE_ATOL (its losses reported: they part
+    after a group's first Adam step, see BA_DP_PLAN).
+    ``over_blocks`` must run for every ray-DP loss (the split asserted).
+    Counts PyTorch's AccumulateGrad stream-mismatch warnings per call."""
+    import numpy as np
+    import torch
+
+    c = call
+    F, n = c["colors"].shape[0], c["pixs_per_image"]
+    H, W = c["colors"].shape[1:3]
     gen = torch.Generator().manual_seed(9)
     iters = sum(k for _, k in c["stage_plan"])
     short = sum(k for _, k in BA_DP_PLAN)
-    pix = torch.randint(0, H * W, (max(iters, short), F, n), generator=gen).to(to)
-    _, _, warned_forced = run(c["stage_plan"], pix, None, forced_loss)
+    pix = torch.randint(0, H * W, (max(iters, short), F, n), generator=gen).to(devices[0])
+    forced = []
+    _, _, warned_forced, blocks, _ = captured_core(
+        c, c["stage_plan"], pix, None, loss_fn=forced_loss(devices, ["cams"], forced))
     per_iter = torch.stack(forced).cpu().numpy()
-    n_forced = len(blocks)
-    out = {name: run(BA_DP_PLAN, pix, devs, inner_loss)
+    out = {name: captured_core(c, BA_DP_PLAN, pix, devs)
            for name, devs in (("one", None), ("dp", devices))}
+    blocks += out["dp"][3]
     want_blocks = [len(devices)] * (iters + short)
-    if blocks != want_blocks or n_forced != iters:
+    if blocks != want_blocks or len(forced) != iters:
         raise AssertionError(f"ray DP with BA over {devices}: over_blocks ran {blocks}, "
                              f"not {want_blocks}: the split of {F} x {n} rays did not "
                              "happen for every ray-DP loss")
@@ -2992,13 +3086,13 @@ def phase_ba_sharded(dev, dense_room, first_call):
     t0 = time.perf_counter()
     room, counts = ba_sharded_room(dev, [dev] * BA_SHARD_D, dense_room, "ba_sharded")
     t1 = time.perf_counter()
-    dp = ba_ray_dp(dev, first_call, [dev] * BA_DP_D)
+    dp = ba_ray_dp(first_call, [dev] * BA_DP_D)
     t2 = time.perf_counter()
     cards = None
     if torch.cuda.device_count() >= 2:
         pair = [torch.device("cuda", 0), torch.device("cuda", 1)]
         cards = {"room": ba_sharded_room(dev, pair, dense_room, "ba_sharded_cards")[0],
-                 "ray_dp": ba_ray_dp(dev, first_call, pair)}
+                 "ray_dp": ba_ray_dp(first_call, pair)}
     emit({"phase": "ba_sharded", "ok": True, "device_count": torch.cuda.device_count(),
           "room": room, "ray_dp": dp, "over_distinct_cards": cards,
           "distinct_cards": cards is not None,
@@ -3443,7 +3537,8 @@ def phase_imap_resume(dev, done, cfg):
           "panel_s": panel_s})
 
 
-def imap_box_draw(dev, label, seed, ba=False, scored=False):
+def imap_box_draw(dev, label, seed, ba=False, scored=False, sync="strict",
+                  keyframe_every=None):
     """One draw of the JAX package's selfcheck --imap run
     (``box_imap_quality_cfg``, BA on where ``ba``) with pixel seed
     ``seed`` in this process: its ATE beside a frozen camera's, the MLP's
@@ -3451,7 +3546,8 @@ def imap_box_draw(dev, label, seed, ba=False, scored=False):
     mesh's wall distance, and where ``scored`` its eval_rec mesh's depth L1
     (2D metric, DEPTH_L1_IMGS views, seed 0, as the selfcheck scores it);
     with BA the frames of its BA calls, each write-back checked
-    (``check_ba_calls``)."""
+    (``check_ba_calls``).  ``sync``: the schedule; ``keyframe_every``: the
+    keyframe rate, where it is not the config's."""
     import numpy as np
     import torch
 
@@ -3463,7 +3559,9 @@ def imap_box_draw(dev, label, seed, ba=False, scored=False):
 
     out = os.path.join(HERE, "output", "chip_smoke", f"{label}_s{seed}")
     cfg = box_imap_quality_cfg(out, ba=ba)
-    cfg["seed"] = seed
+    cfg.update(seed=seed, sync_method=sync)
+    if keyframe_every is not None:
+        cfg["mapping"]["keyframe_every"] = keyframe_every
     if ba:
         cfg["meshing"] = None
     else:
@@ -3525,6 +3623,295 @@ def phase_imap_quality(dev):
                              f"camera ({[d['frozen_ate_cm'] for d in draws]} cm); seed "
                              f"{IMAP_QUALITY_SEEDS[0]} depth L1 {depth_l1} cm (gate "
                              f"{IMAP_TRACKED_DEPTH_L1_CM})")
+
+
+# ---------------------------------------------------------------------------
+# iMAP* on the loose and free schedules and over a device list
+# ---------------------------------------------------------------------------
+
+IMAP_DP_D = 2                # imap_dp: rays over [cuda:0] x 2 (and cuda:0, cuda:1)
+IMAP_DP_ITERS = 20           # iterations of each captured call held under ray DP
+IMAP_FAMILY_SEEDS = IMAP_QUALITY_SEEDS  # --imap_families: the loose box family
+
+
+def imap_run(devices, sync, out_name, ba=False, mesh=False):
+    """One run of the cut iMAP* room (``replica_imap_cut_cfg``: 6 frames, 10
+    with BA, a first mapping of 60 and 60 mapping iterations an event)
+    under ``sync`` over ``devices`` (several: the mapper's rays and the
+    mesher's lattice split over them).  ``ba``: BA on, a mapping event every
+    2nd frame and a keyframe at every mapping event (under loose a keyframe is
+    otherwise kept only when a mapped frame lands on a multiple of
+    keyframe_every, and BA, which needs five, might never engage).
+    ``mesh``: the final resolution-256 mesh.  Gates: every frame tracked
+    with finite poses and the last one mapped; K7-K9 launched exactly as the
+    run's recorded calls give them per (kernel, device, stream), and no
+    other kernel (``check_launches``); each thread a stream of its own on
+    every card; the loose lag <= every + every // 2; with BA, BA engaged and
+    each write-back checked pose by pose (``check_ba_calls``); the final
+    mesh with faces.  Returns (record, the system)."""
+    import threading
+
+    import torch
+
+    from nice_slam_torch.slam.slam import NiceSLAM
+    from nice_slam_torch.tools.eval_ate import ate_rmse
+    from nice_slam_torch.tools.profile_step import F32_FLOPS_PER_S as PEAK
+    from nice_slam_torch.tools.profile_step import imap_iteration_flops
+    from nice_slam_torch.tools.workloads import IMAP_CUT_ITERS, replica_imap_cut_cfg
+
+    tag = f"iMAP {sync}{' BA' if ba else ''} over {[str(d) for d in devices]}"
+    out = os.path.join(HERE, "output", "chip_smoke", out_name)
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = replica_imap_cut_cfg(out, ba=ba)
+    cfg["sync_method"] = sync
+    if ba:
+        cfg["mapping"]["keyframe_every"] = 1
+    if not mesh:
+        cfg["meshing"] = None
+    slam = NiceSLAM(cfg, argparse.Namespace(nice=False, output=None), devices=devices)
+    multi = len(devices) > 1
+    if (slam.mapper.devices == list(devices)) != multi or \
+            (mesh and (slam.mesher.devices == list(devices)) != multi):
+        raise AssertionError(f"{tag}: ray DP or the lattice split did not engage")
+    for i in range(slam.n_img):  # frame synthesis is not part of the timing
+        slam.frame_reader[i]
+
+    def thread() -> str:
+        return threading.current_thread().name
+
+    tracks, calls, meshes = [], [], []
+    inner_track, inner_mesh = slam.track_one, slam._mesh
+
+    def tracked(idx, *a, **k):
+        tracks.append((thread(), idx - slam.mapping_idx))
+        return inner_track(idx, *a, **k)
+
+    def meshed(path, *a, **k):
+        meshes.append((thread(), path))
+        return inner_mesh(path, *a, **k)
+
+    slam.track_one, slam._mesh = tracked, meshed
+    cards = sorted(set(devices), key=str)
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    reset_counts()
+    with recorded_core(calls), ba_recorder(slam) as rec:
+        slam.run()
+    counts = all_counts()
+    peak = {str(c): torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
+    n, t = slam.n_img, slam.timings
+    if not torch.isfinite(slam.estimate_c2w_list).all():
+        raise AssertionError(f"{tag}: non-finite poses")
+    if t["tracked_frames"] != n - 1 or slam.mapping_idx != n - 1:
+        raise AssertionError(f"{tag}: tracked {t['tracked_frames']} frames, mapping_idx "
+                             f"{slam.mapping_idx}; expected {n - 1} each")
+    faces = check_launches(slam, devices, False, tracks, calls, meshes, tag)
+    if mesh and not faces.get("final_mesh.ply"):
+        raise AssertionError(f"{tag}: the final mesh has no faces: {faces}")
+    if sync != "strict":
+        check_streams(slam, cards, tag)
+    every = slam.mcfg.every_frame
+    worst = max(lag for _, lag in tracks)
+    if sync == "loose" and worst > every + every // 2:
+        raise AssertionError(f"{tag}: lag {worst} frames > {every + every // 2}")
+    ba_frames = check_ba_calls(rec, slam.estimate_c2w_list, tag)
+    if ba and not ba_frames:
+        raise AssertionError(f"{tag}: BA never engaged")
+    tc, r = slam.tcfg, slam.rcfg
+    map_iters = sum(c[2] for c in calls)
+    map_ms = 1e3 * t["mapping_s"] / map_iters
+    track_ms = t["tracking_ms_per_frame"] / tc.iters
+    map_flops = imap_iteration_flops(cfg["mapping"]["pixels"], r.N_samples, r.N_importance,
+                                     r.N_samples, True)
+    track_flops = imap_iteration_flops(tc.pixels, r.N_samples, r.N_importance, 0, False)
+    record = {
+        "sync": sync, "ba": ba, "devices": [str(d) for d in devices], "frames": n,
+        "cuts": {"frames": n, "iters_first": [IMAP_CUT_ITERS, 1500],
+                 "iters": [IMAP_CUT_ITERS, 300], "meshing": "final" if mesh else "off"},
+        "fps": t.get("fps"), "total_s": t["total_s"], "meshing_s": t["meshing_s"],
+        "tracking_ms_per_frame": t.get("tracking_ms_per_frame"),
+        "tracking_ms_per_iter": track_ms,
+        "mapping_ms_per_event": t.get("mapping_ms_per_event"),
+        "mapping_ms_per_iter": map_ms, "mapping_iters": map_iters,
+        "mapping_calls": len(calls), "mapping_events": t["mapping_events"],
+        "mlp_f32_peak_share": {"tracking": track_flops / (track_ms / 1e3) / PEAK,
+                               "mapping": map_flops / (map_ms / 1e3) / PEAK},
+        "max_lag": worst, "lag_gate": every + every // 2, "peak_mem_gib": peak,
+        "ate_cm": 100 * ate_rmse(slam.estimate_c2w_list.cpu().numpy(), slam.gt_c2w_list),
+        "ba_calls": ba_frames, "write_backs": sum(len(c["writes"]) for c in rec["calls"]),
+        "meshes": faces, "launches": counts,
+        "launches_by_device_stream": {f"{k}@cuda:{i}/{s}": v for (k, i, s), v
+                                      in sorted(all_by_device().items())}}
+    return record, slam
+
+
+def phase_imap_threaded(dev, imap_slice):
+    """iMAP* under the loose and free schedules on one card (``imap_run``):
+    the cut room under loose and under free, beside imap_slice's strict
+    record; then the loose BA room (a keyframe at every mapping event).
+    Returns the three runs' launches."""
+    t0 = time.perf_counter()
+    runs = {sync: imap_run([dev], sync, f"imap_{sync}")[0] for sync in ("loose", "free")}
+    t1 = time.perf_counter()
+    loose_ba = imap_run([dev], "loose", "imap_loose_ba", ba=True)[0]
+    emit({"phase": "imap_threaded", "ok": True, "runs": runs, "loose_ba": loose_ba,
+          "imap_slice_strict": {k: imap_slice.get(k) for k in (
+              "frames", "fps", "tracking_ms_per_frame", "mapping_ms_per_event",
+              "mapping_ms_per_iter", "mlp_f32_peak_share", "peak_memory_gib")},
+          "seconds": {"runs": t1 - t0, "loose_ba": time.perf_counter() - t1,
+                      "total": time.perf_counter() - t0}})
+    return {k: sum(r["launches"][k] for r in (runs["loose"], runs["free"], loose_ba))
+            for k in loose_ba["launches"]}
+
+
+def lattice_split_err(slam, devices) -> dict:
+    """One lattice chunk of the mesher (its first points_batch_size points
+    of the resolution's lattice) through the final state, split over
+    ``devices`` against one device: the largest difference, held to
+    LATTICE_DP_ATOL."""
+    import torch
+
+    from nice_slam_torch.utils.mesher import Mesher, _eval_chunk
+
+    mesher = Mesher(slam.cfg, slam.cam, slam.spec, slam.rcfg)
+    lattice, _ = mesher.get_grid_uniform(slam.cfg["meshing"]["resolution"])
+    pts = torch.from_numpy(lattice[:mesher.points_batch_size]).to(slam.device)
+    with torch.no_grad():
+        one = _eval_chunk(slam.spec, slam.state, pts, "fine", None)
+        split = _eval_chunk(slam.spec, slam.state, pts, "fine", devices)
+    err = float((one - split).abs().max())
+    if not err <= LATTICE_DP_ATOL:
+        raise AssertionError(f"lattice data parallelism over {devices} off by {err}")
+    return {"lattice_points": int(pts.shape[0]), "lattice_max_abs_diff": err,
+            "lattice_atol": LATTICE_DP_ATOL}
+
+
+def imap_ray_dp(call, devices):
+    """An iMAP* mapping call captured in imap_ba_room (``first_calls``) cut to
+    IMAP_DP_ITERS iterations, on one device, each iteration's loss and the
+    gradients of the MLP (and, under BA, the camera) also computed with its
+    rays over ``devices`` from the same state, pixels and regulariser
+    jitter (``forced_loss``): per iteration the loss within DP_LOSS_RTOL
+    relative, each group's gradient within DP_LOSS_RTOL of its largest
+    entry; ``over_blocks`` split every ray-DP loss.  Then the cut call on one
+    device and with its rays over ``devices``: ms per mapping iteration,
+    and the AccumulateGrad warnings per call."""
+    import torch
+
+    c = call
+    F, n = c["colors"].shape[0], c["pixs_per_image"]
+    H, W = c["colors"].shape[1:3]
+    plan = (("color", IMAP_DP_ITERS),)
+    gen = torch.Generator().manual_seed(9)
+    pix = torch.randint(0, H * W, (IMAP_DP_ITERS, F, n), generator=gen).to(devices[0])
+    reg_t = torch.rand((IMAP_DP_ITERS, F * n, c["rcfg"].N_samples),
+                       generator=gen).to(devices[0])
+    groups = ["dec"] + (["cams"] if c["BA"] else [])
+    forced = []
+    _, _, warned_forced, splits, _ = captured_core(
+        c, plan, pix, None, reg_t, loss_fn=forced_loss(devices, groups, forced))
+    per_iter = torch.stack(forced).cpu().numpy()
+    runs = {name: captured_core(c, plan, pix, devs, reg_t)
+            for name, devs in (("one", None), ("dp", devices))}
+    splits += runs["dp"][3]
+    want = [len(devices)] * (2 * IMAP_DP_ITERS)
+    rel = {g: float((per_iter[:, 1 + 2 * i] / per_iter[:, 2 + 2 * i]).max())
+           for i, g in enumerate(groups)}
+    rec = {"devices": [str(d) for d in devices], "ba": bool(c["BA"]),
+           "window_frames": F, "rays_per_iter": F * n, "iters": IMAP_DP_ITERS,
+           "loss_max_rel_diff": float(per_iter[:, 0].max()),
+           "grad_max_rel_diff": rel, "rtol": DP_LOSS_RTOL,
+           "ms_per_iter": {k: 1e3 * v[4] / IMAP_DP_ITERS for k, v in runs.items()},
+           "losses_last": {k: float(v[0][-1]) for k, v in runs.items()},
+           "over_blocks_calls": len(splits),
+           "accumulate_grad_warnings_per_call": {
+               "forced": len(warned_forced), "one": len(runs["one"][2]),
+               "dp": len(runs["dp"][2])},
+           "accumulate_grad_warning": (warned_forced + runs["dp"][2] + [None])[0]}
+    if splits != want or len(forced) != IMAP_DP_ITERS:
+        raise AssertionError(f"iMAP ray DP over {devices}: over_blocks ran {splits}, not "
+                             f"{want}: the split of {F} x {n} rays did not happen")
+    if not (rec["loss_max_rel_diff"] <= DP_LOSS_RTOL
+            and all(v <= DP_LOSS_RTOL for v in rel.values())):
+        raise AssertionError(f"iMAP ray DP over {devices}: {rec}")
+    return rec
+
+
+def phase_imap_dp(dev, calls):
+    """iMAP* over a device list: for [cuda:0] x IMAP_DP_D, and cuda:0, cuda:1
+    where two cards are visible, (1) the first mapping call without BA and
+    the first BA call of imap_ba_room under ray DP against one device
+    (``imap_ray_dp``); (2) the free schedule with ray DP and the lattice
+    split (``imap_run``, the final mesh with faces), then one lattice chunk
+    of its final state over the devices against one device.  Returns the
+    launches of the free run over [cuda:0] x IMAP_DP_D."""
+    import torch
+
+    t0 = time.perf_counter()
+    lists = [[dev] * IMAP_DP_D]
+    if torch.cuda.device_count() >= 2:
+        lists.append([torch.device("cuda", 0), torch.device("cuda", 1)])
+    out = []
+    for devices in lists:
+        t1 = time.perf_counter()
+        calls_rec = {name: imap_ray_dp(calls[ba], devices)
+                     for name, ba in (("ba_off", False), ("ba_on", True))}
+        t2 = time.perf_counter()
+        free, slam = imap_run(devices, "free",
+                              f"imap_free_dp_{len(set(devices))}cards", mesh=True)
+        free.update(lattice_split_err(slam, devices))
+        del slam
+        out.append({"devices": [str(d) for d in devices], "distinct_cards": len(set(devices)),
+                    "calls": calls_rec, "free": free,
+                    "seconds": {"calls": t2 - t1, "free": time.perf_counter() - t2}})
+    emit({"phase": "imap_dp", "ok": True, "device_count": torch.cuda.device_count(),
+          "lists": out, "distinct_cards": len(lists) > 1,
+          "seconds": time.perf_counter() - t0})
+    return out[0]["free"]["launches"]
+
+
+def phase_imap_families(dev):
+    """``python3 chip_smoke.py --imap_families`` (left out of the default run
+    for time): imap_quality's strict draws at once (child processes), then
+    the loose iMAP* box family (``box_imap_quality_cfg`` under loose, seeds
+    IMAP_FAMILY_SEEDS) one draw after another in this process, as
+    ``loose_box_family`` runs them (a loose result depends on how the
+    threads race): every loose draw within IMAP_ATE_GATE_CM and below a
+    frozen camera's ATE (imap_quality's gates), the family's median beside
+    the strict median.  Then one loose BA box draw with a keyframe per
+    mapping event: BA engaged, each write-back checked, ATE within
+    ATE_DIVERGED_CM (the reference's loose BA write-back hazard, ROADMAP C,
+    gave NICE 8.6-22 cm), beside the BA-off loose draw of its seed."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    strict = draws_at_once("imap_box", [dict(label="imap_families_strict", seed=seed)
+                                        for seed in IMAP_FAMILY_SEEDS])
+    t1 = time.perf_counter()
+    loose = [imap_box_draw(dev, "imap_loose", seed, sync="loose")
+             for seed in IMAP_FAMILY_SEEDS]
+    t2 = time.perf_counter()
+    ba = imap_box_draw(dev, "imap_loose_ba", IMAP_FAMILY_SEEDS[0], ba=True, sync="loose",
+                       keyframe_every=1)
+    ba["without_ba_ate_cm"] = loose[0]["ate_rmse_cm"]
+    ates = [d["ate_rmse_cm"] for d in loose]
+    ok = all(d["ate_rmse_cm"] <= IMAP_ATE_GATE_CM and d["ate_rmse_cm"] < d["frozen_ate_cm"]
+             for d in loose)
+    ba_ok = bool(ba["ba_calls"]) and ba["ate_rmse_cm"] <= ATE_DIVERGED_CM
+    emit({"phase": "imap_families", "ok": ok and ba_ok, "frames": 30, "loose_draws": loose,
+          "loose_median_ate_cm": float(np.median(ates)),
+          "strict_median_ate_cm": float(np.median([d["ate_rmse_cm"] for d in strict])),
+          "strict_draws": strict, "gate_cm": IMAP_ATE_GATE_CM, "loose_ba": ba,
+          "loose_ba_gate_cm": ATE_DIVERGED_CM,
+          "seconds": {"strict": t1 - t0, "loose": t2 - t1, "loose_ba": time.perf_counter() - t2}})
+    if not ok:
+        raise AssertionError(f"loose iMAP ATE over seeds {IMAP_FAMILY_SEEDS}: {ates} cm; every "
+                             f"draw must be <= {IMAP_ATE_GATE_CM} and beat a frozen camera "
+                             f"({[d['frozen_ate_cm'] for d in loose]} cm)")
+    if not ba_ok:
+        raise AssertionError(f"loose iMAP BA draw: BA calls {ba['ba_calls']}, ATE "
+                             f"{ba['ate_rmse_cm']} cm (gate {ATE_DIVERGED_CM})")
 
 
 READERS_FRAMES = 5            # frames per layout of the readers' export
@@ -4700,6 +5087,7 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     mapping call, ``meshes`` (thread, path) per mesh written.  Returns them
     and each mesh's faces."""
     import collections
+    import math
 
     D = len(devices)
     k1, k2, k3 = "trilinear_fwd", "trilinear_bwd_dgrid", "trilinear_bwd_dp"
@@ -4707,6 +5095,10 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     k7, k8, k9 = "integrate_fwd", "integrate_bwd", "group_adam"
     k10 = ("frustum_mask",)
     cards = list({d.index: d for d in devices}.values())
+    nice = slam.nice
+    # K7 per render: an importance pass (iMAP*) integrates first, without
+    # a gradient
+    renders = 1 + int(slam.rcfg.N_importance > 0)
     want = collections.Counter()
 
     def add(kernels, th, devs, times):
@@ -4719,27 +5111,41 @@ def expected_launches(slam, devices, sharded, tracks, calls, meshes):
     # the integrator once per replica, on the points' device when the grids
     # are sharded; K9 once per step on each card the trained leaves lie on
     # (the slabs' cards; the first, where a replicated scene trains; the
-    # last for the pinned coarse mapper); K10 once per main-mapper call
+    # last for the pinned coarse mapper); K10 once per main-mapper call.
+    # iMAP*'s MLP is no kernel of these: K7-K9 alone
     first = [devices[0]]
     for th, _ in tracks:
-        add((k1, k3), th, devices if sharded else first, slam.tcfg.iters)
-        add((k4, k5, k7, k8, k9), th, first, slam.tcfg.iters)
+        if nice:
+            add((k1, k3), th, devices if sharded else first, slam.tcfg.iters)
+            add((k4, k5), th, first, slam.tcfg.iters)
+        add((k7,), th, first, renders * slam.tcfg.iters)
+        add((k8, k9), th, first, slam.tcfg.iters)
     for th, coarse, iters, rays, k6_calls, frustum, ba in calls:
         if sharded or (not coarse and rays % D == 0):
             devs = devices
         else:
             devs = [devices[-1]] if coarse else first
-        add((k1, k2, k3) if ba else (k1, k2), th, devs, iters)
-        add((k4, k5, k7, k8), th, first if sharded else devs, iters)
-        add((k6,), th, first if sharded else devs, k6_calls)
+        if nice:
+            add((k1, k2, k3) if ba else (k1, k2), th, devs, iters)
+            add((k4, k5), th, first if sharded else devs, iters)
+            add((k6,), th, first if sharded else devs, k6_calls)
+        add((k7,), th, first if sharded else devs, renders * iters)
+        add((k8,), th, first if sharded else devs, iters)
         add((k9,), th, cards if sharded else [devices[-1]] if coarse else first, iters)
         add(k10, th, first, frustum)
+    faces = {}
+    if slam.mesher is None:
+        return want, faces
     lattice = slam.mesher.resolution ** 3
     chunk = min(slam.rcfg.points_batch_size, lattice)
-    faces = {}
     for th, path in meshes:
         verts, f = mesh_stats(path)
         faces[os.path.basename(path)] = len(f)
+        if not nice:
+            # the vertex colours rendered along the normals on the first
+            # device; the lattice through the MLP alone
+            add((k7,), th, first, renders * math.ceil(len(verts) / slam.rcfg.ray_batch_size))
+            continue
         for size in chunk_sizes(lattice, chunk) + chunk_sizes(len(verts), chunk):
             devs = devices if sharded or size % D == 0 else first
             add((k1,), th, devs, 1)
@@ -4778,7 +5184,7 @@ def check_streams(slam, cards, tag):
     """Each thread of a threaded run has a stream of its own on every card."""
     import torch
 
-    expected = {"tracker", "mapper", "coarse_mapper"}
+    expected = {"tracker", "mapper"} | ({"coarse_mapper"} if slam.coarse_mapper else set())
     if set(slam.streams) != expected:
         raise AssertionError(f"{tag}: thread streams {sorted(slam.streams)}")
     for c in cards:
@@ -4788,7 +5194,7 @@ def check_streams(slam, cards, tag):
                 raise AssertionError(f"{tag}: {name} streams on "
                                      f"{sorted(map(str, slam.streams[name]))}")
             sids.add(slam.streams[name][c].cuda_stream)
-        if len(sids) != 4:
+        if len(sids) != len(expected) + 1:
             raise AssertionError(f"{tag}: the threads share a stream on {c}")
 
 
@@ -5032,6 +5438,9 @@ def main(argv=None) -> int:
                         help="build, then run only the BA box families (the box with BA "
                              "over 2 slabs, iMAP*'s box with BA), which the smoke leaves "
                              "out for time")
+    parser.add_argument("--imap_families", action="store_true",
+                        help="build, then run only the loose iMAP* box family and a loose "
+                             "iMAP* BA draw, which the smoke leaves out for time")
     parser.add_argument("--draw", choices=sorted(DRAWS), default=None,
                         help="one draw of a box family or a tour, its record as the last "
                              "line (the processes draws_at_once starts; --draw_args its "
@@ -5048,13 +5457,15 @@ def main(argv=None) -> int:
         return 0
     card = smi()
     t0 = time.perf_counter()
-    if args.tracked_tour or args.ba_families:
+    if args.tracked_tour or args.ba_families or args.imap_families:
         try:
             phase_build()
             if args.tracked_tour:
                 phase_tracked_tour(dev)
             if args.ba_families:
                 phase_ba_families(dev)
+            if args.imap_families:
+                phase_imap_families(dev)
         except Exception:  # a failure fails the command, with its traceback
             traceback.print_exc()
             return 1
@@ -5067,7 +5478,7 @@ def main(argv=None) -> int:
         cases, lookups, cap = phase_capture(dev)
         cases["ba"] = ba_capture(dev)
         first_ba_call = cases["ba"].pop("first_call")
-        imap_ba_room, imap_k8 = phase_imap_ba_room(dev)
+        imap_ba_room, imap_k8, imap_calls = phase_imap_ba_room(dev)
         imap_ba_counts = imap_ba_room["launches"]
         rows, _, ba_window_rows = phase_kernels(dev, cases, lookups, imap_k8)
         del imap_k8
@@ -5087,6 +5498,9 @@ def main(argv=None) -> int:
         del done
         phase_imap_quality(dev)
         phase_imap_ba(imap_ba_room, imap_slice)
+        imap_threaded_counts = phase_imap_threaded(dev, imap_slice)
+        imap_dp_counts = phase_imap_dp(dev, imap_calls)
+        del imap_calls
         phase_readers(dev)
         window_rows, sharded_counts, sharded_loop_rec = phase_sharded(
             dev, cases, rows, cap, strict)
@@ -5097,7 +5511,8 @@ def main(argv=None) -> int:
         pretrain_rows, pretrain_counts = phase_pretrain(dev)
         rows += pretrain_rows
         phase_counts = {"slice": counts, "ba": ba_counts, "ba_sharded": ba_sharded_counts,
-                        "imap_ba": imap_ba_counts, "pretrain": pretrain_counts,
+                        "imap_ba": imap_ba_counts, "imap_threaded": imap_threaded_counts,
+                        "imap_dp": imap_dp_counts, "pretrain": pretrain_counts,
                         "sharded": sharded_counts, "threaded_sharded": ts_counts,
                         "envelope": phase_envelope(dev),
                         "landscape": phase_landscape(dev)}

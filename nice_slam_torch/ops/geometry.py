@@ -177,6 +177,17 @@ def ray_aabb_far(rays_o: torch.Tensor, rays_d: torch.Tensor,
 # Hierarchical importance sampling
 # ---------------------------------------------------------------------------
 
+def uniform(shape, gen: Optional[torch.Generator], device) -> torch.Tensor:
+    """Uniform [0, 1) draws of ``shape`` from ``gen``.  A draw without a
+    generator raises instead of falling back on PyTorch's global one, as a
+    draw without a key fails in the JAX package: a caller that must not
+    draw (a ray data-parallel block, whose draws are made before the
+    split) passes none."""
+    if gen is None:
+        raise ValueError("a random draw needs a torch.Generator; none was given")
+    return torch.rand(shape, generator=gen, device=device)
+
+
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,
                det: bool = False, u: Optional[torch.Tensor] = None,
                gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -193,7 +204,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,
     if det:
         u = linspace(0.0, 1.0, N_samples, device=cdf.device).expand(shape)
     elif u is None:
-        u = torch.rand(shape, generator=gen, device=cdf.device)
+        u = uniform(shape, gen, cdf.device)
     u = u.contiguous()
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = torch.clamp(inds - 1, min=0)

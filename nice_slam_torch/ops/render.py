@@ -21,7 +21,13 @@ from typing import Optional, Tuple
 import torch
 
 from nice_slam_torch.models.scene import SceneSpec, SceneState, eval_points
-from nice_slam_torch.ops.geometry import linspace, ray_aabb_far, rays_from_uv, sample_pdf
+from nice_slam_torch.ops.geometry import (
+    linspace,
+    ray_aabb_far,
+    rays_from_uv,
+    sample_pdf,
+    uniform,
+)
 from nice_slam_torch.ops.integrator import raw2outputs_nerf_color
 
 
@@ -64,7 +70,7 @@ def _stratified_z(near: torch.Tensor, far: torch.Tensor, N_samples: int,
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
         if t_rand is None:
-            t_rand = torch.rand(z_vals.shape, generator=gen, device=z_vals.device)
+            t_rand = uniform(z_vals.shape, gen, z_vals.device)
         z_vals = lower + (upper - lower) * t_rand
     return z_vals
 

@@ -356,10 +356,13 @@ def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
         inside = torch.ones_like(gt_d, dtype=torch.bool)
     inside = inside & torch.repeat_interleave(frame_valid, pixs_per_image)
 
-    def ray_loss(st, ro, rd, gd, gc, ins, rt=None, depth_max=None):
+    def ray_loss(st, ro, rd, gd, gc, ins, rt=None, depth_max=None, reg_gen=None):
+        # no generator: the mapping renders draw nothing (perturb 0 and a
+        # deterministic importance pass; the JAX mapper renders with
+        # key=None), and a draw without one raises
         depth, _, color = render_batch_ray(
             spec, st, ro, rd, stage, gt_depth=None if mcfg.coarse_mapper else gd,
-            rcfg=rcfg, gen=gen, depth_max=depth_max)
+            rcfg=rcfg, depth_max=depth_max)
         ddiff = torch.abs(gd - depth)
         loss = torch.sum(torch.where((gd > 0) & ins, ddiff, torch.zeros_like(ddiff)))
         if not spec.nice or stage == "color":
@@ -371,15 +374,17 @@ def mapping_loss(spec: SceneSpec, groups: Dict[str, Any],
             # the JAX mapper passes them (nice_slam_tpu/slam/mapper.py:553-554:
             # its samples lie at rays_d + rays_o * z; ROADMAP C)
             sigma = regulation(spec, st, rd, ro, gd, rcfg.N_samples, stage,
-                               gen=gen, t_rand=rt)
+                               gen=reg_gen, t_rand=rt)
             loss = loss + 0.0005 * torch.sum(torch.abs(sigma))
         return loss
 
     if not data_parallel(devices, rays_o.shape[0]):
-        return ray_loss(state, rays_o, rays_d, gt_d, gt_c, inside, reg_t)
+        return ray_loss(state, rays_o, rays_d, gt_d, gt_c, inside, reg_t, reg_gen=gen)
     # ray data parallelism: what the whole batch shares is drawn or
     # reduced before the split (the regulariser's jitter, drawn as
-    # ``regulation`` would draw it; the largest depth)
+    # ``regulation`` would draw it; the largest depth), and the blocks get
+    # no generator: a draw in a block would take a device's draws in block
+    # order, or another device's generator, so it raises
     if not mcfg.occupancy and reg_t is None:
         reg_t = torch.rand((rays_o.shape[0], rcfg.N_samples), generator=gen,
                            device=rays_o.device)

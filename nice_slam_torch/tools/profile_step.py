@@ -1,7 +1,7 @@
 """Where a tracking frame's and a mapping call's time goes on the card.
 
-    python -m nice_slam_torch.tools.profile_step [--out DIR] [--ba]
-        [--imap | --schedules [strict,loose,free]] [--devices LIST] [--items LIST]
+    python -m nice_slam_torch.tools.profile_step [--out DIR] [--ba] [--imap]
+        [--schedules [strict,loose,free]] [--devices LIST] [--items LIST]
         [--reps N]
 
 Runs the Replica-scale synthetic workload (``tools/workloads.py``) for
@@ -49,7 +49,9 @@ floating-point work (``mlp_tflop``, from the shapes) and its time at the
 card's float32 peak (``mlp_bound_ms``).
 
 ``--schedules`` profiles whole runs instead: the 12-frame loop of the
-Replica-scale workload (first mapping 300 iterations, no meshes) under
+Replica-scale workload (first mapping 300 iterations, no meshes; with
+``--imap`` the 6-frame iMAP* room cut as the smoke's imap_threaded and
+imap_dp runs are, ``replica_imap_cut_cfg``) under
 the strict, loose and free schedules (or those listed), one row each with the run's wall
 time, fps, tracking ms per frame, mapping and coarse-mapping ms per event
 and events of an unprofiled run, and the wall, device busy time and idle
@@ -217,24 +219,27 @@ def _per_card(prof, wall_ms: float) -> dict:
             "peer_copy_share": peer_ms / wall_ms}
 
 
-def profile_schedules(out: str, schedules, devices=None) -> None:
-    """One row per schedule: a whole 12-frame run without meshes over
-    ``devices`` (None: every visible card).  A strict run first builds the
-    kernels and warms the cards; then each schedule runs unprofiled (wall
-    time, fps, each card's peak memory), then each once more under the
-    profiler (device activity only: the host-side trace of ~400k operations
-    would slow the threads it measures)."""
+def profile_schedules(out: str, schedules, devices=None, imap: bool = False) -> None:
+    """One row per schedule: a whole run without meshes over ``devices``
+    (None: every visible card), of the Replica-scale room (12 frames, the
+    first mapping 300 iterations) or (``imap``) the cut iMAP* room
+    (``replica_imap_cut_cfg``).  A strict run first builds the kernels and
+    warms the cards; then each schedule runs unprofiled (wall time, fps,
+    each card's peak memory), then each once more under the profiler
+    (device activity only: the host-side trace of ~400k operations would
+    slow the threads it measures)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from nice_slam_torch.slam.slam import NiceSLAM
-    from nice_slam_torch.tools.workloads import replica_synthetic_cfg
+    from nice_slam_torch.tools.workloads import replica_imap_cut_cfg, replica_synthetic_cfg
 
     def fresh(sync):
-        cfg = replica_synthetic_cfg(os.path.join(out, sync), n_frames=12,
-                                    iters_first=300)
+        out_sync = os.path.join(out, sync)
+        cfg = (replica_imap_cut_cfg(out_sync) if imap else
+               replica_synthetic_cfg(out_sync, n_frames=12, iters_first=300))
         cfg.update(sync_method=sync, meshing=None)
-        slam = NiceSLAM(cfg, argparse.Namespace(nice=True, output=None), "cuda",
+        slam = NiceSLAM(cfg, argparse.Namespace(nice=not imap, output=None), "cuda",
                         devices=devices)
         for i in range(slam.n_img):  # frame synthesis is not timed
             slam.frame_reader[i]
@@ -258,7 +263,9 @@ def profile_schedules(out: str, schedules, devices=None) -> None:
         wall = 1e3 * (time.perf_counter() - t0)
         t = slam.timings
         rows[sync] = (wall, {"what": f"loop_{sync}", "device": card,
+                             "model": "imap" if imap else "nice",
                              "devices": [str(d) for d in devices],
+                             "ray_dp": slam.mapper.devices is not None,
                              "spatial": slam.spatial_devices is not None,
                              "coarse_device": str(getattr(slam.coarse_mapper, "device", None)),
                              "frames": slam.n_img, **{k: t.get(k) for k in (
@@ -288,12 +295,11 @@ def profile_schedules(out: str, schedules, devices=None) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="output directory")
-    group = parser.add_mutually_exclusive_group()
-    group.add_argument("--imap", action="store_true",
-                       help="profile the iMAP* model")
-    group.add_argument("--schedules", nargs="?", const="strict,loose,free",
-                       help="profile whole runs of these schedules "
-                            "(comma-separated; default all three)")
+    parser.add_argument("--imap", action="store_true",
+                        help="profile the iMAP* model")
+    parser.add_argument("--schedules", nargs="?", const="strict,loose,free",
+                        help="profile whole runs of these schedules "
+                             "(comma-separated; default all three)")
     parser.add_argument("--ba", action="store_true",
                         help="also profile the mapping call with bundle adjustment")
     parser.add_argument("--reps", type=int, default=1,
@@ -327,7 +333,7 @@ def main() -> None:
                                    "profile_step_imap" if args.imap else "profile_step")
     if args.schedules:
         profile_schedules(out, args.schedules.split(","),
-                          args.devices and args.devices.split(","))
+                          args.devices and args.devices.split(","), args.imap)
         return
     make = replica_imap_cfg if args.imap else replica_synthetic_cfg
     cfg = make(out, n_frames=17, iters_first=300)

@@ -42,6 +42,12 @@ give BA calls at frame 10 (3 calls) and frame 11 (the final
 refinement's 5); with a mapping event every 5th frame, as the config
 has it, 12 frames keep only 3 keyframes.
 
+``replica_imap_cut_cfg``: that iMAP* room cut further for time, as the
+smoke's runs of the threaded schedules and of a device list cut it (6
+frames, a first mapping of 60 iterations and 60 an event; the widths
+uncut); ``ba`` as above, with 10 frames: its five keyframes, every 2nd
+frame, fill by frame 8.
+
 ``box_imap_quality_cfg``: the JAX package's ``selfcheck --imap`` run
 (box.yaml on imap.yaml, 30 frames, 0.25 rad orbit, mapping iters 60,
 first 400, coarse off, resolution 128) whose per-seed ATE
@@ -108,6 +114,16 @@ def replica_imap_cfg(out_dir: str, n_frames: int = 12,
     cfg["meshing"]["eval_rec"] = False
     if ba:
         cfg["mapping"].update(BA=True, every_frame=2, keyframe_every=2)
+    return cfg
+
+
+IMAP_CUT_ITERS = 60    # the cut iMAP* room's first mapping and mapping iterations an event
+
+
+def replica_imap_cut_cfg(out_dir: str, ba: bool = False) -> Dict[str, Any]:
+    cfg = replica_imap_cfg(out_dir, n_frames=10 if ba else 6, iters_first=IMAP_CUT_ITERS,
+                           ba=ba)
+    cfg["mapping"]["iters"] = IMAP_CUT_ITERS
     return cfg
 
 

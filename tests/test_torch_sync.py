@@ -362,10 +362,12 @@ data: {{n_frames: 5, orbit_radians: 0.1, output: {tmp_path}/out}}
         assert os.path.exists(tmp_path / "out" / f), f
 
 
-def test_warmup_events_match_jax(tmp_path):
+@pytest.mark.parametrize("nice", [True, False], ids=["nice", "imap"])
+def test_warmup_events_match_jax(tmp_path, nice):
     """From the same initial scene and config under loose, the warm-up
     runs the same events in the same order in both packages: map 0
-    (init), coarse 0, track 1, track 2, map 2, coarse 2.  (The threads'
+    (init), coarse 0, track 1, track 2, map 2, coarse 2 (iMAP*, which has
+    no coarse mapper: map 0, track 1, track 2, map 2).  (The threads'
     events after it interleave nondeterministically, and there is no RNG
     parity, so only the order is compared.)"""
     import jax
@@ -374,23 +376,29 @@ def test_warmup_events_match_jax(tmp_path):
     from nice_slam_tpu.config import load_config as jload_config
     from nice_slam_tpu.slam.slam import NiceSLAM as JSLAM
 
+    args = argparse.Namespace(nice=nice, input_folder=None, output=None)
+
     def cfg_for(load, out):
         cfg = load(os.path.join(ROOT, "configs", "Synthetic", "box.yaml"),
-                   os.path.join(ROOT, "configs", "nice_slam.yaml"))
-        cfg.update(sync_method="loose", coarse=True, verbose=False, meshing=None)
+                   os.path.join(ROOT, "configs",
+                                "nice_slam.yaml" if nice else "imap.yaml"))
+        cfg.update(sync_method="loose", coarse=nice, verbose=False, meshing=None)
         cfg["data"].update({"n_frames": 4, "output": str(out),
                             "orbit_radians": 0.05})
         cfg["cam"].update({"H": 30, "W": 40, "fx": 30.0, "fy": 30.0,
                            "cx": 19.5, "cy": 14.5})
         cfg["tracking"].update({"pixels": 32, "iters": 2, "ignore_edge_W": 2,
                                 "ignore_edge_H": 2})
-        cfg["mapping"].update({"pixels": 64, "iters_first": 4, "iters": 2,
+        cfg["mapping"].update({"pixels": 64, "iters_first": 4,
+                               "iters": 2 if nice else 3,  # iMAP*: 3 calls of 1
                                "mesh_freq": 10 ** 6, "ckpt_freq": 10 ** 6,
                                "color_refine": False})  # one compile less
-        cfg["rendering"].update({"N_samples": 8, "N_surface": 4})
-        for k in ("coarse", "middle_fine"):
-            cfg["pretrained_decoders"][k] = os.path.join(
-                ROOT, cfg["pretrained_decoders"][k])
+        cfg["rendering"].update({"N_samples": 8, "N_surface": 4} if nice
+                                else {"N_samples": 8, "N_importance": 4})
+        if nice:
+            for k in ("coarse", "middle_fine"):
+                cfg["pretrained_decoders"][k] = os.path.join(
+                    ROOT, cfg["pretrained_decoders"][k])
         return cfg
 
     def record(slam):
@@ -408,22 +416,25 @@ def test_warmup_events_match_jax(tmp_path):
         slam.map_one, slam.track_one = map_one, track_one
         return events
 
-    js = JSLAM(cfg_for(jload_config, tmp_path / "jax"), ARGS)
-    ts = NiceSLAM(cfg_for(load_config, tmp_path / "torch"), ARGS, device="cpu")
+    js = JSLAM(cfg_for(jload_config, tmp_path / "jax"), args)
+    ts = NiceSLAM(cfg_for(load_config, tmp_path / "torch"), args, device="cpu")
     ts.state = scene_from_jax(jax.tree.map(np.asarray, js.state), device="cpu")
     jev, tev = record(js), record(ts)
     run_bounded(js)
     run_bounded(ts)
     warm = [("map", 0, True, False), ("map", 0, True, True), ("track", 1),
             ("track", 2), ("map", 2, False, False), ("map", 2, False, True)]
-    assert jev[:6] == tev[:6] == warm
-    # then the threads: frame 3 tracked, and the last frame mapped by both
-    # mappers (each thread always maps it; the strict loop skips the
+    if not nice:
+        warm = [ev for ev in warm if ev[0] == "track" or not ev[3]]
+    k = len(warm)
+    assert jev[:k] == tev[:k] == warm
+    # then the threads: frame 3 tracked, and the last frame mapped by each
+    # mapper (each thread always maps it; the strict loop skips the
     # coarse one there)
     for ev in (jev, tev):
-        assert ev[6:].count(("track", 3)) == 1
-        assert ev[6:].count(("map", 3, False, False)) == 1
-        assert ev[6:].count(("map", 3, False, True)) == 1
+        assert ev[k:].count(("track", 3)) == 1
+        assert ev[k:].count(("map", 3, False, False)) == 1
+        assert ev[k:].count(("map", 3, False, True)) == int(nice)
     assert js.mapping_idx == ts.mapping_idx == 3
 
 
